@@ -5,8 +5,10 @@ into a shared library with a plain C interface and loaded with
 ``ctypes``; the wrappers pass device pointers (``Tensor.data_ptr()``) and
 PyTorch's current stream.  Sources carry no PyTorch headers, so a build
 takes seconds.  Libraries go into ``build/`` beside this file (listed in
-``.gitignore``) under a name that hashes the sources and the flags, so a
-changed source rebuilds and an unchanged one loads from disk.
+``.gitignore``) under a name that hashes the source, every shared header
+(``csrc/*.cuh``) and the flags, so a changed source or header rebuilds
+and an unchanged one loads from disk.  ``build_all`` compiles every
+source at once, one ``nvcc`` each, all started together.
 
 Nothing here runs at import: the compiler is looked up and run only when
 a wrapper first launches its kernel on a CUDA tensor.
@@ -19,8 +21,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -48,10 +52,18 @@ def nvcc_path() -> str:
     return found
 
 
+def sources() -> List[str]:
+    """Every CUDA source of the port (``csrc/*.cu``), by name."""
+    return sorted(p.name for p in CSRC.glob("*.cu"))
+
+
 def library_path(source: str) -> Path:
-    """Where the library of ``csrc/<source>`` is (or will be) built."""
+    """Where the library of ``csrc/<source>`` is (or will be) built: its
+    name hashes the flags, the source and every shared header."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / source).read_bytes())
+    for path in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -60,7 +72,8 @@ def _build(source: str) -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    tmp = out.with_name(
+        f".{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
         [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
         capture_output=True, text=True)
@@ -79,3 +92,22 @@ def load_library(source: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[source] = ctypes.CDLL(str(_build(source)))
         return lib
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every source that has no library yet, one ``nvcc`` process
+    each, all at once, then load them all.  Returns the seconds each
+    build took (next to nothing for a library already on disk).  A failed
+    build raises."""
+    def timed(source: str) -> float:
+        t0 = time.perf_counter()
+        _build(source)
+        return time.perf_counter() - t0
+
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+        seconds = {name: fut.result() for name, fut in futures.items()}
+    for name in names:
+        load_library(name)
+    return seconds

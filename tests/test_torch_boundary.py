@@ -41,6 +41,17 @@ def test_port_has_the_slice_modules():
     assert (PORT / "kernels" / "csrc" / "grid_minmax.cu").is_file()
 
 
+def test_port_has_the_kernel_entry_point_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.interop", "repro_torch.core.gpu_model"} <= mods
+    for name in ("ref", "matmul", "fused_addnorm", "bn", "flash_attention",
+                 "ops", "forward", "_dispatch", "_ext"):
+        assert f"repro_torch.kernels.{name}" in mods
+    for source in ("matmul.cu", "fused_addnorm.cu", "bn_forward.cu",
+                   "flash_attention.cu", "common.cuh"):
+        assert (PORT / "kernels" / "csrc" / source).is_file()
+
+
 def test_every_port_module_imports_without_jax_or_repro():
     script = (
         "import importlib, json, sys\n"
