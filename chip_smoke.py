@@ -40,7 +40,32 @@ From the repository root, on a machine with one CUDA card:
    PyTorch call that computes the same (where there is one) and its bound:
    through the wrapper (CUDA events), on the device alone (the calls
    queued behind a device sleep), and as the profiler's trace sees it;
-   and times every compiled GEMM tile against the tile model's pick.
+   and times every compiled GEMM tile against the tile model's pick;
+10. drives one ResNet-50 training step at full width and depth
+    (``kernels/training.py``: batch 32, 224 x 224 images, 1000 classes,
+    bf16 GEMMs and float32 BN, Goyal et al.'s zero-gamma init, seeded),
+    every launch counter set to 0 before it and held after it to
+    ``training_launches`` (161 ``matmul``, 53 ``bn_forward``, 53
+    ``bn_backward``), then two more SGDM steps with finite losses; the
+    same in float32;
+11. holds the second step's loss and every gradient against the plain
+    step from the same weights, on the same ReLU and max-pool choices
+    (relative Frobenius error, limits ``TRAIN_REL``), and holds a control
+    to fail each limit (float32: a plain step with noisy GEMMs on its own
+    choices; bf16: a plain step whose GEMMs keep two mantissa bits fewer
+    than bfloat16, on the same choices); holds
+    ``bn_backward`` (and the step's GEMMs and BN forwards) against the
+    plain versions on the step's inputs, on the cases of
+    ``tests/test_kernels.py``, their bf16 forms and ragged shapes, and
+    ``BatchNormFn`` against autograd of the plain forward;
+12. times ``bn_backward`` at the stem and over all 53 BN layers beside
+    its plain version, its bound and ``native_batch_norm_backward``, and
+    the warm step (kernel, plain and float32): by events with the host,
+    and its device time from the profiler's trace, split into the GEMM
+    kernels, BN forward, BN backward and the rest (with the idle share
+    and the non-convolution share on this card beside the port's
+    simulator's figure for a 64x64 array); the step's GEMMs by phase
+    (fwd, dX, dW), each timed alone; ``MatmulFn``'s transposed copies.
 
 Any failed phase raises and the script exits non-zero.  Without CUDA, or
 without the repository's ``src/`` beside it, it exits non-zero and prints
@@ -55,6 +80,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -430,13 +456,17 @@ BF16_OPS_PER_S = 989e12
 SLICE_SEED = 2026
 QWEN_BATCH, QWEN_SEQ = 2, 2048          # one prefill of 4096 tokens
 RESNET_BATCH = 32
-OPS = ("matmul", "fused_add_rmsnorm", "flash_attention", "bn_forward")
+OPS = ("matmul", "fused_add_rmsnorm", "flash_attention", "bn_forward",
+       "bn_backward")
 # The tolerances of tests/test_kernels.py, (atol, rtol):
 TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (3e-2, 3e-2)}
 ATTN_F32_TOL = (2e-5, 2e-5)
 # fused add+norm and BN compare with numpy's assert_allclose default rtol
 ADDNORM_F32_TOL = {"y": (1e-5, 1e-7), "res": (1e-6, 1e-7)}
 BN_F32_TOL = {"y": (1e-4, 1e-7), "mu": (1e-5, 1e-7), "psi": (1e-4, 1e-7)}
+# the BN backward's float32 tolerances there: dx 1e-4, dgamma and dbeta 1e-3
+BN_BACK_F32_TOL = {"dx": (1e-4, 1e-4), "dgamma": (1e-3, 1e-3),
+                   "dbeta": (1e-3, 1e-3)}
 # The whole bf16 decoder against the same composition of plain versions:
 # relative Frobenius error of the logits, the bf16 tolerance of the tests
 # applied to the norm (the plain attention rounds its logits to bf16 and
@@ -460,6 +490,8 @@ KERNEL_META = {
                    "src/repro/kernels/bn.py:50"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:66"),
+    "bn_backward": ("src/repro_torch/kernels/csrc/bn_backward.cu",
+                    "src/repro/kernels/bn.py:121"),
 }
 
 
@@ -485,7 +517,13 @@ class RecordingOps:
         def call(*args, **kwargs):
             key = (name, tuple(tuple(a.shape) for a in args
                                if isinstance(a, torch.Tensor)))
-            self.inputs.setdefault(key, (self.model, args, kwargs))
+            if self.model is not None and key not in self.inputs:
+                # a parameter is updated in place by later steps: keep
+                # the values this call saw
+                kept = tuple(a.detach().clone() if isinstance(
+                    a, torch.nn.Parameter) else a.detach() if isinstance(
+                        a, torch.Tensor) else a for a in args)
+                self.inputs[key] = (self.model, kept, kwargs)
             return fn(*args, **kwargs)
         return call
 
@@ -587,6 +625,7 @@ class Held:
     def __init__(self):
         self.cases = {name: [] for name in OPS}
         self.row_rel = {}        # label -> worst and whole relative error
+        self.rel_fro = {}        # label -> relative Frobenius error by output
 
     def add(self, name, label, pairs):
         """``pairs``: (output name, got, want, (atol, rtol))."""
@@ -635,6 +674,18 @@ def hold_call(held, name, label, args, kwargs, main=False):
             tols = {"y": TOL[args[0].dtype], "res": (0.0, 0.0)}
         held.add(name, label, [("y", y, yr, tols["y"]),
                                ("res", res, resr, tols["res"])])
+    elif name == "bn_backward":
+        got = ops.bn_backward(*args, **kwargs)
+        want = ref.bn_backward_ref(*args[:5])
+        tols = BN_BACK_F32_TOL if args[0].dtype == torch.float32 else \
+            dict.fromkeys(BN_BACK_F32_TOL, TOL[args[0].dtype])
+        held.add(name, label, [(what, g, w, tols[what]) for what, g, w in
+                               zip(("dx", "dgamma", "dbeta"), got, want)])
+        if main:
+            held.rel_fro[label] = {what: float((g.float() - w.float()).norm()
+                                               / w.float().norm())
+                                   for what, g, w in zip(
+                                       ("dx", "dgamma", "dbeta"), got, want)}
     else:
         y, mu, psi = ops.bn_forward(*args, **kwargs)
         yr, mur, psir = ref.bn_forward_ref(*args[:3])
@@ -980,6 +1031,501 @@ def kernel_slice(device, card, report) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# the training slice: a full-width ResNet-50 training step through
+# MatmulFn and BatchNormFn (kernels/training.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 32
+TRAIN_SEED = 2026
+TRAIN_STEPS = 3
+# The step against its plain version, from the same weights and on the same
+# ReLU and max-pool choices (``Network.forward``'s ``pin``): relative
+# Frobenius error of the loss and of every parameter's gradient.  float32:
+# the dgamma/dbeta tolerance of tests/test_kernels.py.  bfloat16 GEMMs:
+# twice the reading of bf16 against float32 GEMMs of the plain step on the
+# CPU at batch 4 (0.0299 at the weights after one step, worst gradient;
+# scripts/training_conditioning.py --device cpu --zero-gamma --after-step),
+# which is above half the bf16 tolerance 3e-2 (PERF.md, before the chip run).
+TRAIN_REL = {torch.float32: 1e-3, torch.bfloat16: 6e-2}
+# Controls, each held to read above its dtype's limit.  float32: the plain
+# step with every GEMM output times 1 + 1e-7 N(0, 1) (another summation
+# order), against the plain step without pinned choices: why the check
+# pins them.  bf16: the plain step with every GEMM's operands and output
+# rounded to 5 explicit mantissa bits, two fewer than bfloat16's, on the
+# pinned choices: a step whose GEMMs lost precision that the limit fails.
+TRAIN_NOISE = 1e-7
+TRAIN_CONTROL_BITS = 5
+
+
+def round_mantissa(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """``x`` rounded to nearest, ties to even, to ``bits`` explicit
+    mantissa bits (bfloat16 has 7), in ``x``'s dtype."""
+    shift = 23 - bits
+    i = x.float().view(torch.int32)
+    i = i + ((1 << (shift - 1)) - 1) + ((i >> shift) & 1)
+    return (i & -(1 << shift)).view(torch.float32).to(x.dtype)
+
+
+def control_plain(matmul):
+    """The plain versions with ``matmul`` for the GEMM."""
+    from repro_torch.kernels.training import PLAIN
+    return SimpleNamespace(**{**vars(PLAIN), "matmul": matmul})
+
+
+def noisy_plain(rel: float, generator: torch.Generator):
+    """The plain versions with every GEMM output times
+    ``1 + rel * N(0, 1)``, the noise drawn from ``generator``."""
+    from repro_torch.kernels import ref
+
+    def matmul(a, b):
+        c = ref.matmul_ref(a, b).float()
+        eps = torch.randn(c.shape, generator=generator, device=c.device)
+        return (c * (1 + rel * eps)).to(a.dtype)
+    return control_plain(matmul)
+
+
+def rounded_plain(bits: int):
+    """The plain versions with every GEMM's operands and output rounded
+    to ``bits`` mantissa bits (``round_mantissa``)."""
+    from repro_torch.kernels import ref
+
+    def matmul(a, b):
+        return round_mantissa(ref.matmul_ref(round_mantissa(a, bits),
+                                             round_mantissa(b, bits)), bits)
+    return control_plain(matmul)
+
+
+def grad_errors(loss, grads, want_loss, want_grads) -> dict:
+    """Relative Frobenius errors of the loss and of each gradient."""
+    from repro_torch.kernels.training import relative_errors
+    errs = relative_errors(grads, want_grads)
+    worst = max(errs, key=errs.get)
+    return {"loss": abs(float(loss) - float(want_loss))
+            / abs(float(want_loss)), "max": errs[worst], "worst": worst,
+            "median": sorted(errs.values())[len(errs) // 2], "all": errs}
+
+
+def training_inputs(device):
+    from repro_torch.core.networks import resnet50
+    from repro_torch.kernels import training as T
+    layers = resnet50(batch=TRAIN_BATCH)
+    arrs = T.init_params(layers, TRAIN_SEED, zero_gamma=True)
+    gen = torch.Generator(device=device).manual_seed(TRAIN_SEED + 1)
+    images = torch.randn((TRAIN_BATCH, 224, 224, 3), generator=gen,
+                         device=device)
+    labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                           device=device)
+    return layers, arrs, images, labels
+
+
+def drive_training(device, dtype, layers, arrs, images, labels, rec=None):
+    """``TRAIN_STEPS`` SGDM steps of the kernel network with GEMMs in
+    ``dtype``: every launch counter set to 0 just before the first step
+    and read just after it; the second step, which records its ReLU and
+    pooling choices (and, with ``rec``, its kernel inputs), is held
+    against the plain step from the same weights on those choices, and
+    the dtype's control (``TRAIN_NOISE``, ``TRAIN_CONTROL_BITS``) is held
+    to fail the same limit.  Returns the launches, losses, errors and
+    wall seconds."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import training as T
+    impl = ops if rec is None else rec
+    net = T.Network(layers, T.params_from_numpy(arrs, device), impl=impl,
+                    gemm_dtype=dtype)
+    opt = T.make_optimizer(net)
+    out = {"losses": [], "wall_s": []}
+    decisions = None
+    for step in range(TRAIN_STEPS):
+        if step == 0:
+            for counter in _counters().values():
+                counter.launches = 0
+        if step == 1:
+            weights = {k: p.detach().clone() for k, p in net.params().items()}
+            decisions = {}
+            if rec is not None:
+                rec.model = f"resnet50 training step {dtype}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = T.train_step(net, opt, images, labels, decisions)
+        torch.cuda.synchronize()
+        out["wall_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(loss))
+        if step == 0:
+            out["launches"] = {n: c.launches for n, c in _counters().items()}
+        if step == 1:
+            if rec is not None:
+                rec.model = None
+            grads = {k: p.grad.detach().clone()
+                     for k, p in net.params().items()}
+            kernel_loss, choices, decisions = loss, decisions, None
+    check(all(np.isfinite(out["losses"])), f"{dtype} step losses "
+          f"{out['losses']} not finite")
+    want = T.training_launches(layers)
+    for name, n in out["launches"].items():
+        check(n == want.get(name, 0), f"training step {dtype}: {name} "
+              f"launched {n} times, expected {want.get(name, 0)}")
+    del net, opt
+    plain = T.Network(layers, weights, impl=T.PLAIN, gemm_dtype=dtype)
+    pl, pg = T.loss_and_grads(plain, images, labels, choices, pin=True)
+    out["pinned"] = grad_errors(kernel_loss, grads, pl, pg)
+    if dtype == torch.float32:
+        pl, pg = T.loss_and_grads(plain, images, labels)
+        impl, pin = noisy_plain(TRAIN_NOISE, torch.Generator(
+            device=device).manual_seed(TRAIN_SEED)), None
+    else:
+        impl, pin = rounded_plain(TRAIN_CONTROL_BITS), choices
+    control = T.Network(layers, weights, impl=impl, gemm_dtype=dtype)
+    cl, cg = T.loss_and_grads(control, images, labels, pin, pin is not None)
+    out["control"] = grad_errors(cl, cg, pl, pg)
+    limit = TRAIN_REL[dtype]
+    p, c = out["pinned"], out["control"]
+    check(p["loss"] <= limit and p["max"] <= limit,
+          f"{dtype} training step off its plain version: loss {p['loss']}, "
+          f"gradient {p['worst']} {p['max']} (relative), limit {limit}")
+    check(c["max"] > limit, f"{dtype} control within the limit {limit}: "
+          f"gradient {c['worst']} {c['max']} (relative)")
+    return out
+
+
+def bn_backward_cases(device):
+    """``(label, args, kwargs)`` of ``bn_backward``: the cases of
+    tests/test_kernels.py ((300, 70), (256, 128), (64, 33) with 64 x 32
+    tiles, and the autodiff case (128, 16) with 64 x 16), their bfloat16
+    forms, and ragged N and C with the default tile; mu and psi from the
+    plain forward of the same x."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(SLICE_SEED + 4)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for (n, c), tile in (((300, 70), (64, 32)), ((256, 128), (64, 32)),
+                             ((64, 33), (64, 32)), ((128, 16), (64, 16)),
+                             ((1001, 67), (256, 128)),
+                             ((4099, 1030), (256, 128))):
+            x, dy, g = rn(n, c).to(dtype), rn(n, c).to(dtype), rn(c) + 1.0
+            _, mu, psi = ref.bn_forward_ref(x, g, rn(c))
+            out.append((f"{dtype} {(n, c)} tile {tile}", (x, dy, g, mu, psi),
+                        dict(block_rows=tile[0], block_c=tile[1])))
+    return out
+
+
+def hold_autodiff(device) -> float:
+    """``BatchNormFn`` (the kernels) against autograd of the plain forward
+    on the autodiff case of tests/test_kernels.py, tolerance 1e-3."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bn import BatchNormFn
+    gen = torch.Generator(device=device).manual_seed(SLICE_SEED + 5)
+    x, g = (torch.randn(s, generator=gen, device=device)
+            for s in ((128, 16), (16,)))
+    g = g + 1.0
+    dy = torch.randn((128, 16), generator=gen, device=device)
+    b = torch.zeros(16, device=device)
+    grads = []
+    for fwd in (lambda x, g, b: BatchNormFn.apply(x, g, b),
+                lambda x, g, b: ref.bn_forward_ref(x, g, b)[0]):
+        ins = [t.clone().requires_grad_() for t in (x, g, b)]
+        (fwd(*ins) * dy).sum().backward()
+        grads.append([t.grad for t in ins])
+    err = 0.0
+    for got, want in zip(*grads):
+        e, excess = close(got, want, 1e-3, 1e-3)
+        err = max(err, e)
+        check(excess <= 0, f"BatchNormFn gradient off autograd by {e}")
+    return err
+
+
+def hold_training(rec, device) -> Held:
+    """Every kernel on the inputs the training step gave it (the first
+    call at each shape, from the held step) against its plain version;
+    ``bn_backward`` also on its edge cases."""
+    held = Held()
+    for (name, shapes), (model, args, kwargs) in rec.inputs.items():
+        hold_call(held, name, f"{model} {shapes}", args, kwargs, main=True)
+    for label, args, kwargs in bn_backward_cases(device):
+        hold_call(held, "bn_backward", label, args, kwargs)
+    return held
+
+
+def _bn_back_call(args):
+    from repro_torch.kernels import ops, ref
+    x, dy, g, mu, psi = args
+    return (lambda: ops.bn_backward(x, dy, g, mu, psi),
+            lambda: ref.bn_backward_ref(x, dy, g, mu, psi),
+            lambda: torch.ops.aten.native_batch_norm_backward(
+                dy, x, g, None, None, mu, psi, True, 1e-5,
+                [True, True, True]))
+
+
+def bn_backward_work(args):
+    """Operations (a dozen an element: x^, the two sums, Eq. 28) and
+    bytes (x and dy read once, dx written once, the vectors) of one
+    call, and the bytes of a kernel that reads x and dy twice."""
+    x, dy, g, mu, psi = args
+    vectors = _nbytes(g, mu, psi) + 8 * g.numel()
+    return 12.0 * x.numel(), 3 * _nbytes(x) + vectors, \
+        5 * _nbytes(x) + vectors
+
+
+def time_bn_backward(rec, layers) -> dict:
+    """``bn_backward`` at the stem (401408 x 64, f32, at batch 32) and
+    over all 53 BN layers of the step, on the held step's inputs, beside
+    its plain version and ``native_batch_norm_backward``."""
+    from repro_torch.core.layers import SimdLayer
+    inputs = {shapes[0]: args for (name, shapes), (_, args, _) in
+              rec.inputs.items() if name == "bn_backward"}
+    seq = [(l.h * l.w * l.n, l.c) for l in layers
+           if isinstance(l, SimdLayer) and l.op == "bn"]
+    out = {}
+    stem = inputs[seq[0]]
+    fn, plain, lib = _bn_back_call(stem)
+    flops, nbytes, two_pass = bn_backward_work(stem)
+    out["stem"] = dict(
+        time_op(fn, plain, lib, flops, nbytes, SCALAR_OPS_PER_S,
+                "bn_back", iters=20, kernels_per_call=3),
+        two_pass_floor_ms=two_pass / HBM_BYTES_PER_S * 1e3,
+        shape=list(seq[0]))
+    calls = [_bn_back_call(inputs[shape]) for shape in seq]
+    work = [bn_backward_work(inputs[shape]) for shape in seq]
+    out["all BN layers"] = dict(
+        time_op(lambda: [c[0]() for c in calls],
+                lambda: [c[1]() for c in calls],
+                lambda: [c[2]() for c in calls],
+                sum(w[0] for w in work), sum(w[1] for w in work),
+                SCALAR_OPS_PER_S, "bn_back", iters=5, calls=len(seq),
+                kernels_per_call=3 * len(seq)),
+        two_pass_floor_ms=sum(w[2] for w in work) / HBM_BYTES_PER_S * 1e3,
+        layers=len(seq))
+    return out
+
+
+STEP_KERNELS = (("GEMM", ("::mm_bf16<", "::mm_f32<")),
+                ("BN bwd", ("bn_back_",)),
+                ("BN fwd", ("bn_stats", "bn_finalize", "bn_normalise")))
+
+
+def profile_step(step) -> dict:
+    """Device time of one step from the profiler's trace: every kernel,
+    copy and set record summed (one stream, so nothing overlaps), split
+    into the port's GEMM and BN kernels (by name) and everything else;
+    the records of each, and the 12 kernels with the most time.  The
+    trace may drop a few records of the port's kernels, so ``records``
+    is to be read against the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name, parts, records = {}, {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.device_time_total / 1e3
+        t, n = by_name.get(evt.name, (0.0, 0))
+        by_name[evt.name] = (t + ms, n + 1)
+        part = next((p for p, keys in STEP_KERNELS
+                     if any(k in evt.name for k in keys)), "other")
+        parts[part] = parts.get(part, 0.0) + ms
+        records[part] = records.get(part, 0) + 1
+    top = sorted(((k, t, n) for k, (t, n) in by_name.items()),
+                 key=lambda r: -r[1])[:12]
+    return {"device_ms": sum(parts.values()), "parts_ms": parts,
+            "records": records, "top": top}
+
+
+def time_gemm_phases(layers, dtype, device) -> dict:
+    """Device milliseconds of the step's GEMMs by phase, each GEMM timed
+    alone (queued) on seeded operands of its shape: fwd (m, k) @ (k, n),
+    dX (m, n) @ (n, k) but for the first convolution, dW (k, m) @
+    (m, n); and each dW shape's milliseconds, GEMMs of the step and
+    blocks of the tile ``ops.matmul`` picks."""
+    from repro_torch.core.gpu_model import select_matmul_block
+    from repro_torch.core.layers import ConvLayer
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=device).manual_seed(SLICE_SEED + 6)
+    cache, out = {}, {"fwd": 0.0, "dX": 0.0, "dW": 0.0, "dW_shapes": {}}
+    convs = [l for l in layers if isinstance(l, ConvLayer)]
+    for i, l in enumerate(convs):
+        m, k, n = l.n * l.oh * l.ow, l.kh * l.kw * l.ic, l.oc
+        for phase, (r, inner, c) in (("fwd", (m, k, n)), ("dX", (m, n, k)),
+                                     ("dW", (k, m, n))):
+            if phase == "dX" and i == 0:
+                continue
+            if (r, inner, c) not in cache:
+                a = torch.randn((r, inner), generator=gen,
+                                device=device).to(dtype)
+                b = (torch.randn((inner, c), generator=gen, device=device)
+                     * inner ** -0.5).to(dtype)
+                cache[(r, inner, c)] = queued_ms(
+                    lambda: ops.matmul(a, b), iters=3, warmup=1)
+                del a, b
+            out[phase] += cache[(r, inner, c)]
+            if phase == "dW":
+                size = torch.tensor([], dtype=dtype).element_size()
+                blk = select_matmul_block(r, c, inner, bytes_in=size,
+                                          bytes_out=size)
+                row = out["dW_shapes"].setdefault(f"{r}x{inner}x{c}", {
+                    "ms": cache[(r, inner, c)], "gemms": 0,
+                    "tile": [blk.bm, blk.bn, blk.bk],
+                    "blocks": -(-r // blk.bm) * -(-c // blk.bn)})
+                row["gemms"] += 1
+    return out
+
+
+def time_transposes(rec, layers) -> float:
+    """Device milliseconds of ``MatmulFn``'s transposed copies in one
+    step: for each convolution A^T for its dW GEMM and, but for the
+    first, B^T for its dX GEMM; queued, on the held step's operands."""
+    from repro_torch.core.layers import ConvLayer
+    convs = [l for l in layers if isinstance(l, ConvLayer)]
+    per_shape, total = {}, 0.0
+    for i, l in enumerate(convs):
+        m, k, n = l.n * l.oh * l.ow, l.kh * l.kw * l.ic, l.oc
+        key = ((m, k), (k, n))
+        if key not in per_shape:
+            a, b = rec.inputs[("matmul", key)][1][:2]
+            per_shape[key] = (
+                queued_ms(lambda: a.t().contiguous(), iters=5),
+                queued_ms(lambda: b.t().contiguous(), iters=5))
+        ta, tb = per_shape[key]
+        total += ta + (tb if i else 0.0)
+    return total
+
+
+def time_step(device, layers, arrs, images, labels) -> dict:
+    """The warm step (forward, backward, SGDM update) of the kernel
+    network (bf16 GEMMs), the plain network (bf16) and the float32 kernel
+    network: ms by CUDA events with the host, and the profiler's device
+    time of one step, its split and its idle share; for the kernel steps
+    also the GEMMs by phase, each timed alone."""
+    from repro_torch.core.layers import ConvLayer
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import training as T
+    out = {}
+    for label, dtype, impl in (("kernel bf16", torch.bfloat16, ops),
+                               ("plain bf16", torch.bfloat16, T.PLAIN),
+                               ("kernel f32", torch.float32, ops)):
+        net = T.Network(layers, T.params_from_numpy(arrs, device),
+                        impl=impl, gemm_dtype=dtype)
+        opt = T.make_optimizer(net)
+
+        def step():
+            T.train_step(net, opt, images, labels)
+        row = {"ms": cuda_ms(step, iters=3, warmup=1)}
+        for counter in _counters().values():
+            counter.launches = 0
+        row.update(profile_step(step))
+        row["launches"] = {n: c.launches for n, c in _counters().items()
+                           if c.launches}
+        busy = row["device_ms"] or None      # None: the trace has none
+        row["idle_share"] = busy and 1.0 - busy / row["ms"]
+        if impl is ops:
+            row["nonconv_share"] = busy and 1.0 - row["parts_ms"].get(
+                "GEMM", 0.0) / busy
+            row["gemm_alone_ms"] = time_gemm_phases(layers, dtype, device)
+        out[label] = row
+        del net, opt
+    convs = [l for l in layers if isinstance(l, ConvLayer)]
+    flops = [2.0 * l.n * l.oh * l.ow * l.kh * l.kw * l.ic * l.oc
+             for l in convs]
+    out["gemm_gflop"] = {"fwd": sum(flops) / 1e9,
+                         "dX": sum(flops[1:]) / 1e9, "dW": sum(flops) / 1e9}
+    out["gemm_bound_ms"] = (3 * sum(flops) - flops[0]) / BF16_OPS_PER_S * 1e3
+    return out
+
+
+def training_slice(device, card, report):
+    """Drive, hold and time the training step; the JSON entry of
+    ``bn_backward`` and the launches of the counted step by kernel."""
+    from repro_torch.core import TRAIN_PRESETS, simulate
+    from repro_torch.kernels import training as T
+    layers, arrs, images, labels = training_inputs(device)
+    rec = RecordingOps()
+    rec.model = None
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        runs[dtype] = drive_training(device, dtype, layers, arrs, images,
+                                     labels, rec if dtype == torch.bfloat16
+                                     else None)
+        r = runs[dtype]
+        print(f"training step, ResNet-50 batch {TRAIN_BATCH} 224x224, "
+              f"GEMMs {dtype}, BN float32: launches of the first step "
+              f"(counters 0 before it) {r['launches']}; losses of "
+              f"{TRAIN_STEPS} SGDM steps {r['losses']}; wall s "
+              f"{r['wall_s']}  [{card}]")
+        control = (f"noisy GEMMs {TRAIN_NOISE}, its own choices"
+                   if dtype == torch.float32 else
+                   f"GEMMs rounded to {TRAIN_CONTROL_BITS} mantissa bits")
+        print(f"  against the plain step, limit {TRAIN_REL[dtype]} (the "
+              f"control must exceed it):")
+        for what, label in (("pinned", "kernel step"),
+                            ("control", f"control ({control})")):
+            e = r[what]
+            print(f"    {label}: loss {e['loss']}, gradients max {e['max']} "
+                  f"({e['worst']}), median {e['median']}")
+    report["training"] = {str(d): r for d, r in runs.items()}
+    report["training_launches_expected"] = T.training_launches(layers)
+
+    held = hold_training(rec, device)
+    autodiff = hold_autodiff(device)
+    checks = {name: len(held.cases[name]) for name in OPS
+              if held.cases[name]}
+    report["training_checks"] = held.cases
+    report["bn_backward_main_rel_fro"] = held.rel_fro
+    report["batchnormfn_autodiff_max_err"] = autodiff
+    print(f"training kernels == plain versions within tolerance: {checks} "
+          f"cases; BatchNormFn vs autograd max abs err {autodiff}")
+    worst = {what: max(v[what] for v in held.rel_fro.values())
+             for what in ("dx", "dgamma", "dbeta")}
+    print(f"  bn_backward on the step's {len(held.rel_fro)} shapes, worst "
+          f"relative Frobenius error {worst}")
+
+    bn_times = time_bn_backward(rec, layers)
+    report["bn_backward_times"] = bn_times
+    for label, t in bn_times.items():
+        print(f"  bn_backward {label}: " + ", ".join(
+            f"{k} {v}" for k, v in t.items()) + f"  [{card}]")
+    steps = time_step(device, layers, arrs, images, labels)
+    steps["transposes_ms"] = time_transposes(rec, layers)
+    model = simulate(TRAIN_PRESETS[64], "resnet50", mode="training")
+    steps["model_64x64_nonconv_share"] = model.nonconv_fraction()
+    report["training_step_times"] = steps
+    for label in ("kernel bf16", "plain bf16", "kernel f32"):
+        t = steps[label]
+        print(f"  step {label}: " + ", ".join(
+            f"{k} {v}" for k, v in t.items() if k != "top") + f"  [{card}]")
+        for name, ms, count in t["top"]:
+            print(f"    profiler: {name[:70]}: {ms} ms, {count} records")
+    print(f"  MatmulFn transposed copies in one step: "
+          f"{steps['transposes_ms']} ms (device, queued)  [{card}]")
+    print(f"  step GEMMs {steps['gemm_gflop']} GFLOP, bound "
+          f"{steps['gemm_bound_ms']} ms in bf16")
+    print(f"  non-convolution share of the step on this card (the "
+          f"profiler's device time outside the GEMM kernels): "
+          f"{steps['kernel bf16']['nonconv_share']} (bf16 GEMMs), "
+          f"{steps['kernel f32']['nonconv_share']} (f32)  [{card}]")
+    print(f"  the model's figure for a 64x64 array, not a time on this "
+          f"card: simulate(TRAIN_PRESETS[64], 'resnet50', "
+          f"mode='training').nonconv_fraction() = "
+          f"{steps['model_64x64_nonconv_share']}")
+
+    source, replaces = KERNEL_META["bn_backward"]
+    t = bn_times["stem"]
+    entry = {
+        "name": "bn_backward", "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": runs[torch.bfloat16]["launches"]["bn_backward"],
+        "checks": len(held.cases["bn_backward"]) + 1,
+        "max_abs_err": max(held.max_err("bn_backward"), autodiff),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"], "profiler_ms": t["profiler_ms"],
+        "timed_on": f"bn_backward {tuple(t['shape'])} f32 (the stem)"}
+    return entry, runs[torch.bfloat16]["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -1059,6 +1605,9 @@ def main(argv=None) -> int:
             f"{k} {v}" for k, v in row.items()) + f"  [{card}]")
 
     slice_entries = kernel_slice(device, card, report)
+    bn_back_entry, train_launches = training_slice(device, card, report)
+    for entry in slice_entries:
+        entry["launches"] += train_launches[entry["name"]]
 
     main_label = "lattice128/training/cycles"
     t = timing[main_label]
@@ -1073,7 +1622,7 @@ def main(argv=None) -> int:
         "bound_by": t["bound_by"], "library_ms": None,
         "device_ms": t["device_ms"], "profiler_ms": t["profiler_ms"],
         "shape": t["shape"], "timed_on": main_label,
-    }] + slice_entries}
+    }] + slice_entries + [bn_back_entry]}
     report.update(kernels)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

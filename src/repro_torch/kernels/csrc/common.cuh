@@ -1,8 +1,8 @@
 // Helpers shared by the port's CUDA sources (matmul, fused_addnorm,
-// bn_forward, flash_attention): the element types the kernels take, their
-// conversion to and from float, and the error-string export every library
-// carries.  The libraries' names hash this header too (kernels/_ext.py), so
-// a change here rebuilds each of them.
+// bn_forward, bn_backward, flash_attention): the element types the kernels
+// take, their conversion to and from float, and the error-string export
+// every library carries.  The libraries' names hash this header too
+// (kernels/_ext.py), so a change here rebuilds each of them.
 #pragma once
 
 #include <cuda_bf16.h>

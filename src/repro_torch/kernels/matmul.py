@@ -7,6 +7,12 @@ how it is laid out and what bounds it) with one of the tiles it is
 compiled for, ``core.gpu_model.MATMUL_TILES``.  On CPU tensors it runs
 ``matmul_ref``, the plain version.  A GEMM with a zero dimension returns
 the empty matrix or, for ``k == 0``, zeros, without a launch.
+
+``MatmulFn`` is the GEMM as a ``torch.autograd.Function``: its backward
+is two more GEMMs through the same entry point, ``dA = dC @ B^T`` and
+``dB = A^T @ dC``.  The JAX package has no backward kernel for
+``matmul_pallas``, so none is invented; the wrapper takes only contiguous
+operands, so each transpose is a contiguous copy.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ from ..core.gpu_model import MATMUL_TILES
 from ._dispatch import DTYPE_CODE, call, device_kind, library, same_dtype
 from .ref import matmul_ref
 
-__all__ = ["matmul", "matmul_ref", "check_tile"]
+__all__ = ["matmul", "matmul_ref", "check_tile", "MatmulFn"]
 
 SOURCE = "matmul.cu"
 _LAUNCH = "matmul_launch"
@@ -59,3 +65,29 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
 
 
 matmul.launches = 0
+
+
+class MatmulFn(torch.autograd.Function):
+    """``impl.matmul(a, b)``, ``kernels.ops`` by default (which picks the
+    tile), whose backward is ``impl.matmul(dC, B^T)`` for ``a`` and
+    ``impl.matmul(A^T, dC)`` for ``b``, each made only where that input
+    needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, impl=None):
+        if impl is None:
+            from . import ops as impl
+        ctx.save_for_backward(a, b)
+        ctx.impl = impl
+        return impl.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dc = dc.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = ctx.impl.matmul(dc, b.t().contiguous())
+        if ctx.needs_input_grad[1]:
+            db = ctx.impl.matmul(a.t().contiguous(), dc)
+        return da, db, None

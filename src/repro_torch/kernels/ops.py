@@ -1,6 +1,7 @@
 """Public wrappers of the port's kernels, with the JAX package's signatures
 (``repro.kernels.ops``) less ``interpret``, and its layouts: ``(m, k) @
-(k, n)``; q (B*H, S, D) and k/v (B*KV, S, D); rows x d; (N_eff, C).
+(k, n)``; q (B*H, S, D) and k/v (B*KV, S, D); rows x d; (N_eff, C) for
+both batch-norm kernels, the forward and Algorithm 1's backward.
 
 Each runs its hand-written CUDA kernel for CUDA tensors and its plain
 PyTorch version for CPU tensors; any other device, mixed devices, a type
@@ -19,8 +20,9 @@ The block arguments were the Pallas kernels' VMEM tiles.  On the card:
   runs it.
 * ``fused_add_rmsnorm``: one CUDA block a row; every positive
   ``block_rows`` gives the same bits.
-* ``bn_forward``: ``block_rows`` x ``block_c``, clamped to the tensor,
-  is the tile of the statistics pass (``block_c`` at most 1024).
+* ``bn_forward``, ``bn_backward``: ``block_rows`` x ``block_c``, clamped
+  to the tensor, is the tile of the pass that sums over rows (the
+  statistics; dgamma and dbeta), ``block_c`` at most 1024.
 
 A result depends on the tile only through the order of float32 sums.
 """
@@ -33,12 +35,12 @@ from . import bn as _bn
 from . import flash_attention as _fa
 from . import fused_addnorm as _an
 from . import matmul as _mm
-from .bn import bn_forward
+from .bn import bn_backward, bn_forward
 from .flash_attention import flash_attention
 from .fused_addnorm import fused_add_rmsnorm
 
 __all__ = ["matmul", "flash_attention", "fused_add_rmsnorm", "bn_forward",
-           "launch_counters"]
+           "bn_backward", "launch_counters"]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 0, bn: int = 0,
@@ -63,5 +65,5 @@ def launch_counters() -> dict:
     its kernel launches, by kernel name (``matmul``'s counter is on the
     kernel module's wrapper, which this module's ``matmul`` calls)."""
     return {"matmul": _mm.matmul, "fused_add_rmsnorm": _an.fused_add_rmsnorm,
-            "bn_forward": _bn.bn_forward,
+            "bn_forward": _bn.bn_forward, "bn_backward": _bn.bn_backward,
             "flash_attention": _fa.flash_attention}

@@ -6,9 +6,14 @@ held to ``repro.kernels.ops.bn_forward`` in Pallas interpret mode (one-
 pass variance ``E[x^2] - mu^2``), on the same numpy inputs, with the
 shapes, blocks and tolerances of ``tests/test_kernels.py``.  The CUDA
 kernel, which keeps the one-pass formula, is held to ``bn_forward_ref``
-on the card by ``chip_smoke.py``.  The backward oracle the next slice
-uses, ``bn_backward_ref``, is held to the JAX oracle and to autograd.
+on the card by ``chip_smoke.py``.  The backward oracle,
+``bn_backward_ref``, is held to the JAX oracle and to autograd; the
+backward entry point ``ops.bn_backward`` to ``repro.kernels.ops.
+bn_backward`` (Pallas, interpret mode), and ``BatchNormFn``'s gradients
+to ``jax.grad`` of the JAX oracle.  The CUDA backward kernel is held to
+``bn_backward_ref`` on the card by ``chip_smoke.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +25,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.bn import BatchNormFn  # noqa: E402
 
 
 def _inputs(seed, n, c, shift=0.0):
@@ -116,3 +122,106 @@ def test_bad_arguments_raise(kw, match):
     with pytest.raises(ValueError, match=match):
         tops.bn_forward(torch.zeros((n, 4)), torch.ones(c_gamma),
                         torch.zeros(c_gamma), **kw)
+
+
+def _backward_inputs(seed, n, c, dtype):
+    """x, dy in ``dtype`` and gamma, with the JAX forward's mu and psi
+    of that x, as numpy arrays."""
+    x, g, b = _inputs(seed, n, c)
+    dy = np.random.default_rng(seed + 1).standard_normal((n, c),
+                                                         dtype=np.float32)
+    xj, dyj = jnp.asarray(x, dtype), jnp.asarray(dy, dtype)
+    _, mu, psi = jops.bn_forward(xj, jnp.asarray(g), jnp.asarray(b),
+                                 block_rows=64, block_c=32)
+    return [np.asarray(a) for a in (xj, dyj, g, mu, psi)]
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c", [(300, 70), (256, 128), (64, 33)])
+def test_bn_backward(n, c, dtype):
+    """``ops.bn_backward`` on CPU tensors (``bn_backward_ref``) against
+    the Pallas Algorithm 1 in interpret mode, with the shapes, tiles and
+    tolerances of ``tests/test_kernels.py`` (dx 1e-4, dgamma and dbeta
+    1e-3 in float32; 3e-2 in bfloat16).  In bfloat16 the Pallas kernel
+    stores x^ rounded to bfloat16 between its parts and the plain
+    version keeps it unrounded, inside the bfloat16 tolerance."""
+    arrs = _backward_inputs(n * c, n, c, dtype)
+    want = jops.bn_backward(*(jnp.asarray(a) for a in arrs), block_rows=64,
+                            block_c=32)
+    got = tops.bn_backward(*(from_numpy(a) for a in arrs), block_rows=64,
+                           block_c=32)
+    assert got[0].dtype == from_numpy(arrs[0]).dtype
+    assert got[1].dtype == got[2].dtype == torch.float32
+    bf16 = dtype == jnp.bfloat16
+    for i, (a, w) in enumerate(zip(got, want)):
+        tol = 3e-2 if bf16 else (1e-4 if i == 0 else 1e-3)
+        np.testing.assert_allclose(to_numpy(a).astype(np.float32),
+                                   np.asarray(w, np.float32), atol=tol,
+                                   rtol=tol)
+
+
+def test_batchnormfn_matches_jax_grad():
+    """``BatchNormFn``'s gradients equal ``jax.grad`` of the JAX oracle's
+    forward (the autodiff case of ``tests/test_kernels.py``)."""
+    x, g, b = _inputs(3, 128, 16)
+    g = g + np.float32(1.0)
+    dy = np.random.default_rng(4).standard_normal((128, 16),
+                                                  dtype=np.float32)
+
+    def fwd(x, g, b):
+        return jnp.sum(jref.bn_forward_ref(x, g, b)[0] * dy)
+    want = jax.grad(fwd, argnums=(0, 1, 2))(*map(jnp.asarray, (x, g, b)))
+    xt, gt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+    y = BatchNormFn.apply(xt, gt, bt)
+    np.testing.assert_allclose(
+        y.detach().numpy(),
+        np.asarray(jref.bn_forward_ref(*map(jnp.asarray, (x, g, b)))[0]),
+        atol=1e-4)
+    (y * torch.from_numpy(dy)).sum().backward()
+    for t, w in zip((xt, gt, bt), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   atol=1e-3, rtol=1e-3)
+
+
+def test_batchnormfn_uses_the_given_impl():
+    """The forward and the backward go through ``impl``, and the
+    parameters' gradients come back in their own types."""
+    calls = []
+
+    class Recording:
+        def bn_forward(self, *a):
+            calls.append("bn_forward")
+            return tops.bn_forward(*a)
+
+        def bn_backward(self, *a):
+            calls.append("bn_backward")
+            assert a[1].is_contiguous()
+            return tops.bn_backward(*a)
+    x = torch.randn(40, 6, requires_grad=True)
+    g = torch.ones(6, dtype=torch.bfloat16, requires_grad=True)
+    b = torch.zeros(6, dtype=torch.bfloat16, requires_grad=True)
+    y = BatchNormFn.apply(x, g, b, Recording())
+    (y.t() * torch.randn(6, 40)).sum().backward()   # a non-contiguous dy
+    assert calls == ["bn_forward", "bn_backward"]
+    assert g.grad.dtype == b.grad.dtype == torch.bfloat16
+    assert x.grad.shape == x.shape
+
+
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(mu_dtype=torch.bfloat16), TypeError, "float32"),
+    (dict(dy_rows=7), ValueError, "do not match"),
+    (dict(block_c=2048), ValueError, "exceeds"),
+    (dict(block_rows=0), ValueError, "positive int"),
+    (dict(n=0), ValueError, "nothing to differentiate"),
+    (dict(dy_dtype=torch.bfloat16), TypeError, "one type"),
+])
+def test_bn_backward_bad_arguments_raise(kw, err, match):
+    kw = dict(kw)
+    n = kw.pop("n", 8)
+    mu = torch.zeros(4, dtype=kw.pop("mu_dtype", torch.float32))
+    dy = torch.zeros((kw.pop("dy_rows", n), 4),
+                     dtype=kw.pop("dy_dtype", torch.float32))
+    with pytest.raises(err, match=match):
+        tops.bn_backward(torch.zeros((n, 4)), dy, torch.ones(4), mu,
+                         torch.ones(4), **kw)

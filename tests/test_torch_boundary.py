@@ -52,6 +52,14 @@ def test_port_has_the_kernel_entry_point_modules():
         assert (PORT / "kernels" / "csrc" / source).is_file()
 
 
+def test_port_has_the_training_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.core.simulator", "repro_torch.optim",
+            "repro_torch.optim.optimizers",
+            "repro_torch.kernels.training"} <= mods
+    assert (PORT / "kernels" / "csrc" / "bn_backward.cu").is_file()
+
+
 def test_every_port_module_imports_without_jax_or_repro():
     script = (
         "import importlib, json, sys\n"
@@ -87,7 +95,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "scripts").glob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_file_imports_jax_or_repro(path):
     bad = [(line, root) for line, root in _imported_roots(path)

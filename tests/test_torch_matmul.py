@@ -5,11 +5,13 @@ version, ``matmul_ref``) is held to ``repro.kernels.ops.matmul`` in Pallas
 interpret mode, on the same numpy inputs, with the shapes, dtypes, blocks
 and tolerances of ``tests/test_kernels.py``.  The CUDA kernel
 (``csrc/matmul.cu``) is held to ``matmul_ref`` on the card by
-``chip_smoke.py``.
+``chip_smoke.py``.  ``MatmulFn``'s gradients are held to ``jax.grad``
+of the JAX oracle ``repro.kernels.ref.matmul_ref``.
 """
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import hypothesis.strategies as st  # noqa: E402
 from hypothesis import given, settings  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core.gpu_model import MATMUL_TILES  # noqa: E402
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels import matmul as tmm  # noqa: E402
@@ -128,3 +131,45 @@ def test_mixed_types_raise():
     with pytest.raises(TypeError, match="one type"):
         tops.matmul(torch.zeros((4, 4)), torch.zeros((4, 4),
                                                      dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 64, 64), (200, 90, 130), (33, 17, 65)])
+def test_matmulfn_matches_jax_grad(m, n, k):
+    """``MatmulFn``'s forward and both operand gradients (two more GEMMs
+    through ``ops.matmul``: dC @ B^T and A^T @ dC) against ``jax.grad``
+    of ``matmul_ref``, float32, with the float32 tolerance."""
+    a, b = _operands(m + n + k, m, n, k)
+    dc = np.random.default_rng(7).standard_normal((m, n), dtype=np.float32)
+
+    def loss(a, b):
+        return jnp.sum(jref.matmul_ref(a, b) * dc)
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
+    at, bt = (torch.from_numpy(x).requires_grad_() for x in (a, b))
+    c = tmm.MatmulFn.apply(at, bt)
+    np.testing.assert_allclose(c.detach().numpy(),
+                               np.asarray(jref.matmul_ref(a, b)),
+                               **_tol(jnp.float32))
+    (c * torch.from_numpy(dc)).sum().backward()
+    for t, w in zip((at, bt), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   **_tol(jnp.float32))
+
+
+def test_matmulfn_makes_only_the_needed_gradients():
+    """The backward calls ``impl.matmul`` once for each operand that
+    needs a gradient, on contiguous operands."""
+    shapes = []
+
+    class Recording:
+        def matmul(self, a, b):
+            assert a.is_contiguous() and b.is_contiguous()
+            shapes.append((tuple(a.shape), tuple(b.shape)))
+            return tops.matmul(a, b)
+    a = torch.randn(5, 3)
+    b = torch.randn(3, 4, requires_grad=True)
+    tmm.MatmulFn.apply(a, b, Recording()).sum().backward()
+    assert shapes == [((5, 3), (3, 4)), ((3, 5), (5, 4))]
+    shapes.clear()
+    a.requires_grad_()
+    tmm.MatmulFn.apply(a, b, Recording()).t().sum().backward()
+    assert shapes == [((5, 3), (3, 4)), ((5, 4), (4, 3)), ((3, 5), (5, 4))]

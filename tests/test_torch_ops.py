@@ -198,6 +198,8 @@ def _calls(t):
         "fused_add_rmsnorm": lambda: tops.fused_add_rmsnorm(
             t((4, 8)), t((4, 8)), t((8,))),
         "bn_forward": lambda: tops.bn_forward(t((8, 4)), t((4,)), t((4,))),
+        "bn_backward": lambda: tops.bn_backward(
+            t((8, 4)), t((8, 4)), t((4,)), t((4,)), t((4,))),
         "flash_attention": lambda: tops.flash_attention(
             t((4, 8, 16)), t((2, 8, 16)), t((2, 8, 16)), 2, 1),
     }
