@@ -7,7 +7,9 @@ From the repository root, on a machine with one CUDA card:
 
 1. prints the card, its power limit and the software versions;
 2. builds every CUDA kernel of the port from this checkout's sources
-   (``src/repro_torch/kernels/csrc/*.cu``), one ``nvcc`` each, all at once;
+   (``src/repro_torch/kernels/csrc/*.cu``), one ``nvcc`` each, all at once,
+   and counts the tensor-core instructions in the GEMM's and attention's
+   SASS (HGMMA must appear in the GEMM's, HMMA or HGMMA in attention's);
 3. drives the DSE main path -- ``Study(hw).search(Workload("resnet50"[,
    training=True]), 2048, 2048, objective=...)`` at the 64x64 presets on
    the Table VIII power-of-two lattice (cycles through the fused kernel,
@@ -29,25 +31,31 @@ From the repository root, on a machine with one CUDA card:
    and read after it: a Qwen3-0.6B prefill of 2 x 2048 tokens in bf16
    (all 28 layers; GEMMs, fused add+RMSNorm, causal GQA flash attention,
    the tied LM head) and ResNet-50 at batch 32 (its 53 BN layers in
-   float32, its 54 convolutions as bf16 GEMMs);
+   float32, its 54 convolutions as bf16 GEMMs), with ``matmul``'s launches
+   by route held too (every Qwen3 GEMM on `wgmma`, ResNet-50's on `wgmma`
+   but the stem's, whose K = 147);
 8. holds each of the four kernels against its plain version on the card,
    on the inputs the models gave it and on the edge cases of
    ``tests/test_kernels.py``, with that file's tolerances (the main
    path's bf16 attention also by the relative error of each query row,
-   and float32 attention at its shape), and the whole decoder against
-   the same composition of plain versions;
+   and float32 attention at its shape), on split-K GEMMs of both types,
+   GEMMs on each route and tile, misaligned views, and bf16 attention at
+   each head_dim (S 2048 causal, S 333 with a window), and the whole
+   decoder against the same composition of plain versions;
 9. times each kernel at those shapes beside its plain version, the one
    PyTorch call that computes the same (where there is one) and its bound:
    through the wrapper (CUDA events), on the device alone (the calls
    queued behind a device sleep), and as the profiler's trace sees it;
-   and times every compiled GEMM tile against the tile model's pick;
+   and times every compiled GEMM tile, with the split count the model
+   gives it, against the tile model's pick;
 10. drives one ResNet-50 training step at full width and depth
     (``kernels/training.py``: batch 32, 224 x 224 images, 1000 classes,
     bf16 GEMMs and float32 BN, Goyal et al.'s zero-gamma init, seeded),
     every launch counter set to 0 before it and held after it to
     ``training_launches`` (161 ``matmul``, 53 ``bn_forward``, 53
-    ``bn_backward``), then two more SGDM steps with finite losses; the
-    same in float32;
+    ``bn_backward``; in bf16 all GEMMs but the stem's forward on
+    `wgmma`), then two more SGDM steps with finite losses; the same in
+    float32 (every GEMM on `mma`);
 11. holds the second step's loss and every gradient against the plain
     step from the same weights, on the same ReLU and max-pool choices
     (relative Frobenius error, limits ``TRAIN_REL``), and holds a control
@@ -65,7 +73,9 @@ From the repository root, on a machine with one CUDA card:
     kernels, BN forward, BN backward and the rest (with the idle share
     and the non-convolution share on this card beside the port's
     simulator's figure for a 64x64 array); the step's GEMMs by phase
-    (fwd, dX, dW), each timed alone; ``MatmulFn``'s transposed copies.
+    (fwd, dX, dW), each timed alone beside ``torch.matmul`` on the same
+    operands, with each dW's tile, split and blocks; ``MatmulFn``'s
+    transposed copies.
 
 Any failed phase raises and the script exits non-zero.  Without CUDA, or
 without the repository's ``src/`` beside it, it exits non-zero and prints
@@ -109,6 +119,21 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
+
+
+def sass_counts(sources=("matmul.cu", "flash_attention.cu")) -> dict:
+    """Tensor-core instructions in each built library's SASS
+    (``cuobjdump --dump-sass``): HGMMA (wgmma) and HMMA (mma.sync)."""
+    from repro_torch.kernels import _ext
+    tool = Path(_ext.nvcc_path()).parent / "cuobjdump"
+    out = {}
+    for source in sources:
+        sass = subprocess.run(
+            [str(tool), "--dump-sass", str(_ext.library_path(source))],
+            check=True, capture_output=True, text=True, timeout=300).stdout
+        out[source] = {op: sum(f" {op}." in ln for ln in sass.splitlines())
+                       for op in ("HGMMA", "HMMA")}
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -392,6 +417,21 @@ def profile_device_ms(fn, iters: int, match: str = "") -> dict:
             "wall_ms": wall / iters * 1e3, "records": records}
 
 
+def kernel_names(fn, iters: int = 10) -> list:
+    """The device kernels ``iters`` calls of ``fn`` launch, by name, from
+    the profiler's trace (which can drop the record of a single call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({evt.name for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def time_kernel(args) -> dict:
     from repro_torch.kernels.reduce import grid_minmax, grid_minmax_ref
     bound, bound_by, gathered = kernel_bound_ms(args)
@@ -500,6 +540,28 @@ def _counters():
     return ops.launch_counters()
 
 
+def _routes() -> dict:
+    """``matmul``'s launches by route, and those with a split-K sum."""
+    from repro_torch.kernels import matmul as mm
+    return mm.matmul.routes
+
+
+def zero_counters() -> None:
+    """Every launch counter, and ``matmul``'s route counters, to 0."""
+    for counter in _counters().values():
+        counter.launches = 0
+    for key in _routes():
+        _routes()[key] = 0
+
+
+def check_routes(what: str, routes: dict, gemms: int, mma: int) -> None:
+    """``gemms`` GEMM launches, ``mma`` of them on the `mma` route and
+    the rest on `wgmma`."""
+    check(routes["mma"] == mma and routes["wgmma"] == gemms - mma,
+          f"{what}: matmul routes {routes}, expected {gemms - mma} wgmma "
+          f"and {mma} mma")
+
+
 class RecordingOps:
     """The ``impl`` a model forward is driven with: every call goes on to
     ``kernels.ops``, and the inputs of the first call of each kernel at
@@ -574,11 +636,10 @@ def drive_slice(device):
     runs = {"qwen3_0_6b": lambda: F.decoder_forward(
                 ids, params, dims, dims.n_layers, impl=rec),
             "resnet50": lambda: F.resnet50_forward(calls, rinputs, impl=rec)}
-    outs, launches, wall = {}, {}, {}
+    outs, launches, wall, routes = {}, {}, {}, {}
     for model, fn in runs.items():
         rec.model = model
-        for counter in _counters().values():
-            counter.launches = 0
+        zero_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs[model] = fn()
@@ -586,6 +647,7 @@ def drive_slice(device):
         wall[model] = time.perf_counter() - t0
         launches[model] = {name: c.launches
                            for name, c in _counters().items()}
+        routes[model] = dict(_routes())
     want = {"qwen3_0_6b": F.decoder_launches(dims),
             "resnet50": {"bn_forward": 53, "matmul": 54}}
     for model, per in launches.items():
@@ -593,7 +655,15 @@ def drive_slice(device):
             check(n == want[model].get(name, 0),
                   f"{model}: {name} launched {n} times, expected "
                   f"{want[model].get(name, 0)}")
+    # every Qwen3 GEMM on `wgmma`; of ResNet-50's, all but the stem's
+    # (K = 147, not a multiple of 8)
+    check_routes("qwen3_0_6b", routes["qwen3_0_6b"],
+                 want["qwen3_0_6b"]["matmul"], 0)
+    check_routes("resnet50", routes["resnet50"], 54, sum(
+        shape[1] % 8 != 0 or shape[2] % 8 != 0 for kind, _, shape in calls
+        if kind == "matmul"))
     return {"outs": outs, "launches": launches, "per_forward": want,
+            "routes": routes,
             "wall_s": wall, "inputs": rec.inputs,
             "qwen": (dims, params, ids), "resnet": (calls, rinputs)}
 
@@ -646,7 +716,11 @@ def hold_call(held, name, label, args, kwargs, main=False):
     ``main``: the inputs came from a model forward."""
     from repro_torch.kernels import ops, ref
     if name == "matmul":
-        got = ops.matmul(*args, **kwargs)
+        if "splits" in kwargs:     # a split count of its own: the wrapper
+            from repro_torch.kernels import matmul as mm
+            got = mm.matmul(*args, **kwargs)
+        else:
+            got = ops.matmul(*args, **kwargs)
         want = ref.matmul_ref(*args[:2])
         held.add(name, label, [("c", got, want, TOL[args[0].dtype])])
     elif name == "flash_attention":
@@ -701,7 +775,8 @@ def hold_call(held, name, label, args, kwargs, main=False):
 def edge_cases(device):
     """``(name, label, args, kwargs)``: the cases of tests/test_kernels.py
     (zero dims, ragged m/n/k, GQA groups 1, 2 and 8, window 16 causal and
-    not, bf16), a ragged non-causal S and bf16 forms of each kernel."""
+    not, bf16), a ragged non-causal S and bf16 forms of each kernel, then
+    ``redesign_cases``."""
     gen = torch.Generator(device=device).manual_seed(SLICE_SEED + 3)
 
     def rn(*shape, dtype=torch.float32):
@@ -754,6 +829,58 @@ def edge_cases(device):
     # a shifted mean (+10): the one-pass variance still within tolerance
     out.append(("bn_forward", "shift 10 (4096, 64)",
                 (rn(4096, 64) + 10.0, rn(64), rn(64)), {}))
+    return out + redesign_cases(device)
+
+
+def redesign_cases(device):
+    """The cases of the tensor-core attention and the `wgmma`/split-K GEMM,
+    drawn from a generator of their own so that the cases above keep
+    their inputs."""
+    gen = torch.Generator(device=device).manual_seed(SLICE_SEED + 7)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    out = []
+    # split-K in both types, K not a multiple of splits * bk, on each route
+    for dtype in (torch.float32, torch.bfloat16):
+        for (m, n, k), tile, splits in (
+                ((200, 96, 1000), (128, 64, 64), 7),
+                ((147, 64, 4099), (128, 128, 64), 13),
+                ((147, 64, 4104), (128, 64, 64), 13),
+                ((33, 17, 650), (32, 64, 32), 5),
+                ((300, 256, 2050), (128, 256, 64), 3),
+                ((64, 40, 777), (64, 64, 128), 6)):
+            out.append(("matmul", f"{dtype} split-K {(m, n, k)} {tile} "
+                        f"splits {splits}",
+                        (rn(m, k, dtype=dtype), rn(k, n, dtype=dtype)),
+                        dict(zip(("bm", "bn", "bk"), tile), splits=splits)))
+    # each route at each of its tiles: wgmma (bf16, aligned, K and N
+    # multiples of 8) and mma (the same GEMMs in f32, or from views that
+    # start 2 bytes past a 16-byte boundary)
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, n, k in ((256, 512, 1024), (300, 200, 96), (1, 64, 64)):
+            for tile in ((128, 64, 64), (128, 128, 64), (128, 256, 64)):
+                out.append(("matmul", f"{dtype} route {(m, n, k)} {tile}",
+                            (rn(m, k, dtype=dtype), rn(k, n, dtype=dtype)),
+                            dict(zip(("bm", "bn", "bk"), tile))))
+    for m, n, k in ((256, 512, 1024), (129, 72, 200)):
+        a = rn(m * k + 1, dtype=torch.bfloat16)[1:].view(m, k)
+        b = rn(k * n + 1, dtype=torch.bfloat16)[1:].view(k, n)
+        out.append(("matmul", f"bf16 misaligned views {(m, n, k)}", (a, b),
+                    {}))
+    # bf16 on the tensor cores at S 2048 (causal) and a ragged
+    # non-causal window, each head_dim
+    for d in (16, 32, 64, 128):
+        out.append(("flash_attention", f"bf16 D{d} S2048 causal GQA4",
+                    (rn(8, 2048, d, dtype=torch.bfloat16),
+                     rn(2, 2048, d, dtype=torch.bfloat16),
+                     rn(2, 2048, d, dtype=torch.bfloat16), 4, 1), {}))
+        out.append(("flash_attention", f"bf16 D{d} S333 window 100 "
+                    f"non-causal GQA2",
+                    (rn(4, 333, d, dtype=torch.bfloat16),
+                     rn(2, 333, d, dtype=torch.bfloat16),
+                     rn(2, 333, d, dtype=torch.bfloat16), 2, 1),
+                    dict(causal=False, window=100)))
     return out
 
 
@@ -887,13 +1014,20 @@ def time_slice(slice_run) -> dict:
             pairs = bh * s * (s + 1) // 2            # causal: k_pos <= q_pos
             qb, kb = q.view(bh // h, h, s, d), k.view(bh // h, kv, s, d)
             vb = v.view(bh // h, kv, s, d)
+
+            def sdpa():
+                return tf.scaled_dot_product_attention(
+                    qb, kb, vb, is_causal=True, enable_gqa=True)
             out[label] = time_op(
                 lambda: ops.flash_attention(*args, **kwargs),
-                lambda: ref.flash_attention_ref(q, k, v, h, kv, True),
-                lambda: tf.scaled_dot_product_attention(
-                    qb, kb, vb, is_causal=True, enable_gqa=True),
+                lambda: ref.flash_attention_ref(q, k, v, h, kv, True), sdpa,
                 4.0 * d * pairs, 2 * _nbytes(q) + _nbytes(k, v),
                 BF16_OPS_PER_S, "flash_fwd", iters=20)
+            # what the yardstick runs, and the rate each reaches
+            out[label]["library_kernels"] = kernel_names(sdpa)
+            for key in ("device_ms", "library_ms"):
+                out[label][f"{key[:-3]}_tflops"] = \
+                    4.0 * d * pairs / (out[label][key] * 1e9)
         else:
             x, g, b = args[:3]
             out[label] = time_op(
@@ -932,10 +1066,11 @@ def time_slice(slice_run) -> dict:
 
 def time_tiles(slice_run) -> dict:
     """Device milliseconds (calls queued behind a device sleep) of every
-    compiled GEMM tile at each bf16 GEMM shape of the main path, beside
-    the tile the model (``gpu_model.select_matmul_block``) picks; and the
-    sums over the shapes for the model's pick, the fastest tile of each
-    shape and each fixed tile."""
+    compiled GEMM tile at each bf16 GEMM shape of the main path, each with
+    the split count the model (``gpu_model.select_matmul_block``) gives
+    that tile and on the route the tile takes there, beside the model's
+    own pick; and the sums over the shapes for the model's pick, the
+    fastest tile of each shape and each fixed tile."""
     from repro_torch.core.gpu_model import MATMUL_TILES, select_matmul_block
     from repro_torch.kernels import matmul as mm
     shapes = {}
@@ -948,15 +1083,23 @@ def time_tiles(slice_run) -> dict:
     for (m, k, n), (a, b) in shapes.items():
         blk = select_matmul_block(m, n, k, bytes_in=2, bytes_out=2)
         pick = (blk.bm, blk.bn, blk.bk)
-        ms = {t: queued_ms(lambda t=t: mm.matmul(a, b, *t),
+        splits = {t: select_matmul_block(m, n, k, 2, 2, tile=t).splits
+                  for t in MATMUL_TILES}
+        ms = {t: queued_ms(lambda t=t: mm.matmul(a, b, *t,
+                                                 splits=splits[t]),
                            iters=3 if n > 100_000 else 10, warmup=1)
               for t in MATMUL_TILES}
         fastest = min(ms, key=ms.get)
         per[str((m, k, n))] = {"model_tile": str(pick),
+                               "model_splits": blk.splits,
+                               "model_route": blk.route,
                                "model_ms": ms[pick],
                                "fastest_tile": str(fastest),
+                               "fastest_splits": splits[fastest],
                                "fastest_ms": ms[fastest],
-                               "ms": {str(t): v for t, v in ms.items()}}
+                               "ms": {str(t): v for t, v in ms.items()},
+                               "splits": {str(t): v
+                                          for t, v in splits.items()}}
         sums["model"] += ms[pick]
         sums["fastest"] += ms[fastest]
         for t, v in ms.items():
@@ -982,8 +1125,11 @@ def kernel_slice(device, card, report) -> list:
     report["slice_launches"] = run["launches"]
     report["slice_launches_per_forward"] = run["per_forward"]
     report["slice_wall_s"] = run["wall_s"]
+    report["slice_matmul_routes"] = run["routes"]
     print(f"slice launches (counters 0 before each model): "
           f"{run['launches']}")
+    print(f"  matmul launches by route, and those with a split-K sum: "
+          f"{run['routes']}")
     for model, s in run["wall_s"].items():
         print(f"  first {model} forward through ops: {s} s  [{card}]")
     held = hold_slice(run, device)
@@ -1009,8 +1155,9 @@ def kernel_slice(device, card, report) -> list:
     report["matmul_tiles"] = tiles
     for shape, row in tiles["shapes"].items():
         print(f"  matmul tiles {shape}: model {row['model_tile']} "
+              f"x{row['model_splits']} ({row['model_route']}) "
               f"{row['model_ms']} ms, fastest {row['fastest_tile']} "
-              f"{row['fastest_ms']} ms  [{card}]")
+              f"x{row['fastest_splits']} {row['fastest_ms']} ms  [{card}]")
     print(f"  matmul tiles, sum over {len(tiles['shapes'])} shapes (ms): "
           f"{tiles['sum_ms']}  [{card}]")
     entries = []
@@ -1138,8 +1285,7 @@ def drive_training(device, dtype, layers, arrs, images, labels, rec=None):
     decisions = None
     for step in range(TRAIN_STEPS):
         if step == 0:
-            for counter in _counters().values():
-                counter.launches = 0
+            zero_counters()
         if step == 1:
             weights = {k: p.detach().clone() for k, p in net.params().items()}
             decisions = {}
@@ -1153,6 +1299,7 @@ def drive_training(device, dtype, layers, arrs, images, labels, rec=None):
         out["losses"].append(float(loss))
         if step == 0:
             out["launches"] = {n: c.launches for n, c in _counters().items()}
+            out["routes"] = dict(_routes())
         if step == 1:
             if rec is not None:
                 rec.model = None
@@ -1165,6 +1312,10 @@ def drive_training(device, dtype, layers, arrs, images, labels, rec=None):
     for name, n in out["launches"].items():
         check(n == want.get(name, 0), f"training step {dtype}: {name} "
               f"launched {n} times, expected {want.get(name, 0)}")
+    # bf16: all on `wgmma` but the stem's forward (K = 147; the stem has
+    # no dX, and its dW reads (147, n oh ow) @ (n oh ow, 64)); f32: `mma`
+    check_routes(f"training step {dtype}", out["routes"], want["matmul"],
+                 1 if dtype == torch.bfloat16 else want["matmul"])
     del net, opt
     plain = T.Network(layers, weights, impl=T.PLAIN, gemm_dtype=dtype)
     pl, pg = T.loss_and_grads(plain, images, labels, choices, pin=True)
@@ -1301,7 +1452,8 @@ def time_bn_backward(rec, layers) -> dict:
     return out
 
 
-STEP_KERNELS = (("GEMM", ("::mm_bf16<", "::mm_f32<")),
+STEP_KERNELS = (("GEMM", ("::mm_bf16<", "::mm_f32<", "::mm_wgmma<",
+                           "::splitk_sum<")),
                 ("BN bwd", ("bn_back_",)),
                 ("BN fwd", ("bn_stats", "bn_finalize", "bn_normalise")))
 
@@ -1337,15 +1489,18 @@ def profile_step(step) -> dict:
 
 def time_gemm_phases(layers, dtype, device) -> dict:
     """Device milliseconds of the step's GEMMs by phase, each GEMM timed
-    alone (queued) on seeded operands of its shape: fwd (m, k) @ (k, n),
-    dX (m, n) @ (n, k) but for the first convolution, dW (k, m) @
-    (m, n); and each dW shape's milliseconds, GEMMs of the step and
-    blocks of the tile ``ops.matmul`` picks."""
+    alone (queued) on seeded operands of its shape, through ``ops.matmul``
+    and through ``torch.matmul`` (the yardstick, used nowhere in the
+    port): fwd (m, k) @ (k, n), dX (m, n) @ (n, k) but for the first
+    convolution, dW (k, m) @ (m, n); and each dW shape's milliseconds,
+    GEMMs of the step, and the tile, split, route and blocks (tiles times
+    splits) ``ops.matmul`` picks."""
     from repro_torch.core.gpu_model import select_matmul_block
     from repro_torch.core.layers import ConvLayer
     from repro_torch.kernels import ops
     gen = torch.Generator(device=device).manual_seed(SLICE_SEED + 6)
     cache, out = {}, {"fwd": 0.0, "dX": 0.0, "dW": 0.0, "dW_shapes": {}}
+    out.update({f"torch {p}": 0.0 for p in ("fwd", "dX", "dW")})
     convs = [l for l in layers if isinstance(l, ConvLayer)]
     for i, l in enumerate(convs):
         m, k, n = l.n * l.oh * l.ow, l.kh * l.kw * l.ic, l.oc
@@ -1358,18 +1513,23 @@ def time_gemm_phases(layers, dtype, device) -> dict:
                                 device=device).to(dtype)
                 b = (torch.randn((inner, c), generator=gen, device=device)
                      * inner ** -0.5).to(dtype)
-                cache[(r, inner, c)] = queued_ms(
-                    lambda: ops.matmul(a, b), iters=3, warmup=1)
+                cache[(r, inner, c)] = (
+                    queued_ms(lambda: ops.matmul(a, b), iters=3, warmup=1),
+                    queued_ms(lambda: torch.matmul(a, b), iters=3, warmup=1))
                 del a, b
-            out[phase] += cache[(r, inner, c)]
+            out[phase] += cache[(r, inner, c)][0]
+            out[f"torch {phase}"] += cache[(r, inner, c)][1]
             if phase == "dW":
                 size = torch.tensor([], dtype=dtype).element_size()
                 blk = select_matmul_block(r, c, inner, bytes_in=size,
                                           bytes_out=size)
                 row = out["dW_shapes"].setdefault(f"{r}x{inner}x{c}", {
-                    "ms": cache[(r, inner, c)], "gemms": 0,
-                    "tile": [blk.bm, blk.bn, blk.bk],
-                    "blocks": -(-r // blk.bm) * -(-c // blk.bn)})
+                    "ms": cache[(r, inner, c)][0],
+                    "torch_ms": cache[(r, inner, c)][1], "gemms": 0,
+                    "tile": [blk.bm, blk.bn, blk.bk], "splits": blk.splits,
+                    "route": blk.route,
+                    "blocks": -(-r // blk.bm) * -(-c // blk.bn)
+                    * blk.splits})
                 row["gemms"] += 1
     return out
 
@@ -1414,8 +1574,7 @@ def time_step(device, layers, arrs, images, labels) -> dict:
         def step():
             T.train_step(net, opt, images, labels)
         row = {"ms": cuda_ms(step, iters=3, warmup=1)}
-        for counter in _counters().values():
-            counter.launches = 0
+        zero_counters()
         row.update(profile_step(step))
         row["launches"] = {n: c.launches for n, c in _counters().items()
                            if c.launches}
@@ -1452,7 +1611,8 @@ def training_slice(device, card, report):
         r = runs[dtype]
         print(f"training step, ResNet-50 batch {TRAIN_BATCH} 224x224, "
               f"GEMMs {dtype}, BN float32: launches of the first step "
-              f"(counters 0 before it) {r['launches']}; losses of "
+              f"(counters 0 before it) {r['launches']}, matmul by route "
+              f"{r['routes']}; losses of "
               f"{TRAIN_STEPS} SGDM steps {r['losses']}; wall s "
               f"{r['wall_s']}  [{card}]")
         control = (f"noisy GEMMs {TRAIN_NOISE}, its own choices"
@@ -1498,6 +1658,12 @@ def training_slice(device, card, report):
             f"{k} {v}" for k, v in t.items() if k != "top") + f"  [{card}]")
         for name, ms, count in t["top"]:
             print(f"    profiler: {name[:70]}: {ms} ms, {count} records")
+    for label in ("kernel bf16", "kernel f32"):
+        for shape, row in steps[label]["gemm_alone_ms"]["dW_shapes"].items():
+            print(f"    {label} dW {shape} x{row['gemms']}: {row['ms']} ms "
+                  f"(torch.matmul {row['torch_ms']}), tile {row['tile']} "
+                  f"x{row['splits']} {row['route']}, {row['blocks']} "
+                  f"blocks  [{card}]")
     print(f"  MatmulFn transposed copies in one step: "
           f"{steps['transposes_ms']} ms (device, queued)  [{card}]")
     print(f"  step GEMMs {steps['gemm_gflop']} GFLOP, bound "
@@ -1563,6 +1729,14 @@ def main(argv=None) -> int:
               f"{_ext.library_path(source).relative_to(ROOT)}")
         for ln in ptxas:
             print(f"    ptxas: {ln}")
+
+    report["sass"] = sass_counts()
+    print(f"SASS tensor-core instructions: {report['sass']}")
+    check(report["sass"]["matmul.cu"]["HGMMA"] > 0,
+          "matmul.cu's library holds no HGMMA")
+    check(report["sass"]["flash_attention.cu"]["HMMA"] +
+          report["sass"]["flash_attention.cu"]["HGMMA"] > 0,
+          "flash_attention.cu's library holds no tensor-core MMA")
 
     results, launches, wall_s, inputs = drive_main_path(device)
     report["launches"] = launches

@@ -4,28 +4,34 @@ The counterpart of the GEMM half of the JAX package's TPU model
 (``select_matmul_block`` and its cost, written there for the v5e's VMEM
 and MXU): the paper's tile-based DRAM-access and stall model (Secs.
 IV-B..D) applied to the loop nest of ``C[m,n] = A[m,k] @ B[k,n]``, here
-used to pick the tile of the port's GEMM kernel
-(``repro_torch/kernels/csrc/matmul.cu``).
+used to pick the tile, the route and the K split of the port's GEMM
+kernel (``repro_torch/kernels/csrc/matmul.cu``).
 
 What changes for the card:
 
 * the on-chip buffer is a thread block's shared memory (232,448 bytes)
-  instead of VMEM; the kernel holds one A tile and one B tile there
-  (single-buffered) and its f32 accumulators in registers;
-* the 132 streaming multiprocessors run tiles in parallel, so the
-  output tiles are spread over the SMs in waves, each SM with its share of
-  the 3.35 TB/s and of the peak rate (989 TFLOP/s for bf16 on the tensor
-  cores, 67 TFLOP/s for f32 on the CUDA cores: the kernel's f32 path uses
-  no TF32);
-* the candidates are exactly the tiles ``matmul.cu`` is compiled for.
+  instead of VMEM, and an SM's 233,472 bytes hold as many blocks as fit
+  (``resident_blocks``);
+* the 132 streaming multiprocessors run blocks in parallel: the model
+  counts the blocks of the busiest SM and how many of them run at once;
+* a GEMM whose output tiles cannot fill the SMs may split K into
+  ``splits`` ranges, one more grid dimension; each block then writes a
+  float32 partial tile and a second kernel sums them in split order;
+* two routes (``matmul_route``): ``wgmma`` (bf16 only; TMA loads into a
+  4-stage ring, ``wgmma`` products) for the tiles of ``WGMMA_TILES`` when
+  TMA can read both operands, and ``mma`` (WMMA for bf16, CUDA-core FMAs
+  for f32, single-buffered) for everything else;
+* peak rates: 989 TFLOP/s for bf16 on the tensor cores, 67 TFLOP/s for
+  f32 on the CUDA cores (the f32 route uses no TF32).
 
 The roofline terms of a whole step wait for the port of the JAX
 package's roofline module.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 # ---- H100 SXM constants (NVIDIA data sheet; dense rates at 700 W) --------
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s, tensor cores
@@ -33,16 +39,35 @@ PEAK_FLOPS_F32 = 67e12            # FLOP/s, CUDA cores, no TF32
 HBM_BW = 3.35e12                  # bytes/s
 SM_COUNT = 132
 SMEM_BYTES = 232_448              # shared memory one block can use
+SMEM_PER_SM = 233_472             # shared memory of one SM (228 KB)
+REGS_PER_SM = 65_536
+THREADS_PER_SM = 2_048
 
-# The (bm, bn, bk) tiles matmul.cu instantiates, for f32 and bf16 alike:
-# the tiles the JAX package's kernel tests name (64^3, and bm 32/64/128 x
-# bn 64 x bk 32/128), and 128 x 128 x 32, which this model picks for the
-# large GEMMs of the models the port drives.  ``chip_smoke.py`` times every
-# one of them against the model's pick at those shapes;
-# ``tests/test_torch_matmul.py`` holds this list equal to the source's.
+# The (bm, bn, bk) tiles matmul.cu compiles its `mma` route for, f32 and
+# bf16 alike: the tiles the JAX package's kernel tests name (64^3, and bm
+# 32/64/128 x bn 64 x bk 32/128), 128 x 128 x 32, and the three `wgmma`
+# tiles, so that an explicit tile runs on either route.
+# ``tests/test_torch_matmul.py`` holds both lists equal to the source's.
 MATMUL_TILES: Tuple[Tuple[int, int, int], ...] = (
     (32, 64, 32), (32, 64, 128), (64, 64, 32), (64, 64, 64), (64, 64, 128),
-    (128, 64, 32), (128, 64, 128), (128, 128, 32))
+    (128, 64, 32), (128, 64, 128), (128, 128, 32), (128, 64, 64),
+    (128, 128, 64), (128, 256, 64))
+# The tiles of the `wgmma` route (bf16): two consumer warpgroups of 64
+# rows each, bk 64 (one 128-byte swizzle row of bf16).
+WGMMA_TILES: Tuple[Tuple[int, int, int], ...] = (
+    (128, 64, 64), (128, 128, 64), (128, 256, 64))
+
+# Kernel facts the model counts with (matmul.cu):
+WGMMA_STAGES = 4                  # TMA ring depth
+WGMMA_THREADS = 288               # two consumer warpgroups + a producer warp
+MMA_THREADS = 256
+# Registers a thread: every route holds bm * bn / 256 float32
+# accumulators a thread, and about 32 more registers besides (ptxas reads
+# 58, 90 and 154 for the three `wgmma` tiles).
+EXTRA_REGS = 32
+MAX_SPLITS = 256
+# the split-K reduction is a second launch; a fixed cost assumed for it
+REDUCE_LAUNCH_S = 4e-6
 
 
 @dataclass(frozen=True)
@@ -50,62 +75,151 @@ class MatmulBlock:
     bm: int
     bn: int
     bk: int
+    splits: int                # K ranges, one grid dimension (1: no split)
+    route: str                 # "wgmma" or "mma"
     est_s: float               # model-estimated time of the GEMM (Eq. 18)
     hbm_bytes: float           # model-estimated device-memory traffic
 
 
 def smem_bytes(bm: int, bn: int, bk: int, bytes_in: int) -> int:
-    """Shared memory of the A and B tiles of one block (Eq. 1's inner
-    tiles; the kernel adds padding and an epilogue buffer)."""
+    """Shared memory of one A and one B tile (Eq. 1's inner tiles; the
+    kernel holds ``kernel_smem`` of them with padding and staging)."""
     return (bm * bk + bk * bn) * bytes_in
+
+
+def kernel_smem(route: str, bm: int, bn: int, bk: int,
+                bytes_in: int) -> int:
+    """Dynamic shared memory one block of the kernel asks for, as
+    matmul.cu computes it."""
+    if route == "wgmma":
+        # the ring, plus 1024 bytes to align it for the 128-byte swizzle
+        return WGMMA_STAGES * smem_bytes(bm, bn, bk, 2) + 1024
+    if bytes_in == 2:    # padded A and B tiles, a 16 x 16 f32 buffer a warp
+        return 2 * (bm * (bk + 8) + bk * (bn + 8)) + 4 * 8 * 256
+    return 4 * (bk * (bm + 1) + bk * bn)
+
+
+def resident_blocks(route: str, bm: int, bn: int, bk: int,
+                    bytes_in: int) -> int:
+    """Blocks of this kernel one SM holds at once: the least of what its
+    shared memory, its threads and its registers allow."""
+    threads = WGMMA_THREADS if route == "wgmma" else MMA_THREADS
+    regs = min(255, bm * bn // 256 + EXTRA_REGS)
+    return max(0, min(SMEM_PER_SM // kernel_smem(route, bm, bn, bk,
+                                                 bytes_in),
+                      THREADS_PER_SM // threads,
+                      REGS_PER_SM // (threads * regs)))
+
+
+def tma_ok(n: int, k: int, bytes_in: int, a_ptr: int = 0,
+           b_ptr: int = 0) -> bool:
+    """Whether TMA can read A (m, k) and B (k, n), both row-major: bf16,
+    each row stride a multiple of 16 bytes and each base 16-byte
+    aligned."""
+    return (bytes_in == 2 and k % 8 == 0 and n % 8 == 0
+            and a_ptr % 16 == 0 and b_ptr % 16 == 0)
+
+
+def matmul_route(n: int, k: int, bytes_in: int, tile: Tuple[int, int, int],
+                 a_ptr: int = 0, b_ptr: int = 0) -> str:
+    """The route matmul.cu runs a GEMM on, from its shape, type, pointers
+    and tile alone: ``wgmma`` for a ``WGMMA_TILES`` tile that TMA can
+    feed, else ``mma``."""
+    if tuple(tile) in WGMMA_TILES and tma_ok(n, k, bytes_in, a_ptr, b_ptr):
+        return "wgmma"
+    return "mma"
+
+
+def split_bounds(k: int, bk: int, splits: int) -> List[Tuple[int, int]]:
+    """``[k_lo, k_hi)`` of each split, as matmul.cu computes them: the
+    ``ceil(k / bk)`` k tiles are dealt out evenly, split ``s`` taking
+    tiles ``[s*kt//splits, (s+1)*kt//splits)``; so every bound but the
+    last is a multiple of ``bk`` and no tile is read by two splits."""
+    kt = -(-k // bk)
+    return [(s * kt // splits * bk, min((s + 1) * kt // splits * bk, k))
+            for s in range(splits)]
 
 
 def matmul_cost(m: int, n: int, k: int, bm: int, bn: int, bk: int,
                 bytes_in: int = 2, bytes_out: int = 2,
-                smem: int = SMEM_BYTES) -> Optional[Tuple[float, float]]:
+                smem: int = SMEM_BYTES, splits: int = 1,
+                route: Optional[str] = None
+                ) -> Optional[Tuple[float, float]]:
     """``(seconds, hbm_bytes)`` of ``C[m,n] = A[m,k] @ B[k,n]`` tiled
-    ``(bm, bn, bk)``, or None if the tiles exceed shared memory.
+    ``(bm, bn, bk)`` with ``splits`` K ranges on ``route`` (by default
+    the route an aligned operand pair gets), or None if the kernel's
+    shared memory exceeds ``smem`` or a split would be empty.
 
       outer multipliers m_m = ceil(m/bm), m_n, m_k               (Eq. 1)
       B traffic: each B tile once per k step and output column    (Eq. 4)
       A traffic: each A tile for every (m, n, k) tile             (Eq. 7)
-      C traffic: the psums stay in registers across the k sweep,
-        so each output tile is written once                       (Eq. 9)
-      per k step, one SM: max(compute, load) at its share of the
-      card; the output tiles run in waves over the SMs            (Eq. 18)
+      C traffic: the psums stay in registers across a block's k
+        range; with splits, each block writes a float32 partial
+        tile and the reduction reads them all and writes C        (Eq. 9)
+      per k step, one SM: the compute and the load of a tile at its
+        share of the card, overlapped by the ring on `wgmma` and
+        only across resident blocks on `mma`; the busiest SM runs
+        ceil(blocks / 132) blocks                                 (Eq. 18)
     """
-    if smem_bytes(bm, bn, bk, bytes_in) > smem:
-        return None
+    if route is None:
+        route = matmul_route(n, k, bytes_in, (bm, bn, bk))
+    need = kernel_smem(route, bm, bn, bk, bytes_in)
+    res = resident_blocks(route, bm, bn, bk, bytes_in)
     m_m, m_n, m_k = -(-m // bm), -(-n // bn), -(-k // bk)
+    if need > smem or res < 1 or splits > m_k:
+        return None
+    kt_split = -(-m_k // splits)
     a_bytes = bm * bk * bytes_in * m_m * m_k * m_n
     b_bytes = bk * bn * bytes_in * m_k * m_n
-    c_bytes = bm * bn * bytes_out * m_m * m_n
-    hbm = a_bytes + b_bytes + c_bytes
+    c_bytes = m * n * bytes_out
+    part_bytes = 2 * splits * m * n * 4 if splits > 1 else 0
+    hbm = a_bytes + b_bytes + c_bytes + part_bytes
     peak = PEAK_FLOPS_BF16 if bytes_in == 2 else PEAK_FLOPS_F32
-    compute = 2.0 * bm * bn * bk / (peak / SM_COUNT)
     sm_bw = HBM_BW / SM_COUNT
+    compute = 2.0 * bm * bn * bk / (peak / SM_COUNT)
     load = smem_bytes(bm, bn, bk, bytes_in) / sm_bw
-    store = bm * bn * bytes_out / sm_bw
-    waves = -(-(m_m * m_n) // SM_COUNT)
-    return waves * (m_k * max(compute, load) + store), float(hbm)
+    blocks = m_m * m_n * splits
+    per_sm = -(-blocks // SM_COUNT)
+    depth = (WGMMA_STAGES - 1 if route == "wgmma" else 1) * min(res, per_sm)
+    step = max(compute, load, (compute + load) / depth)
+    store = bm * bn * (4 if splits > 1 else bytes_out) / sm_bw
+    est = per_sm * (kt_split * step + store)
+    if splits > 1:
+        est += (splits * m * n * 4 + c_bytes) / HBM_BW + REDUCE_LAUNCH_S
+    return est, float(hbm)
 
 
+@functools.lru_cache(maxsize=4096)
 def select_matmul_block(m: int, n: int, k: int, bytes_in: int = 2,
-                        bytes_out: int = 2,
-                        smem: int = SMEM_BYTES) -> MatmulBlock:
-    """The compiled tile the model finds fastest for this GEMM (ties go to
-    less traffic, then to the earlier tile of ``MATMUL_TILES``)."""
+                        bytes_out: int = 2, smem: int = SMEM_BYTES,
+                        aligned: bool = True,
+                        tile: Optional[Tuple[int, int, int]] = None
+                        ) -> MatmulBlock:
+    """The tile, route and split count the model finds fastest for this
+    GEMM (ties go to less traffic, then to the earlier tile and fewer
+    splits).  ``aligned``: both operands' bases are 16-byte aligned.  The
+    candidates are the ``WGMMA_TILES`` where TMA can feed the GEMM (every
+    such GEMM runs on `wgmma`), else ``MATMUL_TILES``; ``tile`` fixes the
+    tile and leaves the split count to the model."""
     if min(m, n, k) <= 0:
         raise ValueError(f"no tile for a degenerate GEMM ({m}, {n}, {k})")
+    tma = tma_ok(n, k, bytes_in) and aligned
+    if tile is not None:
+        tiles = (tuple(tile),)
+    else:
+        tiles = WGMMA_TILES if tma else MATMUL_TILES
     best: Optional[MatmulBlock] = None
-    for bm, bn, bk in MATMUL_TILES:
-        res = matmul_cost(m, n, k, bm, bn, bk, bytes_in, bytes_out, smem)
-        if res is None:
-            continue
-        est, hbm = res
-        if best is None or est < best.est_s or (
-                est == best.est_s and hbm < best.hbm_bytes):
-            best = MatmulBlock(bm, bn, bk, est, hbm)
+    for bm, bn, bk in tiles:
+        route = "wgmma" if tma and (bm, bn, bk) in WGMMA_TILES else "mma"
+        for splits in range(1, min(-(-k // bk), MAX_SPLITS) + 1):
+            res = matmul_cost(m, n, k, bm, bn, bk, bytes_in, bytes_out,
+                              smem, splits, route)
+            if res is None:
+                continue
+            est, hbm = res
+            if best is None or est < best.est_s or (
+                    est == best.est_s and hbm < best.hbm_bytes):
+                best = MatmulBlock(bm, bn, bk, splits, route, est, hbm)
     if best is None:
         raise ValueError(f"no compiled tile fits {smem} bytes of shared "
                          f"memory at {bytes_in} bytes an element")

@@ -5,31 +5,45 @@
 // GEMM mapping (Sec. IV-B).  Row-major operands, as there.
 //
 // Bound on the H100: at the shapes the port drives (Qwen3-0.6B projections
-// and LM head at 4096 tokens, ResNet-50's convolutions as GEMMs) the work
-// is well above 295 FLOP a byte, so the tensor cores bound bf16 (989
-// TFLOP/s) and the CUDA cores bound f32 (67 TFLOP/s, no TF32).
+// and LM head at 4096 tokens, ResNet-50's convolutions as GEMMs, forward
+// and backward) the work is well above 295 FLOP a byte, so the tensor
+// cores bound bf16 (989 TFLOP/s) and the CUDA cores bound f32 (67 TFLOP/s,
+// no TF32).  What keeps a kernel from that bound is feeding the tensor
+// cores (loads that overlap the products) and filling 132 SMs.
 //
-// Design, simple first:
-// * One block of 256 threads for each (bm x bn) output tile, looping over k
-//   in steps of bk.  The A and B tiles sit in shared memory, single-
-//   buffered; the f32 accumulators sit in registers for the whole k sweep,
-//   so every output is written once (the Pallas kernel revisits its f32
-//   output block in VMEM instead).
-// * bf16: eight warps, each a (bm/2 x bn/4) sub-tile of 16x16x16 WMMA
-//   products (mma.sync on the tensor cores); the accumulator fragments go
-//   through a per-warp 16x16 buffer in shared memory to the masked store.
-// * f32: CUDA-core FMAs only, each thread a (bm/16 x bn/16) strided sub-
-//   tile, so no TF32 rounding enters (the f32 tolerance is 2e-4).
-// * The ragged edge is masked in the kernel (zero-filled loads, guarded
-//   stores) instead of padding copies of the operands as `jnp.pad` does.
-//   Loads move 16 bytes a thread where the rows allow it.
-// * Offsets are 64-bit (row * stride in int64): the LM head's output at
-//   4096 x 151936 has 622M elements.
-// The tiles are the template instantiations in MATMUL_TILES below; the
-// port's tile model (repro_torch/core/gpu_model.py) chooses among them.
-// Later work: TMA loads, a multi-stage pipeline and wgmma.
+// Two routes, chosen by the caller from shape, type, pointers and tile
+// (repro_torch/core/gpu_model.py::matmul_route); this file refuses a route
+// that cannot take the GEMM:
+// * `wgmma` (bf16; the tiles of WGMMA_TILES, 128 x bn x 64): one producer
+//   warp keeps a 4-stage ring of shared-memory tiles full with TMA loads
+//   (128-byte swizzle, mbarriers mark each stage full and empty); two
+//   consumer warpgroups, 64 rows each, run wgmma.m64n{bn}k16 on the
+//   stages with float32 accumulators in registers.  TMA zero-fills what
+//   lies outside the matrix, so ragged m, n and k need no mask in the main
+//   loop.  B is row-major (k, n), N-major for wgmma: read through the
+//   descriptor's transpose bit, in 64-column boxes.  The epilogue rounds to
+//   bf16 and stages the tile in shared memory so that each thread stores
+//   16 bytes, masked at the ragged edge.  TMA needs 16-byte row strides
+//   and bases, so K or N not a multiple of 8, or an offset view, take:
+// * `mma`: the first kernel, kept: one block of 256 threads for each
+//   (bm x bn) output tile, single-buffered A and B tiles in shared memory,
+//   bf16 products as 16x16x16 WMMA (mma.sync) through a per-warp staging
+//   buffer, f32 as CUDA-core FMAs (each thread a strided (bm/16 x bn/16)
+//   sub-tile, no TF32); the ragged edge masked in the loads and stores.
+// Split-K, both routes and types: where the output tiles cannot fill the
+// SMs, grid dimension z cuts the ceil(k / bk) k tiles into `splits` even
+// ranges (split s: tiles [s*kt/splits, (s+1)*kt/splits), so no tile is
+// read twice).  Each block writes a float32 partial tile to the caller's
+// workspace (splits, m, n); `splitk_sum` then adds the partials in split
+// order and casts: no atomics, the same bits on every run.
+// Offsets are 64-bit: the LM head's output at 4096 x 151936 has 622M
+// elements.  The tensor maps are encoded here, from the pointers and
+// sizes, with cuTensorMapEncodeTiled fetched by
+// cudaGetDriverEntryPoint(ByVersion), so the library links no libcuda.
+#include <cuda.h>
 #include <mma.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
@@ -40,11 +54,23 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// ---- f32: CUDA-core FMAs -------------------------------------------------
+// Split s of the ceil(k / bk) k tiles: [k_lo, k_hi), bounds in elements.
+// The Python mirror is gpu_model.split_bounds.
+__device__ __forceinline__ void split_range(long long k, int bk, int splits,
+                                            long long* k_lo,
+                                            long long* k_hi) {
+  const long long kt = (k + bk - 1) / bk, s = blockIdx.z;
+  *k_lo = s * kt / splits * bk;
+  *k_hi = min((s + 1) * kt / splits * bk, k);
+}
+
+// ---- mma route, f32: CUDA-core FMAs ---------------------------------------
+// ws == nullptr: C gets the sum; else ws[blockIdx.z] gets a float32 partial.
 template <int BM, int BN, int BK>
 __global__ void __launch_bounds__(kThreads)
     mm_f32(const float* __restrict__ A, const float* __restrict__ B,
-           float* __restrict__ C, long long m, long long n, long long k) {
+           float* __restrict__ C, float* __restrict__ ws, long long m,
+           long long n, long long k, int splits) {
   constexpr int TM = BM / 16, TN = BN / 16, LDA = BM + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* As = reinterpret_cast<float*>(smem);  // [BK][BM + 1], A transposed
@@ -52,22 +78,24 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const long long row0 = static_cast<long long>(blockIdx.x) * BM;
   const long long col0 = static_cast<long long>(blockIdx.y) * BN;
+  long long k_lo, k_hi;
+  split_range(k, BK, splits, &k_lo, &k_hi);
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (long long k0 = 0; k0 < k; k0 += BK) {
+  for (long long k0 = k_lo; k0 < k_hi; k0 += BK) {
     for (int e = tid; e < BM * BK; e += kThreads) {
       const int r = e / BK, c = e % BK;
       const long long gr = row0 + r, gc = k0 + c;
-      As[c * LDA + r] = (gr < m && gc < k) ? A[gr * k + gc] : 0.f;
+      As[c * LDA + r] = (gr < m && gc < k_hi) ? A[gr * k + gc] : 0.f;
     }
     for (int e = tid; e < BK * BN; e += kThreads) {
       const int r = e / BN, c = e % BN;
       const long long gr = k0 + r, gc = col0 + c;
-      Bs[r * BN + c] = (gr < k && gc < n) ? B[gr * n + gc] : 0.f;
+      Bs[r * BN + c] = (gr < k_hi && gc < n) ? B[gr * n + gc] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -84,25 +112,27 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
+  float* out = ws == nullptr ? C : ws + blockIdx.z * m * n;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const long long r = row0 + ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const long long c = col0 + tx + 16 * j;
-      if (r < m && c < n) C[r * n + c] = acc[i][j];
+      if (r < m && c < n) out[r * n + c] = acc[i][j];
     }
   }
 }
 
-// ---- bf16: WMMA (mma.sync) with f32 accumulators --------------------------
-// Copies a (ROWS x COLS) tile of a row-major (rows x cols) matrix at
-// (r0, c0) into shared memory with leading dimension LD, zero outside the
-// matrix; 8 elements (16 bytes) a step, one vector load where `vec` allows.
+// ---- mma route, bf16: WMMA (mma.sync) with f32 accumulators ---------------
+// Copies the (ROWS x COLS) tile at (r0, c0) of a row-major matrix with
+// leading dimension `ld` into shared memory with leading dimension LD, zero
+// at or past (rows, cols); 8 elements (16 bytes) a step, one vector load
+// where `vec` allows.
 template <int ROWS, int COLS, int LD>
 __device__ __forceinline__ void load_tile_bf16(
     bf16* __restrict__ dst, const bf16* __restrict__ src, long long rows,
-    long long cols, long long r0, long long c0, bool vec) {
+    long long cols, long long ld, long long r0, long long c0, bool vec) {
   constexpr int CHUNKS = COLS / 8;
   const bf16 zero = __float2bfloat16_rn(0.f);
   for (int e = threadIdx.x; e < ROWS * CHUNKS; e += kThreads) {
@@ -111,11 +141,11 @@ __device__ __forceinline__ void load_tile_bf16(
     bf16* d = dst + r * LD + c;
     if (vec && gr < rows && gc + 8 <= cols) {
       *reinterpret_cast<uint4*>(d) =
-          *reinterpret_cast<const uint4*>(src + gr * cols + gc);
+          *reinterpret_cast<const uint4*>(src + gr * ld + gc);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        d[i] = (gr < rows && gc + i < cols) ? src[gr * cols + gc + i] : zero;
+        d[i] = (gr < rows && gc + i < cols) ? src[gr * ld + gc + i] : zero;
     }
   }
 }
@@ -123,8 +153,8 @@ __device__ __forceinline__ void load_tile_bf16(
 template <int BM, int BN, int BK>
 __global__ void __launch_bounds__(kThreads)
     mm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
-            bf16* __restrict__ C, long long m, long long n, long long k,
-            bool vec_a, bool vec_b) {
+            bf16* __restrict__ C, float* __restrict__ ws, long long m,
+            long long n, long long k, int splits, bool vec_a, bool vec_b) {
   constexpr int WM = 2, WN = 4;                  // 8 warps
   constexpr int FM = BM / (16 * WM), FN = BN / (16 * WN);
   constexpr int LDA = BK + 8, LDB = BN + 8;      // multiples of 8, as WMMA needs
@@ -137,6 +167,8 @@ __global__ void __launch_bounds__(kThreads)
   const int wm = warp / WN, wn = warp % WN;
   const long long row0 = static_cast<long long>(blockIdx.x) * BM;
   const long long col0 = static_cast<long long>(blockIdx.y) * BN;
+  long long k_lo, k_hi;
+  split_range(k, BK, splits, &k_lo, &k_hi);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 #pragma unroll
@@ -144,9 +176,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  for (long long k0 = 0; k0 < k; k0 += BK) {
-    load_tile_bf16<BM, BK, LDA>(As, A, m, k, row0, k0, vec_a);
-    load_tile_bf16<BK, BN, LDB>(Bs, B, k, n, k0, col0, vec_b);
+  for (long long k0 = k_lo; k0 < k_hi; k0 += BK) {
+    load_tile_bf16<BM, BK, LDA>(As, A, m, k_hi, k, row0, k0, vec_a);
+    load_tile_bf16<BK, BN, LDB>(Bs, B, k_hi, n, n, k0, col0, vec_b);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -170,6 +202,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   float* st = stage + warp * 256;
+  float* part = ws == nullptr ? nullptr : ws + blockIdx.z * m * n;
 #pragma unroll
   for (int i = 0; i < FM; ++i) {
 #pragma unroll
@@ -180,68 +213,512 @@ __global__ void __launch_bounds__(kThreads)
       const long long c0 = col0 + wn * FN * 16 + j * 16;
       for (int e = lane; e < 256; e += 32) {
         const long long r = r0 + e / 16, c = c0 + e % 16;
-        if (r < m && c < n) C[r * n + c] = __float2bfloat16_rn(st[e]);
+        if (r < m && c < n) {
+          if (part != nullptr)
+            part[r * n + c] = st[e];
+          else
+            C[r * n + c] = __float2bfloat16_rn(st[e]);
+        }
       }
       __syncwarp();
     }
   }
 }
 
+// ---- wgmma route: PTX helpers ---------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// Spins until the phase of parity `parity` of `bar` has completed.  No
+// wait of this kernel lasts a second: one that outlasts about ten (2e10
+// cycles) traps, so a fault in the pipeline ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// TMA: the box at (c0, c1) (innermost first) of `map` into `dst`; its
+// bytes complete a transaction of `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile at `p`:
+// leading and stride byte offsets in 16-byte units, layout type 1 (B128).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x N, f32, the warpgroup's fragment) += A (64 x 16, K-major) @
+// B (16 x N, N-major: transpose bit set); scale_d 0 ignores d.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
+                                           uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<256>(float* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Keeps the compiler from moving accumulator registers while a wgmma that
+// writes them is in flight.
+template <int R>
+__device__ __forceinline__ void fence_operands(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ---- wgmma route: the kernel ----------------------------------------------
+constexpr int WG_BM = 128, WG_BK = 64, WG_STAGES = 4;
+constexpr int WG_THREADS = 288;      // two consumer warpgroups + one producer
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;   // 128 rows of 128 bytes
+constexpr int WG_B_BOX = WG_BK * 64 * 2;        // 64 k rows x 64 columns
+
+template <int BN>
+constexpr size_t wgmma_smem() {
+  return WG_STAGES * (WG_A_BYTES + (BN / 64) * WG_B_BOX) + 1024;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    mm_wgmma(const __grid_constant__ CUtensorMap ta,
+             const __grid_constant__ CUtensorMap tb, bf16* __restrict__ C,
+             float* __restrict__ ws, int m, int n, int k, int splits) {
+  constexpr int STAGE = WG_A_BYTES + (BN / 64) * WG_B_BOX;
+  constexpr int LDS = BN + 8;                  // epilogue staging, bf16
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  const int kt = (k + WG_BK - 1) / WG_BK;
+  const int t_lo = static_cast<long long>(blockIdx.z) * kt / splits;
+  const int t_hi = static_cast<long long>(blockIdx.z + 1) * kt / splits;
+  const int row0 = blockIdx.x * WG_BM, col0 = blockIdx.y * BN;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);       // the producer's expect_tx, then bytes
+      mbar_init(&empty[s], 2);      // one arrival from each warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {                 // the producer warp; one lane copies
+    if (tid == 256) {
+      int s = 0, phase = 0;
+      for (int t = t_lo; t < t_hi; ++t) {
+        mbar_wait(&empty[s], phase ^ 1);
+        unsigned char* st = ring + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load_2d(st, &ta, t * WG_BK, row0, &full[s]);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(st + WG_A_BYTES + j * WG_B_BOX, &tb, col0 + 64 * j,
+                      t * WG_BK, &full[s]);
+        if (++s == WG_STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;         // rows 64 wg .. 64 wg + 63 of the tile
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  int s = 0, phase = 0, prev = -1;
+  for (int t = t_lo; t < t_hi; ++t) {
+    mbar_wait(&full[s], phase);
+    const unsigned char* st = ring + s * STAGE;
+    wgmma_fence();
+    fence_operands<BN / 2>(acc);
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      // A: K-major, 8-row groups 1024 bytes apart, k16 steps 32 bytes in
+      // the swizzled row; B: N-major, 64-column boxes WG_B_BOX apart, k
+      // groups of 8 rows 1024 bytes apart, k16 steps 2048 bytes
+      const uint64_t da = sw128_desc(st + wg * 64 * 128 + kk * 32, 16, 1024);
+      const uint64_t db = sw128_desc(st + WG_A_BYTES + kk * 2048, WG_B_BOX,
+                                     1024);
+      wgmma_bf16<BN>(acc, da, db, 1);
+    }
+    wgmma_commit();
+    fence_operands<BN / 2>(acc);
+    wgmma_wait<1>();                // the previous stage's products are done
+    if (prev >= 0 && tid % 128 == 0) mbar_arrive(&empty[prev]);
+    prev = s;
+    if (++s == WG_STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands<BN / 2>(acc);
+
+  // accumulator fragment: register 4j + 2h + e holds row 16w + lane/4 + 8h
+  // and column 8j + 2(lane % 4) + e of the warpgroup's 64 rows
+  const int lane = tid % 32, r_loc = wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  const int c_loc = 2 * (lane % 4);
+  if (ws != nullptr) {              // a float32 partial of split z
+    float* part = ws + static_cast<long long>(blockIdx.z) * m * n;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long r = row0 + r_loc + 8 * h, c = col0 + c_loc + 8 * j;
+        if (r < m && c < n)         // n is even: c + 1 < n too
+          *reinterpret_cast<float2*>(part + r * n + c) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    return;
+  }
+  // bf16: stage the tile in the ring (both warpgroups are past it), then
+  // store 16 bytes a thread; n % 8 == 0, so a chunk is all in or all out
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  bf16* stage = reinterpret_cast<bf16*>(ring);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(
+          stage + (r_loc + 8 * h) * LDS + c_loc + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  constexpr int CH = BN / 8;
+  for (int e = tid; e < WG_BM * CH; e += 256) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const long long gr = row0 + r, gc = col0 + c;
+    if (gr < m && gc < n)
+      *reinterpret_cast<uint4*>(C + gr * n + gc) =
+          *reinterpret_cast<const uint4*>(stage + r * LDS + c);
+  }
+}
+
+// ---- split-K: the partials summed in split order --------------------------
+template <typename T>
+__global__ void splitk_sum(const float* __restrict__ ws, T* __restrict__ c,
+                           long long mn, int splits) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < mn; i += stride) {
+    float s = ws[i];
+    for (int z = 1; z < splits; ++z) s += ws[z * mn + i];
+    c[i] = repro::from_f32<T>(s);
+  }
+}
+
+// ---- launchers --------------------------------------------------------------
 template <int BM, int BN, int BK>
-int launch_f32(const void* a, const void* b, void* c, long long m,
-               long long n, long long k, cudaStream_t stream) {
+int launch_f32(const void* a, const void* b, void* c, float* ws, long long m,
+               long long n, long long k, int splits, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BK * (BM + 1) + BK * BN);
   cudaError_t err = repro::allow_smem(mm_f32<BM, BN, BK>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, splits);
   mm_f32<BM, BN, BK><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(c), m, n, k);
+      static_cast<float*>(c), ws, m, n, k, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM, int BN, int BK>
-int launch_bf16(const void* a, const void* b, void* c, long long m,
-                long long n, long long k, cudaStream_t stream) {
+int launch_bf16(const void* a, const void* b, void* c, float* ws, long long m,
+                long long n, long long k, int splits, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (BM * (BK + 8) + BK * (BN + 8)) +
                       sizeof(float) * 8 * 256;
   cudaError_t err = repro::allow_smem(mm_bf16<BM, BN, BK>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec_a = k % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
   const bool vec_b = n % 8 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, splits);
   mm_bf16<BM, BN, BK><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<bf16*>(c), m, n, k, vec_a, vec_b);
+      static_cast<bf16*>(c), ws, m, n, k, splits, vec_a, vec_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled's signature (cuda.h), fetched at run time
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A row-major bf16 (outer x inner) matrix at `base`, read in boxes of
+// (box_outer x box_inner) with the 128-byte swizzle, zero outside.
+bool encode_2d(CUtensorMap* map, const void* base, long long inner,
+               long long outer, unsigned box_inner, unsigned box_outer) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+int launch_wgmma(const void* a, const void* b, void* c, float* ws,
+                 long long m, long long n, long long k, int splits,
+                 cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap ta, tb;
+  if (!encode_2d(&ta, a, k, m, WG_BK, WG_BM) ||
+      !encode_2d(&tb, b, n, k, 64, WG_BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = wgmma_smem<BN>();
+  cudaError_t err = repro::allow_smem(mm_wgmma<BN>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + WG_BM - 1) / WG_BM, (n + BN - 1) / BN, splits);
+  mm_wgmma<BN><<<grid, WG_THREADS, smem, stream>>>(
+      ta, tb, static_cast<bf16*>(c), ws, static_cast<int>(m),
+      static_cast<int>(n), static_cast<int>(k), splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_sum(int dtype, const float* ws, void* c, long long mn, int splits,
+               cudaStream_t stream) {
+  const long long blocks = std::min<long long>((mn + 255) / 256, 132 * 16);
+  if (dtype == REPRO_F32)
+    splitk_sum<float><<<blocks, 256, 0, stream>>>(ws, static_cast<float*>(c),
+                                                   mn, splits);
+  else
+    splitk_sum<bf16><<<blocks, 256, 0, stream>>>(ws, static_cast<bf16*>(c),
+                                                  mn, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The compiled tiles (bm, bn, bk), the same for both types: those the JAX
-// package's kernel tests name (64^3; bm 32/64/128 x bn 64 x bk 32/128) and
-// 128 x 128 x 32, the tile model's pick for the large GEMMs.  Keep equal to
-// repro_torch/core/gpu_model.py::MATMUL_TILES.
+// The tiles (bm, bn, bk) of the `mma` route, the same for both types: those
+// the JAX package's kernel tests name (64^3; bm 32/64/128 x bn 64 x bk
+// 32/128), 128 x 128 x 32, and the `wgmma` tiles, so that an explicit tile
+// runs on either route.  Keep equal to gpu_model.py::MATMUL_TILES.
 #define MATMUL_TILES(X)                                                     \
   X(32, 64, 32) X(32, 64, 128) X(64, 64, 32) X(64, 64, 64) X(64, 64, 128)  \
-  X(128, 64, 32) X(128, 64, 128) X(128, 128, 32)
+  X(128, 64, 32) X(128, 64, 128) X(128, 128, 32) X(128, 64, 64)            \
+  X(128, 128, 64) X(128, 256, 64)
 
-// Launches C = A @ B for m, n, k > 0 on `stream` with tile (bm, bn, bk);
-// returns a cudaError_t code (cudaErrorInvalidValue for an unknown type or
-// a tile that is not compiled).
-extern "C" int matmul_launch(int dtype, const void* a, const void* b, void* c,
-                             long long m, long long n, long long k, int bm,
-                             int bn, int bk, void* stream) {
+// The tiles of the `wgmma` route (bf16; bm 128, bk 64).  Keep equal to
+// gpu_model.py::WGMMA_TILES.
+#define WGMMA_TILES(X) X(128, 64, 64) X(128, 128, 64) X(128, 256, 64)
+
+enum { ROUTE_MMA = 0, ROUTE_WGMMA = 1 };
+
+// Launches C = A @ B for m, n, k > 0 on `stream` with tile (bm, bn, bk) on
+// `route`, in `splits` K ranges (for splits > 1, `ws` holds splits * m * n
+// floats); returns a cudaError_t code: cudaErrorInvalidValue for an unknown
+// type, route or tile, a split count outside [1, ceil(k / bk)], or a GEMM
+// the `wgmma` route cannot take (not bf16, K or N not a multiple of 8, a
+// base not 16-byte aligned).
+extern "C" int matmul_launch(int dtype, int route, const void* a,
+                             const void* b, void* c, void* ws, long long m,
+                             long long n, long long k, int bm, int bn, int bk,
+                             int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MATMUL_DISPATCH(BM, BN, BK)                                  \
-  if (bm == BM && bn == BN && bk == BK) {                            \
-    if (dtype == REPRO_F32) return launch_f32<BM, BN, BK>(a, b, c, m, n, k, s); \
-    if (dtype == REPRO_BF16) return launch_bf16<BM, BN, BK>(a, b, c, m, n, k, s); \
-    return static_cast<int>(cudaErrorInvalidValue);                  \
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || n <= 0 || k <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
+      splits < 1 || splits > (k + bk - 1) / bk || splits > 65535 ||
+      (n + bn - 1) / bn > 65535 || (splits > 1 && ws == nullptr) ||
+      (dtype != REPRO_F32 && dtype != REPRO_BF16))
+    return bad;
+  float* part = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  int err = bad;
+  bool found = false;
+  if (route == ROUTE_WGMMA) {
+    const long long limit = 0x7fffffffLL;
+    if (dtype != REPRO_BF16 || k % 8 != 0 || n % 8 != 0 ||
+        reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(b) % 16 != 0 || m > limit ||
+        n > limit || k > limit)
+      return bad;
+#define WGMMA_DISPATCH(BM, BN, BK)                                         \
+  if (!found && bm == BM && bn == BN && bk == BK) {                        \
+    static_assert(BM == WG_BM && BK == WG_BK, "wgmma tile is 128 x bn x 64"); \
+    found = true;                                                          \
+    err = launch_wgmma<BN>(a, b, c, part, m, n, k, splits, s);             \
   }
-  MATMUL_TILES(MATMUL_DISPATCH)
+    WGMMA_TILES(WGMMA_DISPATCH)
+#undef WGMMA_DISPATCH
+  } else if (route == ROUTE_MMA) {
+#define MATMUL_DISPATCH(BM, BN, BK)                                        \
+  if (!found && bm == BM && bn == BN && bk == BK) {                        \
+    found = true;                                                          \
+    err = dtype == REPRO_F32                                               \
+              ? launch_f32<BM, BN, BK>(a, b, c, part, m, n, k, splits, s)  \
+              : launch_bf16<BM, BN, BK>(a, b, c, part, m, n, k, splits, s); \
+  }
+    MATMUL_TILES(MATMUL_DISPATCH)
 #undef MATMUL_DISPATCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!found) return bad;
+  if (err != 0 || splits == 1) return err;
+  return launch_sum(dtype, part, c, m * n, splits, s);
 }
 
 REPRO_EXPORT_ERROR_STRING(matmul)

@@ -5,10 +5,13 @@ masks and grouped-query heads: q (B*H, S, D), k and v (B*KV, S, D), out
 On CUDA tensors it launches the hand-written kernel
 ``csrc/flash_attention.cu`` (the port of the JAX package's Pallas
 ``flash_attention_pallas``; the source says how it is laid out and what
-bounds it), for head_dim 16, 32, 64 or 128.  On CPU tensors it runs
-``flash_attention_ref``, the plain version.  Both mask keys at or past S,
-as the oracle does (the Pallas kernel, without ``causal``, lets its zero
-padding into the softmax when S is not a multiple of its key block).
+bounds it), for head_dim 16, 32, 64 or 128: bf16 on the tensor cores
+(``mma.sync``; q, k and v must start on 16-byte boundaries), float32 on
+the CUDA cores (TF32 would break the float32 tolerance).  On CPU tensors
+it runs ``flash_attention_ref``, the plain version.  Both mask keys at or
+past S, as the oracle does (the Pallas kernel, without ``causal``, lets
+its zero padding into the softmax when S is not a multiple of its key
+block).
 """
 from __future__ import annotations
 
@@ -55,10 +58,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with ``k_pos > q_pos - window``.
 
     ``bq`` and ``bk`` were the Pallas kernel's VMEM tiles.  The CUDA
-    kernel is compiled for one tile, 64 queries x 64 keys, and
-    every positive ``bq`` and ``bk`` (the default 512 too) runs it; the
-    result differs from another tile's only in the order of the float32
-    sums."""
+    kernel is compiled for one tile, 64 queries x 64 keys, on each
+    route, and every positive ``bq`` and ``bk`` (the default 512 too)
+    runs it; the result differs from another tile's only in the order of
+    the float32 sums."""
     kind = device_kind("flash_attention", {"q": q, "k": k, "v": v})
     dtype = same_dtype("flash_attention", {"q": q, "k": k, "v": v})
     positive_int("flash_attention", bq=bq, bk=bk)
@@ -72,9 +75,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} is not compiled; "
                          f"the kernel has {HEAD_DIMS}")
-    if bh > 65535 or s >= 2 ** 31:
+    if bh > 65535 or s >= 2 ** 31 or -(-s // 64) > 65535:
         raise ValueError(f"flash_attention: {bh} heads or {s} positions "
                          f"exceed the grid")
+    if dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k and v must start on "
+                         "16-byte boundaries (the kernel copies 16 bytes "
+                         "at a time)")
     lib = library(SOURCE, _LAUNCH, _ARGTYPES)
     call(lib, _LAUNCH, q.device, DTYPE_CODE[dtype], q.data_ptr(),
          k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d, n_heads, n_kv,

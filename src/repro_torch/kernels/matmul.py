@@ -4,9 +4,18 @@ A's type.
 On CUDA tensors it launches the hand-written kernel ``csrc/matmul.cu``
 (the port of the JAX package's Pallas ``matmul_pallas``; the source says
 how it is laid out and what bounds it) with one of the tiles it is
-compiled for, ``core.gpu_model.MATMUL_TILES``.  On CPU tensors it runs
+compiled for, ``core.gpu_model.MATMUL_TILES``, on the route
+``core.gpu_model.matmul_route`` gives from the shape, type, pointers and
+tile: ``wgmma`` (bf16, TMA and wgmma) or ``mma`` (WMMA for bf16, CUDA-core
+FMAs for f32).  With ``splits > 1`` the kernel cuts K into that many
+ranges and writes float32 partials to a workspace this wrapper allocates;
+a second kernel sums them in split order.  On CPU tensors it runs
 ``matmul_ref``, the plain version.  A GEMM with a zero dimension returns
 the empty matrix or, for ``k == 0``, zeros, without a launch.
+
+``matmul.launches`` counts the calls that launch; ``matmul.routes``
+counts them by route, and those with a split-K reduction under
+``"splitk"``.
 
 ``MatmulFn`` is the GEMM as a ``torch.autograd.Function``: its backward
 is two more GEMMs through the same entry point, ``dA = dC @ B^T`` and
@@ -20,7 +29,7 @@ import ctypes
 
 import torch
 
-from ..core.gpu_model import MATMUL_TILES
+from ..core.gpu_model import MATMUL_TILES, matmul_route
 from ._dispatch import DTYPE_CODE, call, device_kind, library, same_dtype
 from .ref import matmul_ref
 
@@ -28,9 +37,10 @@ __all__ = ["matmul", "matmul_ref", "check_tile", "MatmulFn"]
 
 SOURCE = "matmul.cu"
 _LAUNCH = "matmul_launch"
-_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES = (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 4 + (
+    ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+# csrc/matmul.cu's route codes
+ROUTE_CODE = {"mma": 0, "wgmma": 1}
 
 
 def check_tile(bm: int, bn: int, bk: int) -> None:
@@ -41,30 +51,46 @@ def check_tile(bm: int, bn: int, bk: int) -> None:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
-           bk: int) -> torch.Tensor:
-    """``a @ b`` with tile ``(bm, bn, bk)``, which must be compiled.  A
-    tile larger than the GEMM is masked at the edge, which gives what the
-    Pallas kernel computes with its block clamped to the dimension."""
+           bk: int, splits: int = 1) -> torch.Tensor:
+    """``a @ b`` with tile ``(bm, bn, bk)``, which must be compiled, in
+    ``splits`` K ranges (1 to ``ceil(k / bk)``).  A tile larger than the
+    GEMM is masked at the edge, which gives what the Pallas kernel
+    computes with its block clamped to the dimension; the split changes
+    only the order of the float32 sums."""
     kind = device_kind("matmul", {"a": a, "b": b})
     dtype = same_dtype("matmul", {"a": a, "b": b})
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not multiply")
     check_tile(bm, bn, bk)
+    (m, k), n = a.shape, b.shape[1]
+    if not isinstance(splits, int) or isinstance(splits, bool) or \
+            splits < 1 or splits > max(1, -(-k // bk)):
+        raise ValueError(f"matmul: splits must be an int in [1, "
+                         f"ceil(k / bk)] = [1, {max(1, -(-k // bk))}], "
+                         f"got {splits!r}")
     if kind == "cpu":
         return matmul_ref(a, b)
-    (m, k), n = a.shape, b.shape[1]
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=dtype, device=a.device)
+    route = matmul_route(n, k, a.element_size(), (bm, bn, bk),
+                         a.data_ptr(), b.data_ptr())
     out = torch.empty((m, n), dtype=dtype, device=a.device)
+    ws = None if splits == 1 else torch.empty(
+        (splits, m, n), dtype=torch.float32, device=a.device)
     lib = library(SOURCE, _LAUNCH, _ARGTYPES)
-    call(lib, _LAUNCH, a.device, DTYPE_CODE[dtype], a.data_ptr(),
-         b.data_ptr(), out.data_ptr(), m, n, k, bm, bn, bk)
+    call(lib, _LAUNCH, a.device, DTYPE_CODE[dtype], ROUTE_CODE[route],
+         a.data_ptr(), b.data_ptr(), out.data_ptr(),
+         None if ws is None else ws.data_ptr(), m, n, k, bm, bn, bk, splits)
     matmul.launches += 1
+    matmul.routes[route] += 1
+    if splits > 1:
+        matmul.routes["splitk"] += 1
     return out
 
 
 matmul.launches = 0
+matmul.routes = {"wgmma": 0, "mma": 0, "splitk": 0}
 
 
 class MatmulFn(torch.autograd.Function):

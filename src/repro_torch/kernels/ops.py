@@ -13,9 +13,12 @@ The block arguments were the Pallas kernels' VMEM tiles.  On the card:
   compiled for (``core.gpu_model.MATMUL_TILES``), else ``ValueError``; 0
   in any of them asks the port's tile model
   (``core.gpu_model.select_matmul_block``), as the JAX wrapper asks its
-  TPU model.  A tile larger than the GEMM is masked at the edge, which
-  gives what Pallas computes with the block clamped to the dimension.
-* ``flash_attention``: the kernel is compiled for one tile, 64 queries x
+  TPU model.  The model also picks the K split, for an explicit tile
+  too; the route follows from shape, type, pointers and tile
+  (``core.gpu_model.matmul_route``).  A tile larger than the GEMM is
+  masked at the edge, which gives what Pallas computes with the block
+  clamped to the dimension.
+* ``flash_attention``: each route is compiled for one tile, 64 queries x
   64 keys; every positive ``bq`` and ``bk``, the default 512 included,
   runs it.
 * ``fused_add_rmsnorm``: one CUDA block a row; every positive
@@ -24,7 +27,8 @@ The block arguments were the Pallas kernels' VMEM tiles.  On the card:
   to the tensor, is the tile of the pass that sums over rows (the
   statistics; dgamma and dbeta), ``block_c`` at most 1024.
 
-A result depends on the tile only through the order of float32 sums.
+A result depends on the tile and the split only through the order of
+float32 sums.
 """
 from __future__ import annotations
 
@@ -45,19 +49,24 @@ __all__ = ["matmul", "flash_attention", "fused_add_rmsnorm", "bn_forward",
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 0, bn: int = 0,
            bk: int = 0) -> torch.Tensor:
-    if not (bm and bn and bk) and a.dim() == 2 and b.dim() == 2:
+    splits = 1
+    if a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0]:
         m, k = a.shape
         n = b.shape[1]
+        explicit = bool(bm and bn and bk)
         if 0 in (m, n, k):
             # degenerate GEMM: nothing is launched, so any compiled tile
             # serves (the JAX wrapper passes 1, 1, 1 for the same reason)
-            bm, bn, bk = MATMUL_TILES[0]
-        else:
+            if not explicit:
+                bm, bn, bk = MATMUL_TILES[0]
+        elif not explicit or (bm, bn, bk) in MATMUL_TILES:
             size = a.element_size()      # C takes A's type
-            blk = select_matmul_block(m, n, k, bytes_in=size,
-                                      bytes_out=size)
-            bm, bn, bk = blk.bm, blk.bn, blk.bk
-    return _mm.matmul(a, b, bm, bn, bk)
+            blk = select_matmul_block(
+                m, n, k, bytes_in=size, bytes_out=size,
+                aligned=a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
+                tile=(bm, bn, bk) if explicit else None)
+            bm, bn, bk, splits = blk.bm, blk.bn, blk.bk, blk.splits
+    return _mm.matmul(a, b, bm, bn, bk, splits=splits)
 
 
 def launch_counters() -> dict:

@@ -114,3 +114,54 @@ def test_bad_arguments_raise(args, match):
     heads, kv = args.pop("heads"), args.pop("kv")
     with pytest.raises(ValueError, match=match):
         tops.flash_attention(q, k, v, heads, kv, **args)
+
+
+def _tiled(q, k, v, heads, kv, causal, window, bkv=64):
+    """The bf16 kernel's arithmetic in plain PyTorch: 64-key tiles from
+    the first that can be unmasked, an online softmax in float32 (masked
+    logits -1e30, masked p zeroed), the denominator from the unrounded p,
+    p rounded to bf16 before P.V, acc / max(l, 1e-30)."""
+    bh, s, d = q.shape
+    group = heads // kv
+    kvh = [(i // heads) * kv + (i % heads) // group for i in range(bh)]
+    kf, vf = k[kvh].float(), v[kvh].float()
+    qf = q.float()
+    qpos = torch.arange(s)[:, None]
+    m = torch.full((bh, s, 1), -1e30)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, d))
+    for k0 in range(0, s, bkv):
+        kpos = torch.arange(k0, min(k0 + bkv, s))[None, :]
+        ok = torch.ones((s, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        logits = (qf @ kf[:, k0:k0 + bkv].transpose(1, 2)) * (1 / d ** 0.5)
+        logits = torch.where(ok, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        p = torch.where(ok, torch.exp(logits - m_new), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(q.dtype).float() @ vf[:, k0:k0 + bkv]
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,window,s", [(True, 0, 160), (False, 16, 100),
+                                             (False, 0, 70)])
+def test_tiled_bf16_arithmetic_matches_the_oracle(d, causal, window, s):
+    """The tensor-core kernel's order of operations (64-key tiles, p
+    rounded to bf16 per tile), emulated on the CPU, against the JAX
+    oracle, bf16 inputs, the bf16 tolerance."""
+    h, kv = 4, 2
+    q, k, v = _qkv(d + s, 1, h, kv, s, d, jnp.bfloat16)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), h, kv, causal=causal,
+                                    window=window)
+    got = to_numpy(_tiled(from_numpy(q), from_numpy(k), from_numpy(v), h, kv,
+                          causal, window))
+    np.testing.assert_allclose(got.astype(np.float32),
+                               np.asarray(want, np.float32),
+                               **_tol(jnp.bfloat16))

@@ -23,6 +23,7 @@ from hypothesis import given, settings  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core import gpu_model  # noqa: E402
 from repro_torch.core.gpu_model import MATMUL_TILES  # noqa: E402
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels import matmul as tmm  # noqa: E402
@@ -173,3 +174,167 @@ def test_matmulfn_makes_only_the_needed_gradients():
     a.requires_grad_()
     tmm.MatmulFn.apply(a, b, Recording()).t().sum().backward()
     assert shapes == [((5, 3), (3, 4)), ((5, 4), (4, 3)), ((3, 5), (5, 4))]
+
+
+def test_wgmma_tiles_match_the_source():
+    """``WGMMA_TILES`` lists exactly the `wgmma` instantiations of
+    matmul.cu, and each is also compiled on the `mma` route."""
+    src = (CSRC / "matmul.cu").read_text()
+    body = src[src.index("#define WGMMA_TILES(X)"):]
+    body = body[:body.index("\n\n")]
+    tiles = [tuple(int(v) for v in t) for t in
+             re.findall(r"X\((\d+), (\d+), (\d+)\)", body)]
+    assert tiles == list(gpu_model.WGMMA_TILES)
+    assert set(tiles) <= set(MATMUL_TILES)
+
+
+# ---------------------------------------------------------------------------
+# routes and split-K (the rules the CUDA kernel follows, in Python)
+# ---------------------------------------------------------------------------
+
+def _resnet50_gemms():
+    """(phase, (m, k, n)) of every GEMM of one ResNet-50 training step at
+    batch 32: fwd (m, k) @ (k, n), dX (m, n) @ (n, k) but for the stem,
+    dW (k, m) @ (m, n)."""
+    from repro_torch.core.layers import ConvLayer
+    from repro_torch.core.networks import resnet50
+    convs = [c for c in resnet50(batch=32) if isinstance(c, ConvLayer)]
+    out = []
+    for i, c in enumerate(convs):
+        m, k, n = c.n * c.oh * c.ow, c.kh * c.kw * c.ic, c.oc
+        out.append(("fwd", (m, k, n)))
+        if i:
+            out.append(("dX", (m, n, k)))
+        out.append(("dW", (k, m, n)))
+    return out
+
+
+QWEN3_GEMMS = [(4096, 1024, 4096), (4096, 2048, 1024), (4096, 1024, 3072),
+               (4096, 3072, 1024), (4096, 1024, 151936)]     # (m, k, n)
+
+
+def test_route_rule():
+    """The stem's K = 147 (its forward, and the dX product's N = 147), the
+    ragged edge cases, a misaligned pointer, float32 and a bm-32 tile go
+    to the `mma` route; every Qwen3 GEMM and every other ResNet-50 GEMM
+    of the training step goes to `wgmma` under the model's pick."""
+    route = gpu_model.matmul_route
+    wg = (128, 128, 64)
+    assert route(64, 147, 2, wg) == "mma"           # stem forward
+    assert route(147, 64, 2, wg) == "mma"           # stem dX: N = 147
+    for m, n, k in ((200, 90, 130), (33, 17, 65), (1, 128, 7)):
+        assert route(n, k, 2, wg) == "mma"
+    assert route(64, 64, 2, wg, a_ptr=2) == "mma"   # an offset view
+    assert route(64, 64, 2, wg, b_ptr=8) == "mma"
+    assert route(64, 64, 4, wg) == "mma"            # float32
+    assert route(64, 64, 2, (32, 64, 128)) == "mma"
+    assert route(64, 64, 2, wg, a_ptr=4096, b_ptr=16) == "wgmma"
+    gemms = [("qwen3", s) for s in QWEN3_GEMMS] + _resnet50_gemms()
+    assert len(gemms) == 5 + 161
+    for phase, (m, k, n) in gemms:
+        blk = gpu_model.select_matmul_block(m, n, k)
+        want = "mma" if k == 147 else "wgmma"
+        assert blk.route == want, (phase, (m, k, n), blk)
+        assert route(n, k, 2, (blk.bm, blk.bn, blk.bk)) == want
+        # unaligned operands never reach `wgmma`
+        assert gpu_model.select_matmul_block(
+            m, n, k, aligned=False).route == "mma"
+
+
+@pytest.mark.parametrize("k,bk,splits", [
+    (64, 64, 1), (130, 64, 3), (401408, 64, 66), (4608, 64, 5),
+    (65, 32, 3), (7, 128, 1), (1000, 64, 16), (1000, 64, 15),
+    (147, 32, 5)])
+def test_split_bounds_cover_k_exactly(k, bk, splits):
+    """The mirror of the kernel's split bounds: consecutive, non-empty,
+    together exactly [0, k), every inner bound a multiple of bk."""
+    bounds = gpu_model.split_bounds(k, bk, splits)
+    assert len(bounds) == splits
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    for (lo, hi), (lo2, _) in zip(bounds, bounds[1:]):
+        assert hi == lo2 and hi % bk == 0
+    assert all(lo < hi for lo, hi in bounds)
+    covered = np.zeros(k, np.int64)
+    for lo, hi in bounds:
+        covered[lo:hi] += 1
+    np.testing.assert_array_equal(covered, 1)
+
+
+def _split_sum(a, b, bk, splits):
+    """The split-K GEMM as the kernels compute it: a float32 partial per
+    split over its K range, then the partials added in split order and
+    cast to A's type."""
+    af, bf = a.float(), b.float()
+    parts = [af[:, lo:hi] @ bf[lo:hi] for lo, hi in
+             gpu_model.split_bounds(a.shape[1], bk, splits)]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total.to(a.dtype)
+
+
+@pytest.mark.parametrize("m,n,k,bk,splits", [
+    (64, 64, 1000, 64, 7), (33, 17, 650, 32, 5), (147, 64, 4099, 64, 13),
+    (200, 90, 130, 64, 3)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_split_sum_matches_the_oracle(m, n, k, bk, splits, dtype):
+    """K not a multiple of splits * bk: the fixed-order sum of the
+    partials is within the dtype's tolerance of the JAX oracle and of
+    ``matmul_ref``."""
+    a, b = _operands(m + n + k, m, n, k, dtype)
+    got = to_numpy(_split_sum(from_numpy(a), from_numpy(b), bk, splits))
+    for want in (np.asarray(jref.matmul_ref(jnp.asarray(a), jnp.asarray(b))),
+                 to_numpy(tmm.matmul_ref(from_numpy(a), from_numpy(b)))):
+        np.testing.assert_allclose(got.astype(np.float32),
+                                   want.astype(np.float32), **_tol(dtype))
+
+
+# dW GEMMs of PERF.md's training step, (m, k, n) = (kh kw ic, n oh ow, oc)
+DW_SHAPES = [(147, 401408, 64), (64, 100352, 256), (576, 100352, 64),
+             (1152, 25088, 128), (2304, 6272, 256), (4608, 1568, 512)]
+
+
+@pytest.mark.parametrize("bytes_in", [2, 4])
+def test_select_splits_long_k_and_not_the_projections(bytes_in):
+    """The model splits K for the step's long-K dW GEMMs (all but the
+    last, whose output tiles already fill more than half the SMs) and
+    leaves Qwen3's projections whole; its tiles are compiled and fit."""
+    for m, k, n in DW_SHAPES[:-1]:
+        blk = gpu_model.select_matmul_block(m, n, k, bytes_in, bytes_in)
+        assert blk.splits > 1, (m, k, n, blk)
+        blocks = -(-m // blk.bm) * -(-n // blk.bn) * blk.splits
+        assert blocks > gpu_model.SM_COUNT * 0.9, (m, k, n, blk)
+    for m, k, n in QWEN3_GEMMS:
+        assert gpu_model.select_matmul_block(m, n, k, bytes_in,
+                                             bytes_in).splits == 1
+    for m, k, n in DW_SHAPES + QWEN3_GEMMS:
+        blk = gpu_model.select_matmul_block(m, n, k, bytes_in, bytes_in)
+        assert (blk.bm, blk.bn, blk.bk) in MATMUL_TILES
+        assert gpu_model.kernel_smem(blk.route, blk.bm, blk.bn, blk.bk,
+                                     bytes_in) <= gpu_model.SMEM_BYTES
+        assert 1 <= blk.splits <= -(-k // blk.bk)
+
+
+def test_partials_cost_traffic():
+    """``matmul_cost`` counts the partials: each split adds a float32
+    write and read of the output."""
+    one = gpu_model.matmul_cost(4096, 4096, 1024, 128, 256, 64, splits=1)
+    four = gpu_model.matmul_cost(4096, 4096, 1024, 128, 256, 64, splits=4)
+    assert four[1] - one[1] == 2 * 4 * 4096 * 4096 * 4
+    assert gpu_model.matmul_cost(64, 64, 64, 128, 64, 64, splits=2) is None
+
+
+@pytest.mark.parametrize("splits", [0, 3, -1, True, 2.0])
+def test_bad_splits_raise(splits):
+    a, b = _operands(0, 8, 8, 100)
+    with pytest.raises(ValueError, match="splits"):
+        tmm.matmul(from_numpy(a), from_numpy(b), 64, 64, 64, splits=splits)
+
+
+def test_split_runs_the_plain_version_on_the_cpu():
+    a, b = _operands(1, 40, 24, 300)
+    counts = dict(tmm.matmul.routes)
+    got = tmm.matmul(from_numpy(a), from_numpy(b), 64, 64, 64, splits=5)
+    np.testing.assert_array_equal(to_numpy(got), to_numpy(tmm.matmul_ref(
+        from_numpy(a), from_numpy(b))))
+    assert tmm.matmul.routes == counts

@@ -289,14 +289,27 @@ SHAPES = [(4096, 4096, 1024), (4096, 151936, 1024), (401408, 64, 147),
 @pytest.mark.parametrize("m,n,k", SHAPES)
 @pytest.mark.parametrize("bytes_in", [2, 4])
 def test_select_matmul_block_is_compiled_and_fits(m, n, k, bytes_in):
+    """The pick is a compiled tile of its route, fits shared memory, and
+    is the least modelled time over that route's tiles and every split
+    count."""
     blk = gpu_model.select_matmul_block(m, n, k, bytes_in=bytes_in,
                                         bytes_out=bytes_in)
     assert (blk.bm, blk.bn, blk.bk) in gpu_model.MATMUL_TILES
+    assert blk.route == gpu_model.matmul_route(n, k, bytes_in,
+                                               (blk.bm, blk.bn, blk.bk))
     assert gpu_model.smem_bytes(blk.bm, blk.bn, blk.bk, bytes_in) \
         <= gpu_model.SMEM_BYTES
+    assert gpu_model.kernel_smem(blk.route, blk.bm, blk.bn, blk.bk,
+                                 bytes_in) <= gpu_model.SMEM_BYTES
+    assert gpu_model.resident_blocks(blk.route, blk.bm, blk.bn, blk.bk,
+                                     bytes_in) >= 1
+    tiles = gpu_model.WGMMA_TILES if blk.route == "wgmma" \
+        else gpu_model.MATMUL_TILES
     costs = [gpu_model.matmul_cost(m, n, k, *t, bytes_in=bytes_in,
-                                   bytes_out=bytes_in)
-             for t in gpu_model.MATMUL_TILES]
+                                   bytes_out=bytes_in, splits=s,
+                                   route=blk.route)
+             for t in tiles for s in range(1, -(-k // t[2]) + 1)
+             if s <= gpu_model.MAX_SPLITS]
     assert blk.est_s == min(c[0] for c in costs if c is not None)
 
 
@@ -315,9 +328,16 @@ def test_ops_matmul_uses_the_model_tile(monkeypatch):
     from repro_torch.kernels import matmul as tmm
     seen = []
     real = tmm.matmul
-    monkeypatch.setattr(tmm, "matmul", lambda a, b, bm, bn, bk: (
-        seen.append((bm, bn, bk)), real(a, b, bm, bn, bk))[1])
+    monkeypatch.setattr(tmm, "matmul", lambda a, b, bm, bn, bk, splits: (
+        seen.append((bm, bn, bk, splits)), real(a, b, bm, bn, bk, splits))[1])
     tops.matmul(torch.zeros((300, 96)), torch.zeros((96, 200)))
     blk = gpu_model.select_matmul_block(300, 200, 96, bytes_in=4,
                                         bytes_out=4)
-    assert seen == [(blk.bm, blk.bn, blk.bk)]
+    assert seen == [(blk.bm, blk.bn, blk.bk, blk.splits)]
+    # an explicit tile keeps its tile; the model picks its split
+    seen.clear()
+    tops.matmul(torch.zeros((64, 4096)), torch.zeros((4096, 64)),
+                64, 64, 64)
+    blk = gpu_model.select_matmul_block(64, 64, 4096, bytes_in=4,
+                                        bytes_out=4, tile=(64, 64, 64))
+    assert seen == [(64, 64, 64, blk.splits)] and blk.splits > 1
