@@ -33,19 +33,25 @@ From the repository root, on a machine with one CUDA card:
    the tied LM head) and ResNet-50 at batch 32 (its 53 BN layers in
    float32, its 54 convolutions as bf16 GEMMs), with ``matmul``'s launches
    by route held too (every Qwen3 GEMM on `wgmma`, ResNet-50's on `wgmma`
-   but the stem's, whose K = 147);
+   but the stem's, whose K = 147) and every ``bn_forward`` launch on the
+   vector route;
 8. holds each of the four kernels against its plain version on the card,
    on the inputs the models gave it and on the edge cases of
    ``tests/test_kernels.py``, with that file's tolerances (the main
    path's bf16 attention also by the relative error of each query row,
    and float32 attention at its shape), on split-K GEMMs of both types,
    GEMMs on each route and tile, misaligned views, and bf16 attention at
-   each head_dim (S 2048 causal, S 333 with a window), and the whole
-   decoder against the same composition of plain versions;
+   each head_dim (S 2048 causal, S 333 with a window), ``bn_forward`` at
+   channel means shifted by 10, 100 and 1000 over 5 seeds (against the
+   plain version's formula in float64, and at 10 and 100 against the
+   float32 plain version), and the whole decoder against the same
+   composition of plain versions; each batch-norm kernel gives the same
+   bits on a second call on every main-path input;
 9. times each kernel at those shapes beside its plain version, the one
    PyTorch call that computes the same (where there is one) and its bound:
    through the wrapper (CUDA events), on the device alone (the calls
-   queued behind a device sleep), and as the profiler's trace sees it;
+   queued behind a device sleep), and as the profiler's trace sees it
+   (where a batch-norm call must show exactly one kernel, its own);
    and times every compiled GEMM tile, with the split count the model
    gives it, against the tile model's pick;
 10. drives one ResNet-50 training step at full width and depth
@@ -54,8 +60,8 @@ From the repository root, on a machine with one CUDA card:
     every launch counter set to 0 before it and held after it to
     ``training_launches`` (161 ``matmul``, 53 ``bn_forward``, 53
     ``bn_backward``; in bf16 all GEMMs but the stem's forward on
-    `wgmma`), then two more SGDM steps with finite losses; the same in
-    float32 (every GEMM on `mma`);
+    `wgmma`; every BN launch on the vector route), then two more SGDM
+    steps with finite losses; the same in float32 (every GEMM on `mma`);
 11. holds the second step's loss and every gradient against the plain
     step from the same weights, on the same ReLU and max-pool choices
     (relative Frobenius error, limits ``TRAIN_REL``), and holds a control
@@ -432,6 +438,15 @@ def kernel_names(fn, iters: int = 10) -> list:
                    if evt.device_type == torch.autograd.DeviceType.CUDA})
 
 
+def check_one_kernel(name: str, names: list) -> None:
+    """A call of the batch-norm wrapper ``name`` launches exactly one
+    device kernel, ``<name>_kernel``: the profiler's trace of its calls
+    holds that kernel's name and no other."""
+    check(len(names) == 1 and f"{name}_kernel<" in names[0],
+          f"{name}: the trace of its calls holds {names}, expected one "
+          f"kernel {name}_kernel")
+
+
 def time_kernel(args) -> dict:
     from repro_torch.kernels.reduce import grid_minmax, grid_minmax_ref
     bound, bound_by, gathered = kernel_bound_ms(args)
@@ -504,6 +519,9 @@ ATTN_F32_TOL = (2e-5, 2e-5)
 # fused add+norm and BN compare with numpy's assert_allclose default rtol
 ADDNORM_F32_TOL = {"y": (1e-5, 1e-7), "res": (1e-6, 1e-7)}
 BN_F32_TOL = {"y": (1e-4, 1e-7), "mu": (1e-5, 1e-7), "psi": (1e-4, 1e-7)}
+# bn_forward at shifted channel means, seeds of each (hold_shifted_means)
+BN_SHIFTS = (10.0, 100.0, 1000.0)
+BN_SHIFT_SEEDS = 5
 # the BN backward's float32 tolerances there: dx 1e-4, dgamma and dbeta 1e-3
 BN_BACK_F32_TOL = {"dx": (1e-4, 1e-4), "dgamma": (1e-3, 1e-3),
                    "dbeta": (1e-3, 1e-3)}
@@ -546,12 +564,32 @@ def _routes() -> dict:
     return mm.matmul.routes
 
 
+def _bn_routes() -> dict:
+    """Each batch-norm kernel's launches by route (vector or scalar)."""
+    from repro_torch.kernels import bn
+    return {"bn_forward": bn.bn_forward.routes,
+            "bn_backward": bn.bn_backward.routes}
+
+
 def zero_counters() -> None:
-    """Every launch counter, and ``matmul``'s route counters, to 0."""
+    """Every launch counter, and the route counters of ``matmul`` and the
+    two batch-norm kernels, to 0."""
     for counter in _counters().values():
         counter.launches = 0
-    for key in _routes():
-        _routes()[key] = 0
+    for routes in (_routes(), *_bn_routes().values()):
+        for key in routes:
+            routes[key] = 0
+
+
+def check_bn_routes(what: str, launches: dict) -> dict:
+    """Every batch-norm launch of the run on the vector route (16-byte
+    accesses: every main-path C is a multiple of 8); the routes, copied."""
+    routes = {name: dict(r) for name, r in _bn_routes().items()}
+    for name, r in routes.items():
+        check(r == {"vector": launches.get(name, 0), "scalar": 0},
+              f"{what}: {name} routes {r}, expected every one of "
+              f"{launches.get(name, 0)} launches on the vector route")
+    return routes
 
 
 def check_routes(what: str, routes: dict, gemms: int, mma: int) -> None:
@@ -636,7 +674,7 @@ def drive_slice(device):
     runs = {"qwen3_0_6b": lambda: F.decoder_forward(
                 ids, params, dims, dims.n_layers, impl=rec),
             "resnet50": lambda: F.resnet50_forward(calls, rinputs, impl=rec)}
-    outs, launches, wall, routes = {}, {}, {}, {}
+    outs, launches, wall, routes, bn_routes = {}, {}, {}, {}, {}
     for model, fn in runs.items():
         rec.model = model
         zero_counters()
@@ -648,6 +686,7 @@ def drive_slice(device):
         launches[model] = {name: c.launches
                            for name, c in _counters().items()}
         routes[model] = dict(_routes())
+        bn_routes[model] = check_bn_routes(model, launches[model])
     want = {"qwen3_0_6b": F.decoder_launches(dims),
             "resnet50": {"bn_forward": 53, "matmul": 54}}
     for model, per in launches.items():
@@ -663,7 +702,7 @@ def drive_slice(device):
         shape[1] % 8 != 0 or shape[2] % 8 != 0 for kind, _, shape in calls
         if kind == "matmul"))
     return {"outs": outs, "launches": launches, "per_forward": want,
-            "routes": routes,
+            "routes": routes, "bn_routes": bn_routes,
             "wall_s": wall, "inputs": rec.inputs,
             "qwen": (dims, params, ids), "resnet": (calls, rinputs)}
 
@@ -696,6 +735,7 @@ class Held:
         self.cases = {name: [] for name in OPS}
         self.row_rel = {}        # label -> worst and whole relative error
         self.rel_fro = {}        # label -> relative Frobenius error by output
+        self.same_bits = {}      # kernel -> calls held bit-identical twice
 
     def add(self, name, label, pairs):
         """``pairs``: (output name, got, want, (atol, rtol))."""
@@ -760,16 +800,33 @@ def hold_call(held, name, label, args, kwargs, main=False):
                                                / w.float().norm())
                                    for what, g, w in zip(
                                        ("dx", "dgamma", "dbeta"), got, want)}
+            hold_same_bits(held, name, label, got,
+                           ops.bn_backward(*args, **kwargs))
     else:
-        y, mu, psi = ops.bn_forward(*args, **kwargs)
-        yr, mur, psir = ref.bn_forward_ref(*args[:3])
-        tols = BN_F32_TOL if args[0].dtype == torch.float32 else {
-            "y": TOL[args[0].dtype], "mu": BN_F32_TOL["mu"],
-            "psi": BN_F32_TOL["psi"]}
-        held.add(name, label, [("y", y, yr, tols["y"]),
-                               ("mu", mu, mur, tols["mu"]),
-                               ("psi", psi, psir, tols["psi"])])
+        got = ops.bn_forward(*args, **kwargs)
+        want = ref.bn_forward_ref(*args[:3])
+        hold_bn_forward(held, label, got, want, args[0].dtype)
+        if main:
+            hold_same_bits(held, name, label, got,
+                           ops.bn_forward(*args, **kwargs))
     torch.cuda.synchronize()
+
+
+def hold_bn_forward(held, label, got, want, dtype):
+    """``(y, mu, psi)`` within ``tests/test_kernels.py``'s tolerances
+    (``y`` at 3e-2 for bfloat16 x)."""
+    tols = BN_F32_TOL if dtype == torch.float32 else {
+        "y": TOL[dtype], "mu": BN_F32_TOL["mu"], "psi": BN_F32_TOL["psi"]}
+    held.add("bn_forward", label, [
+        (what, g, w.to(g.dtype), tols[what])
+        for what, g, w in zip(("y", "mu", "psi"), got, want)])
+
+
+def hold_same_bits(held, name, label, got, again):
+    """A second call on the same inputs gives the same bits."""
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(same, f"{name} {label}: a second call gave other bits")
+    held.same_bits[name] = held.same_bits.get(name, 0) + 1
 
 
 def edge_cases(device):
@@ -826,10 +883,55 @@ def edge_cases(device):
             out.append(("bn_forward", f"{dtype} {(n, c)}",
                         (rn(n, c, dtype=dtype), rn(c), rn(c)),
                         dict(block_rows=64, block_c=32)))
-    # a shifted mean (+10): the one-pass variance still within tolerance
+    # a shifted mean (+10)
     out.append(("bn_forward", "shift 10 (4096, 64)",
                 (rn(4096, 64) + 10.0, rn(64), rn(64)), {}))
     return out + redesign_cases(device)
+
+
+def bn_forward_f64(x, g, b, eps=1e-5):
+    """``ref.bn_forward_ref``'s two-pass formula in float64 (the plain
+    version casts x to float32)."""
+    xd = x.double()
+    mu = xd.mean(0)
+    psi = torch.rsqrt(xd.var(0, correction=0) + eps)
+    return (xd - mu) * psi * g.double() + b.double(), mu, psi
+
+
+def hold_shifted_means(held, device) -> dict:
+    """``bn_forward`` at channel means shifted by 10, 100 and 1000
+    ((4096, 64) float32, 5 seeds, from a generator of their own) within
+    ``BN_F32_TOL``: against the plain version's formula in float64 at
+    every shift, and against the float32 plain version at 10 and 100.
+    At 1000 the float32 plain version is itself no yardstick: its mean
+    lies an ulp of 1000 (6.1e-5) or more from the float64 one, which
+    moves its y by that times psi * gamma, past the y tolerance (1.2e-4
+    and 2.4e-4 on the H100 in two draws).  Returns the largest error of
+    the kernel and of the float32 plain version against float64, by
+    shift."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(SLICE_SEED + 8)
+    errs = {}
+    for shift in BN_SHIFTS:
+        for seed in range(BN_SHIFT_SEEDS):
+            x = torch.randn((4096, 64), generator=gen, device=device) + shift
+            g, b = (torch.randn(64, generator=gen, device=device)
+                    for _ in range(2))
+            got = ops.bn_forward(x, g, b)
+            exact = bn_forward_f64(x, g, b)
+            label = f"shift {shift} seed {seed} (4096, 64)"
+            hold_bn_forward(held, f"{label} vs float64", got, exact,
+                            x.dtype)
+            plain = ref.bn_forward_ref(x, g, b)
+            if shift < 1000:
+                hold_bn_forward(held, label, got, plain, x.dtype)
+            for who, outs in (("kernel", got), ("plain f32", plain)):
+                for what, a, w in zip(("y", "mu", "psi"), outs, exact):
+                    key = f"{shift} {who} {what}"
+                    errs[key] = max(errs.get(key, 0.0),
+                                    float((a.double() - w).abs().max()))
+    torch.cuda.synchronize()
+    return errs
 
 
 def redesign_cases(device):
@@ -897,6 +999,7 @@ def hold_slice(slice_run, device) -> Held:
                   main=True)
     for name, label, args, kwargs in edge_cases(device):
         hold_call(held, name, label, args, kwargs)
+    shifted = hold_shifted_means(held, device)
 
     dims, params, ids = slice_run["qwen"]
     got = slice_run["outs"]["qwen3_0_6b"]
@@ -923,7 +1026,7 @@ def hold_slice(slice_run, device) -> Held:
         check(all(bool(torch.isfinite(t).all()) for t in tensors),
               "ResNet-50 slice output not finite")
     return {"held": held, "decoder_bf16_rel_err": rel,
-            "decoder_f32_small_max_err": err}
+            "decoder_f32_small_max_err": err, "bn_shifted_max_err": shifted}
 
 
 def _nbytes(*tensors):
@@ -963,7 +1066,9 @@ def time_op(fn, plain, library, flops, nbytes, peak, match, iters,
     """``ms``: events around calls through the wrapper, host included;
     ``device_ms``: the same calls queued behind a device sleep;
     ``profiler_ms``: the profiler's kernel time a call, with the kernel
-    records it found and the launches made while it traced."""
+    records it found and the launches made while it traced;
+    ``library_ms`` and ``library_device_ms``: the PyTorch call that
+    computes the same, by events with the host and queued."""
     b, by = bound(flops, nbytes, peak)
     n_prof = max(2, iters // 2)
     prof = profile_device_ms(fn, iters=n_prof, match=match)
@@ -975,6 +1080,8 @@ def time_op(fn, plain, library, flops, nbytes, peak, match, iters,
             "plain_ms": cuda_ms(plain, iters=max(2, iters // 2), warmup=1),
             "library_ms": None if library is None
             else cuda_ms(library, iters=iters),
+            "library_device_ms": None if library is None
+            else queued_ms(library, iters=iters, calls=calls),
             "bound_ms": b, "bound_by": by}
 
 
@@ -1035,7 +1142,10 @@ def time_slice(slice_run) -> dict:
                 lambda: ref.bn_forward_ref(x, g, b),
                 lambda: tf.batch_norm(x, None, None, g, b, training=True),
                 7.0 * x.numel(), 2 * _nbytes(x) + _nbytes(g, b) + 8 * g.numel(),
-                SCALAR_OPS_PER_S, "bn_", iters=20, kernels_per_call=3)
+                SCALAR_OPS_PER_S, "bn_forward_kernel", iters=20)
+            out[label]["kernel_names"] = kernel_names(
+                lambda: ops.bn_forward(*args, **kwargs))
+            check_one_kernel("bn_forward", out[label]["kernel_names"])
     # the whole ResNet-50 sequences, 53 BN layers and 54 GEMMs
     from repro_torch.kernels import forward as F
     calls, rinputs = slice_run["resnet"]
@@ -1058,9 +1168,8 @@ def time_slice(slice_run) -> dict:
             lambda s=seq, f=lib: [f(*rinputs[sh]) for _, _, sh in s],
             flops, nbytes,
             BF16_OPS_PER_S if kind == "matmul" else SCALAR_OPS_PER_S,
-            "mm_" if kind == "matmul" else "bn_", iters=5,
-            calls=len(seq),
-            kernels_per_call=len(seq) * (1 if kind == "matmul" else 3))
+            "mm_" if kind == "matmul" else "bn_forward_kernel", iters=5,
+            calls=len(seq), kernels_per_call=len(seq))
     return out
 
 
@@ -1130,6 +1239,8 @@ def kernel_slice(device, card, report) -> list:
           f"{run['launches']}")
     print(f"  matmul launches by route, and those with a split-K sum: "
           f"{run['routes']}")
+    report["slice_bn_routes"] = run["bn_routes"]
+    print(f"  batch-norm launches by route: {run['bn_routes']}")
     for model, s in run["wall_s"].items():
         print(f"  first {model} forward through ops: {s} s  [{card}]")
     held = hold_slice(run, device)
@@ -1146,6 +1257,13 @@ def kernel_slice(device, card, report) -> list:
     for label, rel in held["held"].row_rel.items():
         print(f"  {label}: relative error {rel} (worst row limit "
               f"{ATTN_BF16_ROW_REL})")
+    report["slice_same_bits"] = held["held"].same_bits
+    report["bn_shifted_max_err"] = held["bn_shifted_max_err"]
+    print(f"  bit-identical on a second call, main-path inputs: "
+          f"{held['held'].same_bits}")
+    print(f"  bn_forward at shifted means, {BN_SHIFT_SEEDS} seeds each, "
+          f"max abs err against the float64 formula: "
+          f"{held['bn_shifted_max_err']}")
     times = time_slice(run)
     report["slice_times"] = times
     for label, t in times.items():
@@ -1300,6 +1418,8 @@ def drive_training(device, dtype, layers, arrs, images, labels, rec=None):
         if step == 0:
             out["launches"] = {n: c.launches for n, c in _counters().items()}
             out["routes"] = dict(_routes())
+            out["bn_routes"] = check_bn_routes(f"training step {dtype}",
+                                               out["launches"])
         if step == 1:
             if rec is not None:
                 rec.model = None
@@ -1413,11 +1533,10 @@ def _bn_back_call(args):
 def bn_backward_work(args):
     """Operations (a dozen an element: x^, the two sums, Eq. 28) and
     bytes (x and dy read once, dx written once, the vectors) of one
-    call, and the bytes of a kernel that reads x and dy twice."""
+    call."""
     x, dy, g, mu, psi = args
-    vectors = _nbytes(g, mu, psi) + 8 * g.numel()
-    return 12.0 * x.numel(), 3 * _nbytes(x) + vectors, \
-        5 * _nbytes(x) + vectors
+    return 12.0 * x.numel(), 3 * _nbytes(x) + _nbytes(g, mu, psi) \
+        + 8 * g.numel()
 
 
 def time_bn_backward(rec, layers) -> dict:
@@ -1432,12 +1551,12 @@ def time_bn_backward(rec, layers) -> dict:
     out = {}
     stem = inputs[seq[0]]
     fn, plain, lib = _bn_back_call(stem)
-    flops, nbytes, two_pass = bn_backward_work(stem)
+    flops, nbytes = bn_backward_work(stem)
     out["stem"] = dict(
         time_op(fn, plain, lib, flops, nbytes, SCALAR_OPS_PER_S,
-                "bn_back", iters=20, kernels_per_call=3),
-        two_pass_floor_ms=two_pass / HBM_BYTES_PER_S * 1e3,
-        shape=list(seq[0]))
+                "bn_backward_kernel", iters=20),
+        shape=list(seq[0]), kernel_names=kernel_names(fn))
+    check_one_kernel("bn_backward", out["stem"]["kernel_names"])
     calls = [_bn_back_call(inputs[shape]) for shape in seq]
     work = [bn_backward_work(inputs[shape]) for shape in seq]
     out["all BN layers"] = dict(
@@ -1445,17 +1564,16 @@ def time_bn_backward(rec, layers) -> dict:
                 lambda: [c[1]() for c in calls],
                 lambda: [c[2]() for c in calls],
                 sum(w[0] for w in work), sum(w[1] for w in work),
-                SCALAR_OPS_PER_S, "bn_back", iters=5, calls=len(seq),
-                kernels_per_call=3 * len(seq)),
-        two_pass_floor_ms=sum(w[2] for w in work) / HBM_BYTES_PER_S * 1e3,
+                SCALAR_OPS_PER_S, "bn_backward_kernel", iters=5,
+                calls=len(seq), kernels_per_call=len(seq)),
         layers=len(seq))
     return out
 
 
 STEP_KERNELS = (("GEMM", ("::mm_bf16<", "::mm_f32<", "::mm_wgmma<",
                            "::splitk_sum<")),
-                ("BN bwd", ("bn_back_",)),
-                ("BN fwd", ("bn_stats", "bn_finalize", "bn_normalise")))
+                ("BN bwd", ("bn_backward_kernel",)),
+                ("BN fwd", ("bn_forward_kernel",)))
 
 
 def profile_step(step) -> dict:
@@ -1612,7 +1730,8 @@ def training_slice(device, card, report):
         print(f"training step, ResNet-50 batch {TRAIN_BATCH} 224x224, "
               f"GEMMs {dtype}, BN float32: launches of the first step "
               f"(counters 0 before it) {r['launches']}, matmul by route "
-              f"{r['routes']}; losses of "
+              f"{r['routes']}, batch norm by route {r['bn_routes']}; "
+              f"losses of "
               f"{TRAIN_STEPS} SGDM steps {r['losses']}; wall s "
               f"{r['wall_s']}  [{card}]")
         control = (f"noisy GEMMs {TRAIN_NOISE}, its own choices"
@@ -1640,7 +1759,9 @@ def training_slice(device, card, report):
     worst = {what: max(v[what] for v in held.rel_fro.values())
              for what in ("dx", "dgamma", "dbeta")}
     print(f"  bn_backward on the step's {len(held.rel_fro)} shapes, worst "
-          f"relative Frobenius error {worst}")
+          f"relative Frobenius error {worst}; bit-identical on a second "
+          f"call: {held.same_bits}")
+    report["training_same_bits"] = held.same_bits
 
     bn_times = time_bn_backward(rec, layers)
     report["bn_backward_times"] = bn_times

@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Quick check of the GEMM and attention kernels on one CUDA card.
+"""Quick check of the GEMM, attention and batch-norm kernels on one CUDA card.
 
-    python3 scripts/kernel_probe.py
+    python3 scripts/kernel_probe.py [--only gemm|attention|bn] [--src DIR]
 
-From the repository root.  Builds ``matmul.cu`` and ``flash_attention.cu``
-only, prints their ptxas reports and the tensor-core instructions in their
-SASS, holds every GEMM route, tile and split count and every attention
-route and head_dim against the plain versions (the tolerances of
-``tests/test_kernels.py``), then times a few main-path shapes beside the
-PyTorch call that computes the same (calls queued behind a device sleep).
-It exits non-zero if a case fails.  About a minute; ``chip_smoke.py`` is
-the full run.
+From the repository root.  Builds the sources it probes only, prints
+their ptxas reports (and the tensor-core instructions in the GEMM's and
+attention's SASS), holds every GEMM route, tile and split count, every
+attention route and head_dim, and both batch-norm kernels at ResNet-50's
+12 BN shapes (batch 32, float32; two in bfloat16) and ragged shapes,
+against the plain versions with the tolerances of
+``tests/test_kernels.py``, then times main-path shapes beside the PyTorch
+call that computes the same (calls queued behind a device sleep) and the
+bound.  For batch norm it also holds two calls bit-identical and reads
+how far the kernel's and the float32 plain version's outputs lie from
+the same formula in float64 at mean shifts 10, 100 and 1000.  ``--src``
+imports the port from another tree (an unpacked parent commit, say),
+whose batch-norm wrappers are only called through ``ops``.  It exits
+non-zero if a case fails.  About a minute; ``chip_smoke.py`` is the full
+run.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -23,7 +31,9 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+SRC = Path(sys.argv[sys.argv.index("--src") + 1]).resolve() \
+    if "--src" in sys.argv[:-1] else ROOT / "src"
+sys.path.insert(0, str(SRC))
 
 from repro_torch.core import gpu_model as g  # noqa: E402
 from repro_torch.kernels import _ext, ops, ref  # noqa: E402
@@ -33,9 +43,9 @@ TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}
 ATTN_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
 
 
-def build() -> None:
+def build(sources) -> None:
     tool = Path(_ext.nvcc_path()).parent / "cuobjdump"
-    for source in ("matmul.cu", "flash_attention.cu"):
+    for source in sources:
         t0 = time.perf_counter()
         path = _ext._build(source)
         print(f"built {source} in {time.perf_counter() - t0:.1f} s")
@@ -62,6 +72,25 @@ class Holds:
                 (d - tol - tol * want.float().abs()).max()) <= 0
             print(f"{'ok  ' if ok else 'FAIL'} {label}: max abs err "
                   f"{float(d.max())}")
+        except Exception:       # report every case, then fail at the end
+            ok = False
+            print(f"EXC  {label}\n{traceback.format_exc()}")
+        self.failed += not ok
+
+    def many(self, label, fn, wants, names, tols):
+        """Each output of ``fn()`` against ``wants`` within its
+        ``tols[name]`` (atol, rtol)."""
+        try:
+            gots = fn()
+            torch.cuda.synchronize()
+            errs, ok = {}, True
+            for name, got, want in zip(names, gots, wants):
+                atol, rtol = tols[name]
+                d = (got.float() - want.float()).abs()
+                errs[name] = float(d.max())
+                ok &= bool(torch.isfinite(got.float()).all()) and float(
+                    (d - atol - rtol * want.float().abs()).max()) <= 0
+            print(f"{'ok  ' if ok else 'FAIL'} {label}: max abs err {errs}")
         except Exception:       # report every case, then fail at the end
             ok = False
             print(f"EXC  {label}\n{traceback.format_exc()}")
@@ -125,7 +154,7 @@ def queued_ms(fn, iters=20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def times(dev) -> None:
+def attention_times(dev) -> None:
     import torch.nn.functional as F
     q = torch.randn(32, 2048, 128, device=dev, dtype=torch.bfloat16)
     k = torch.randn(16, 2048, 128, device=dev, dtype=torch.bfloat16)
@@ -136,6 +165,9 @@ def times(dev) -> None:
     print(f"flash_attention Qwen3 causal (32, 2048, 128) bf16: "
           f"{queued_ms(lambda: ops.flash_attention(q, k, v, 16, 8))} ms, "
           f"scaled_dot_product_attention {sdpa} ms")
+
+
+def gemm_times(dev) -> None:
     for m, n, k_ in ((4096, 4096, 1024), (4096, 151936, 1024),
                      (147, 64, 401408), (1568, 512, 4608),
                      (4096, 1024, 3072)):
@@ -153,21 +185,162 @@ def times(dev) -> None:
                   f" ms")
 
 
+# ---- batch norm ----------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12
+# (atol, rtol): tests/test_kernels.py's float32 tolerances (numpy's default
+# rtol 1e-7 for the forward), 3e-2 in bfloat16
+BN_TOL = {torch.float32: {"y": (1e-4, 1e-7), "mu": (1e-5, 1e-7),
+                          "psi": (1e-4, 1e-7), "dx": (1e-4, 1e-4),
+                          "dgamma": (1e-3, 1e-3), "dbeta": (1e-3, 1e-3)},
+          torch.bfloat16: dict.fromkeys(
+              ("y", "dx", "dgamma", "dbeta"), (3e-2, 3e-2)) | {
+              "mu": (1e-5, 1e-7), "psi": (1e-4, 1e-7)}}
+
+
+def resnet_bn_shapes():
+    """ResNet-50's BN shapes at batch 32, each with its layer count."""
+    from repro_torch.kernels.forward import resnet50_calls
+    counts = {}
+    for kind, _, shape in resnet50_calls(32):
+        if kind == "bn_forward":
+            counts[shape] = counts.get(shape, 0) + 1
+    return counts
+
+
+def _bn_inputs(n, c, dtype, dev, gen, shift=0.0):
+    x = (torch.randn(n, c, device=dev, generator=gen) + shift).to(dtype)
+    g = torch.randn(c, device=dev, generator=gen) + 1.0
+    b = torch.randn(c, device=dev, generator=gen)
+    dy = torch.randn(n, c, device=dev, generator=gen).to(dtype)
+    return x, g, b, dy
+
+
+def hold_bn(hold: Holds, dev) -> None:
+    """Both kernels against the plain versions, and bit-identical over
+    two calls."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    shapes = [(s, torch.float32) for s in resnet_bn_shapes()] + [
+        ((401408, 64), torch.bfloat16), ((6272, 1024), torch.bfloat16)] + [
+        (s, d) for d in (torch.float32, torch.bfloat16)
+        for s in ((300, 70), (256, 128), (64, 33), (1001, 67), (4099, 1030),
+                  (128, 16))]
+    for (n, c), dtype in shapes:
+        x, g, b, dy = _bn_inputs(n, c, dtype, dev, gen)
+        want = ref.bn_forward_ref(x, g, b)
+        _, mu, psi = want
+        back = ref.bn_backward_ref(x, dy, g, mu, psi)
+        tol = BN_TOL[dtype]
+        hold.many(f"bn_forward {dtype} {(n, c)}",
+                  lambda: ops.bn_forward(x, g, b), want, ("y", "mu", "psi"),
+                  tol)
+        hold.many(f"bn_backward {dtype} {(n, c)}",
+                  lambda: ops.bn_backward(x, dy, g, mu, psi), back,
+                  ("dx", "dgamma", "dbeta"), tol)
+        first, again = ([t.clone() for t in ops.bn_forward(x, g, b)]
+                        + [t.clone() for t in ops.bn_backward(
+                            x, dy, g, mu, psi)] for _ in range(2))
+        same = all(torch.equal(a, b_) for a, b_ in zip(first, again))
+        print(f"{'ok  ' if same else 'FAIL'} bn {dtype} {(n, c)}: "
+              f"bit-identical over two calls")
+        hold.failed += not same
+    from repro_torch.kernels import bn
+    if hasattr(bn.bn_forward, "routes"):
+        print(f"routes: bn_forward {bn.bn_forward.routes}, bn_backward "
+              f"{bn.bn_backward.routes}")
+
+
+def bn_forward_f64(x, g, b, eps=1e-5):
+    """``bn_forward_ref``'s formula (two-pass variance) in float64."""
+    xd = x.double()
+    mu = xd.mean(0)
+    psi = torch.rsqrt(xd.var(0, correction=0) + eps)
+    return (xd - mu) * psi * g.double() + b.double(), mu, psi
+
+
+def bn_shift(dev) -> None:
+    """At mean shifts 10, 100, 1000 (4096 x 64, 5 seeds): the largest
+    distance of the kernel's and of the float32 plain version's mu, psi
+    and y from the plain version's formula in float64."""
+    for shift in (10.0, 100.0, 1000.0):
+        err = {}
+        for seed in range(5):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            x, g, b, _ = _bn_inputs(4096, 64, torch.float32, dev, gen, shift)
+            exact = bn_forward_f64(x, g, b)
+            for label, got in (("kernel", ops.bn_forward(x, g, b)),
+                               ("plain f32", ref.bn_forward_ref(x, g, b))):
+                for what, a, w in zip(("y", "mu", "psi"), got, exact):
+                    key = f"{label} {what}"
+                    err[key] = max(err.get(key, 0.0),
+                                   float((a.double() - w).abs().max()))
+        print(f"bn_forward shift {shift}, max abs err against the float64 "
+              f"formula over 5 seeds: {err}")
+
+
+def bn_times(dev) -> None:
+    """Queued device ms at the 12 shapes beside F.batch_norm /
+    native_batch_norm_backward and the bound; and the sums over the 53
+    layers."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(16)
+    total = {}
+    for (n, c), count in resnet_bn_shapes().items():
+        x, g, b, dy = _bn_inputs(n, c, torch.float32, dev, gen)
+        _, mu, psi = ref.bn_forward_ref(x, g, b)
+        nb = x.numel() * x.element_size()
+        vec = 4 * c
+        row = {
+            "fwd": queued_ms(lambda: ops.bn_forward(x, g, b)),
+            "fwd F.batch_norm": queued_ms(lambda: F.batch_norm(
+                x, None, None, g, b, training=True)),
+            "fwd bound": (2 * nb + 4 * vec) / HBM_BYTES_PER_S * 1e3,
+            "bwd": queued_ms(lambda: ops.bn_backward(x, dy, g, mu, psi)),
+            "bwd native": queued_ms(
+                lambda: torch.ops.aten.native_batch_norm_backward(
+                    dy, x, g, None, None, mu, psi, True, 1e-5,
+                    [True, True, True])),
+            "bwd bound": (3 * nb + 5 * vec) / HBM_BYTES_PER_S * 1e3}
+        print(f"bn {(n, c)} f32 x{count}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items()) + " ms")
+        for k, v in row.items():
+            total[k] = total.get(k, 0.0) + count * v
+        del x, dy
+    print("bn, all 53 layers (sum of shape ms x layers): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in total.items()) + " ms")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("gemm", "attention", "bn"))
+    ap.add_argument("--src", help="import the port from this src/ tree")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA card", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    print(sys.version.split()[0], torch.__version__, torch.version.cuda)
-    build()
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda,
+          SRC)
+    parts = ("gemm", "attention", "bn") if args.only is None \
+        else (args.only,)
+    build([s for p, s in (("gemm", "matmul.cu"),
+                          ("attention", "flash_attention.cu"),
+                          ("bn", "bn_forward.cu"), ("bn", "bn_backward.cu"))
+           if p in parts])
     torch.manual_seed(0)
     hold = Holds()
-    hold_gemms(hold, "cuda")
-    hold_attention(hold, "cuda")
+    for part, fn in (("gemm", hold_gemms), ("attention", hold_attention),
+                     ("bn", hold_bn)):
+        if part in parts:
+            fn(hold, "cuda")
     if hold.failed == 0:
-        times("cuda")
+        for part, fn in (("attention", attention_times),
+                         ("gemm", gemm_times), ("bn", bn_shift),
+                         ("bn", bn_times)):
+            if part in parts:
+                fn("cuda")
     print(f"failed cases: {hold.failed}")
     return 1 if hold.failed else 0
 

@@ -224,3 +224,96 @@ def select_matmul_block(m: int, n: int, k: int, bytes_in: int = 2,
         raise ValueError(f"no compiled tile fits {smem} bytes of shared "
                          f"memory at {bytes_in} bytes an element")
     return best
+
+
+# ---- batch norm (bn_forward.cu, bn_backward.cu) --------------------------
+# One persistent launch a call: one block of BN_THREADS threads an SM, all
+# resident at once (a cooperative launch), each keeping up to
+# BN_SMEM_BUDGET bytes of its rows on chip between the reduction and the
+# elementwise pass.
+BN_THREADS = 512
+BN_BLOCKS_PER_SM = 1
+BN_SMEM_BUDGET = 200 * 1024
+
+
+@dataclass(frozen=True)
+class BnLayout:
+    route: str                 # "vector" (16-byte accesses) or "scalar"
+    vec: int                   # elements a thread loads at once
+    threads: int               # threads a block
+    row_groups: int            # blocks along rows
+    channel_groups: int        # blocks along channels
+    group_c: int               # channels of a group (a multiple of vec)
+    lanes: int                 # rows a block reads at once
+    rows: int                  # rows of the longest row group
+    rows_kept: int             # rows a block keeps in shared memory
+    rows_streamed: int         # rows of the longest group read twice
+    smem: int                  # dynamic shared memory a block
+
+    @property
+    def blocks(self) -> int:
+        return self.row_groups * self.channel_groups
+
+    def row_bounds(self, n: int) -> List[Tuple[int, int]]:
+        """``[r0, r1)`` of each row group, as the kernels compute them:
+        ``n * g // row_groups``, so group sizes differ by at most one."""
+        g = self.row_groups
+        return [(n * i // g, n * (i + 1) // g) for i in range(g)]
+
+
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def bn_smem(group_c: int, lanes: int, rows_kept: int, bytes_per_el: int,
+            tensors: int) -> int:
+    """Dynamic shared memory of a BN block, as the kernels lay it out: a
+    tile of ``rows_kept`` rows of ``group_c`` channels for each tensor
+    kept on chip, then the per-lane sums of the reduction (two float32
+    values a lane and channel)."""
+    tile = _round16(rows_kept * group_c * bytes_per_el)
+    return tensors * tile + 2 * 4 * lanes * group_c
+
+
+def bn_layout(n: int, c: int, bytes_per_el: int, tensors: int,
+              aligned: bool = True) -> BnLayout:
+    """How ``bn_forward.cu`` (``tensors`` 1: x) and ``bn_backward.cu``
+    (``tensors`` 2: x and dy) lay out an (n, c) call on the card, from
+    the shape and the module's constants alone.
+
+    * route: 16-byte accesses (``vec`` 4 float32 or 8 bfloat16 values)
+      when ``c`` is a multiple of ``vec`` and the tensors are 16-byte
+      aligned, else one element a thread ("scalar");
+    * channel groups: as few as let one block's threads span a group's
+      row (``group_c / vec`` threads along channels, ``lanes`` rows at
+      once); the groups are of equal width, rounded up to ``vec``;
+    * row groups: the blocks of one SM each (``BN_BLOCKS_PER_SM`` x
+      ``SM_COUNT``) shared among the channel groups, but no more than
+      ``n``; rows are dealt out evenly (``BnLayout.row_bounds``);
+    * rows kept: as many of a group's rows as fit the shared-memory
+      budget beside the reduction's buffers; the rest are read again."""
+    if n < 1 or c < 1:
+        raise ValueError(f"bn_layout: nothing to lay out in {(n, c)}")
+    if bytes_per_el not in (2, 4) or tensors not in (1, 2):
+        raise ValueError(f"bn_layout: {bytes_per_el} bytes an element, "
+                         f"{tensors} tensors")
+    width = 16 // bytes_per_el
+    vec = width if aligned and c % width == 0 else 1
+    groups = -(-c // (BN_THREADS * vec))
+    group_c = -(-(-(-c // groups)) // vec) * vec
+    groups = -(-c // group_c)
+    lanes = BN_THREADS // (group_c // vec)
+    row_groups = max(1, min(n, BN_BLOCKS_PER_SM * SM_COUNT // groups))
+    rows = -(-n // row_groups)
+    fixed = bn_smem(group_c, lanes, 0, bytes_per_el, tensors)
+    row_bytes = group_c * bytes_per_el
+    kept = min(rows, (BN_SMEM_BUDGET - fixed) // (tensors * row_bytes))
+    while bn_smem(group_c, lanes, kept, bytes_per_el, tensors) \
+            > BN_SMEM_BUDGET:     # a tile's rounding up to 16 bytes
+        kept -= 1
+    return BnLayout(
+        route="vector" if vec > 1 else "scalar", vec=vec,
+        threads=BN_THREADS, row_groups=row_groups, channel_groups=groups,
+        group_c=group_c, lanes=lanes, rows=rows, rows_kept=kept,
+        rows_streamed=rows - kept,
+        smem=bn_smem(group_c, lanes, kept, bytes_per_el, tensors))

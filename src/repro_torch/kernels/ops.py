@@ -23,12 +23,14 @@ The block arguments were the Pallas kernels' VMEM tiles.  On the card:
   runs it.
 * ``fused_add_rmsnorm``: one CUDA block a row; every positive
   ``block_rows`` gives the same bits.
-* ``bn_forward``, ``bn_backward``: ``block_rows`` x ``block_c``, clamped
-  to the tensor, is the tile of the pass that sums over rows (the
-  statistics; dgamma and dbeta), ``block_c`` at most 1024.
+* ``bn_forward``, ``bn_backward``: ``block_rows`` and ``block_c`` are
+  validated (positive, ``block_c`` at most 1024) and set nothing: each
+  call is one persistent launch laid out by
+  ``core.gpu_model.bn_layout`` from the shape, type and alignment, so its
+  bits do not depend on them.
 
-A result depends on the tile and the split only through the order of
-float32 sums.
+A GEMM's result depends on the tile and the split only through the order
+of float32 sums.
 """
 from __future__ import annotations
 

@@ -5,8 +5,10 @@ plain version, ``bn_forward_ref``: the oracle's two-pass variance) is
 held to ``repro.kernels.ops.bn_forward`` in Pallas interpret mode (one-
 pass variance ``E[x^2] - mu^2``), on the same numpy inputs, with the
 shapes, blocks and tolerances of ``tests/test_kernels.py``.  The CUDA
-kernel, which keeps the one-pass formula, is held to ``bn_forward_ref``
-on the card by ``chip_smoke.py``.  The backward oracle,
+kernel computes shifted sums merged by Chan's formula; a float32 model
+of that arithmetic, at ``bn_layout``'s block boundaries and in the
+kernel's merge order, is held here to the JAX oracle, and the kernel to
+``bn_forward_ref`` on the card by ``chip_smoke.py``.  The backward oracle,
 ``bn_backward_ref``, is held to the JAX oracle and to autograd; the
 backward entry point ``ops.bn_backward`` to ``repro.kernels.ops.
 bn_backward`` (Pallas, interpret mode), and ``BatchNormFn``'s gradients
@@ -22,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core.gpu_model import bn_layout  # noqa: E402
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -225,3 +228,122 @@ def test_bn_backward_bad_arguments_raise(kw, err, match):
     with pytest.raises(err, match=match):
         tops.bn_backward(torch.zeros((n, 4)), dy, torch.ones(4), mu,
                          torch.ones(4), **kw)
+
+
+# ---- the CUDA forward's statistics, modelled in float32 ------------------
+
+def _merge(a, b):
+    """Chan's merge of (count, shift K, mean offset s, M2) per channel,
+    offsets against a's shift, as ``bn_forward.cu::merge``; a count of 0
+    is the identity."""
+    na, ka, sa, ma = a
+    nb, kb, sb, mb = b
+    if nb == 0:
+        return a
+    if na == 0:
+        return b
+    n = na + nb
+    d = ((kb - ka) + sb) - sa
+    w = torch.tensor(nb / n, dtype=torch.float32)
+    return (n, ka, sa + d * w, ma + mb + d * d * (na * w))
+
+
+def shifted_stats(x, eps=1e-5):
+    """``(y, mu, psi)`` of float32 ``x`` as the CUDA forward computes
+    them: per row group of ``bn_layout`` the channel's value in its first
+    row as shift K, float32 sums of (x - K) and (x - K)^2, (K, s, M2);
+    the groups merged by lane l of a warp taking groups l, l + 32, ...,
+    then a tree over the 32 lanes; y from the unrounded K + s."""
+    n, c = x.shape
+    lay = bn_layout(n, c, 4, 1)
+    parts = []
+    for r0, r1 in lay.row_bounds(n):
+        k = x[r0]
+        d = x[r0:r1] - k
+        s1, s2 = d.sum(0), (d * d).sum(0)
+        s = s1 / (r1 - r0)
+        parts.append((r1 - r0, k, s, torch.clamp(s2 - s1 * s, min=0.0)))
+    empty = (0, None, None, None)
+    lanes = [empty] * 32
+    for i, p in enumerate(parts):
+        lanes[i % 32] = _merge(lanes[i % 32], p)
+    off = 16
+    while off:
+        lanes = [_merge(lanes[i], lanes[i + off]) if i < off else lanes[i]
+                 for i in range(32)]
+        off //= 2
+    cnt, k, s, m2 = lanes[0]
+    psi = torch.rsqrt(m2 / cnt + eps)
+    return k, s, psi
+
+
+def _model_forward(x, g, b):
+    xt, gt, bt = (torch.from_numpy(a) for a in (x, g, b))
+    k, s, psi = shifted_stats(xt)
+    y = ((xt - k) - s) * (psi * gt) + bt
+    return [a.numpy() for a in (y, k + s, psi)]
+
+
+def _one_pass(x, g, b, eps=1e-5):
+    """The Pallas kernel's ``var = E[x^2] - mu^2`` in float32."""
+    xt, gt, bt = (torch.from_numpy(a) for a in (x, g, b))
+    mu = xt.mean(0)
+    psi = torch.rsqrt((xt * xt).mean(0) - mu * mu + eps)
+    return [a.numpy() for a in ((xt - mu) * psi * gt + bt, mu, psi)]
+
+
+def _assert_bn_close(got, want):
+    """``tests/test_kernels.py``'s forward tolerances."""
+    for a, w, atol in zip(got, want, (1e-4, 1e-5, 1e-4)):
+        np.testing.assert_allclose(a, np.asarray(w, np.float32), atol=atol)
+
+
+def _exact(x, g, b, eps=1e-5):
+    """The oracle's two-pass formula in float64 numpy (the JAX oracle
+    casts x to float32 whatever it is given)."""
+    xd = x.astype(np.float64)
+    mu = xd.mean(0)
+    psi = 1.0 / np.sqrt(xd.var(0) + eps)
+    return [(xd - mu) * psi * g + b, mu, psi]
+
+
+@pytest.mark.parametrize("seed", range(5))
+@pytest.mark.parametrize("shift", [10.0, 100.0, 1000.0])
+@pytest.mark.parametrize("n,c", [(4096, 64), (300, 70), (64, 33)])
+def test_shifted_stats_match_the_oracle(n, c, shift, seed):
+    """The kernel's statistics at means shifted by 10, 100 and 1000,
+    within the tolerances of ``tests/test_kernels.py``: against the JAX
+    oracle at shifts 10 and 100, and against the oracle's formula in
+    float64 at all three.  The JAX oracle, which computes in float32, is
+    no yardstick at shift 1000: on (4096, 64) its mean lies 1.3e-4 from
+    the float64 one (two ulps of 1000) and its y 1.8e-4, outside its own
+    mu and y tolerances."""
+    x, g, b = _inputs(seed, n, c, shift)
+    got = _model_forward(x, g, b)
+    _assert_bn_close(got, _exact(x, g, b))
+    if shift < 1000.0:
+        _assert_bn_close(got, [np.asarray(t) for t in jref.bn_forward_ref(
+            jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))])
+
+
+def test_one_pass_variance_fails_at_shift_1000():
+    """The finding the shifted sums close: at shift 1000 the Pallas
+    kernel's E[x^2] - mu^2 (modelled in float32) puts y far outside its
+    tolerance, where the shifted sums stay within it."""
+    x, g, b = _inputs(0, 4096, 64, 1000.0)
+    exact = _exact(x, g, b)
+    assert np.abs(_one_pass(x, g, b)[0] - exact[0]).max() > 0.1
+    assert np.abs(_model_forward(x, g, b)[0] - exact[0]).max() < 1e-4
+
+
+def test_cpu_calls_leave_the_route_counters_alone():
+    """On the CPU the wrappers run the plain versions: no launch, no
+    route."""
+    from repro_torch.kernels import bn
+    before = (bn.bn_forward.launches, dict(bn.bn_forward.routes),
+              bn.bn_backward.launches, dict(bn.bn_backward.routes))
+    x, g, b = (torch.from_numpy(a) for a in _inputs(1, 64, 8))
+    _, mu, psi = tops.bn_forward(x, g, b)
+    tops.bn_backward(x, x, g, mu, psi)
+    assert (bn.bn_forward.launches, bn.bn_forward.routes,
+            bn.bn_backward.launches, bn.bn_backward.routes) == before
