@@ -16,16 +16,23 @@ From the repository root, on a machine with one CUDA card:
    energy and EDP through the torch reductions), the same searches
    for cycles on the 128-step lattice (5.5M candidates), and
    ``search_many`` over every CNN of the registry -- with the
-   ``grid_minmax`` launch count set to 0 before each path and read after;
+   ``grid_minmax`` launch count (and its launches by route) set to 0
+   before each path and read after;
 4. holds every result bit-identical to the port's numpy engine (best,
    worst, frontiers, Pareto set, cost and score grids) and the training
    grids past 2**31;
 5. holds ``grid_minmax`` exactly equal to ``grid_minmax_ref`` on the card
-   on seeded random, tie, extreme and degenerate grids and on the inputs
-   the main path gave it;
+   on seeded random, tie, extreme and degenerate grids, on the 128-step
+   lattice's sorted projections with equal minima and maxima across a run
+   boundary and two column tiles, on both routes (the SIMD tile in shared
+   memory, and SIMD rows past it), at 46,341 x 46,341 candidates (answers
+   past flat index 2**31) and on the inputs the main path gave it: each
+   case on the route it should take and with the same bits on a second
+   call, and every main-path launch on the shared route;
 6. times the kernel, its plain version and the warm searches with CUDA
    events (the kernel also on the device alone, queued behind a device
-   sleep, and from the profiler's trace), beside its bound on this card;
+   sleep, and from the profiler's trace, which must hold one kernel a
+   call), beside its bound on this card;
 7. drives the kernel entry points ``repro_torch.kernels.ops`` at the full
    width of two models, every launch counter set to 0 before each model
    and read after it: a Qwen3-0.6B prefill of 2 x 2048 tokens in bf16
@@ -104,10 +111,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
-# bandwidth, and the scalar (non-tensor-core) float32 rate, the table's
-# only rate for CUDA-core arithmetic; int64 adds and compares run there.
+# bandwidth, and the scalar (non-tensor-core) float32 rate.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# 32-bit integer lanes of one SM (NVIDIA's Hopper architecture white paper:
+# 16 INT32 units in each of an SM's four partitions).  An int64 add or
+# compare takes two INT32 instructions there; grid_minmax's rate is these
+# lanes x the card's SMs x the SM clock nvidia-smi reports as its maximum.
+INT32_LANES_PER_SM = 64
 
 LATTICE_128 = tuple(range(128, 2049, 128))
 BUDGET_KB = 2048
@@ -125,6 +136,18 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
+
+
+def int32_ops_per_s() -> float:
+    """INT32 instructions a second of card 0: ``INT32_LANES_PER_SM`` x its
+    SMs x ``clocks.max.sm`` from ``nvidia-smi`` (MHz)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
 
 
 def sass_counts(sources=("matmul.cu", "flash_attention.cu")) -> dict:
@@ -237,26 +260,29 @@ class Recorder:
 
 def drive_main_path(device):
     """Run every main-path search once.  Returns the results, per path the
-    launches of ``grid_minmax`` (set to 0 just before the path, read just
-    after), the wall seconds, and the first kernel inputs of each path."""
+    launches of ``grid_minmax`` and its launches by route (set to 0 just
+    before the path, read just after), the wall seconds, and the first
+    kernel inputs of each path."""
     from repro_torch.kernels.reduce import grid_minmax
     paths = [(label, lambda s=s, w=w, o=o: run_search(s, w, o, device))
              for label, s, w, o in main_path_searches(device)]
     paths.append(("search_many/torch",
                   lambda: run_search_many(device, "torch")))
-    results, launches, wall_s = {}, {}, {}
+    results, launches, routes, wall_s = {}, {}, {}, {}
     with Recorder() as rec:
         for label, fn in paths:
             rec.label = label
             grid_minmax.launches = 0
+            grid_minmax.routes = dict.fromkeys(grid_minmax.routes, 0)
             t0 = time.perf_counter()
             results[label] = fn()
             wall_s[label] = time.perf_counter() - t0
             launches[label] = grid_minmax.launches
+            routes[label] = dict(grid_minmax.routes)
     if device.type == "cuda":
         check(rec.ref_calls == 0, f"plain grid_minmax_ref ran "
               f"{rec.ref_calls} times on the main path on the card")
-    return results, launches, wall_s, rec.inputs
+    return results, launches, routes, wall_s, rec.inputs
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +361,76 @@ def _placed_ties(n_rows, nb):
             np.zeros(n_rows, dtype=np.int64))
 
 
+def main_path_projections(values=LATTICE_128):
+    """``(s3_of, v_of)`` of the searches' size tuples on the lattice of
+    ``values`` at the main path's budget (2048 KB, tolerance 0.15), as
+    ``dse._grid_search_many`` builds them: sorted ``s3_of``."""
+    from repro_torch.core import dse
+    tuples = dse._tuples(values, 4, BUDGET_KB * 0.85, BUDGET_KB * 1.15)
+    _, s3_of = dse._project(tuples, lambda t: t[:3])
+    _, v_of = dse._project(tuples, lambda t: t[3])
+    return np.asarray(s3_of, np.int64), np.asarray(v_of, np.int64)
+
+
+def main_path_shapes(seed=2026):
+    """The kernel's two main-path shapes from the searches' real
+    projections, with seeded random panels past 2**31: the 128-step
+    lattice (2345 x 2345, 680 conv and 15 SIMD rows) and Table VIII's
+    (311 x 311, 175 and 7)."""
+    from repro_torch.core import dse
+    rng = np.random.default_rng(seed)
+    out = {}
+    for label, values in (("lattice128", LATTICE_128),
+                          ("table8", dse.SIZES_KB)):
+        s3_of, v_of = main_path_projections(values)
+        nb = s3_of.shape[0]   # the bandwidths take the same lattice
+        out[label] = (
+            rng.integers(2 ** 31, 2 ** 34, (s3_of.max() + 1, nb), np.int64),
+            rng.integers(2 ** 31, 2 ** 34, (v_of.max() + 1, nb), np.int64),
+            s3_of, v_of)
+    return out
+
+
+def _main_path_sorted():
+    """The 128-step lattice's real projections with random panels past
+    2**31, and two equal minima (and two equal maxima) placed across a
+    run boundary of ``s3_of`` and across two column tiles: the later run
+    at a column of an earlier tile, so that a merge preferring the smaller
+    column over the smaller row would pick the wrong one."""
+    conv, simd, s3_of, v_of = main_path_shapes(7)["lattice128"]
+    starts = np.flatnonzero(np.diff(s3_of)) + 1     # first row of each run
+    for k, value, (c_early, c_late) in ((300, 2 ** 31, (70, 1000)),
+                                        (500, 2 ** 36, (130, 2000))):
+        a_first, b_first = starts[k - 1], starts[k]     # runs a, then b
+        simd[:, [c_early, c_late]] = 2 ** 32
+        conv[s3_of[a_first], c_late] = value - 2 ** 32
+        conv[s3_of[b_first], c_early] = value - 2 ** 32
+    return conv, simd, s3_of, v_of
+
+
+INDEX_PAST_2_31 = 46_341               # 46341**2 = 2,147,488,281 > 2**31
+
+
+def index_past_2_31_case():
+    """46,341 x 46,341 candidates from two 46,341-wide panels: a conv
+    panel of two rows (the second one only for the last grid row) and a
+    one-row SIMD panel; the unique minimum and maximum sit on the last
+    row, at flat indices past 2**31.  Returns the case and the expected
+    ``[min, argmin, max, argmax]``."""
+    n = INDEX_PAST_2_31
+    rng = np.random.default_rng(31)
+    conv = np.repeat(rng.integers(2 ** 31, 2 ** 34, (1, n), np.int64), 2, 0)
+    simd = rng.integers(2 ** 31, 2 ** 34, (1, n), np.int64)
+    conv[1, 45_000] = -2 ** 40 - simd[0, 45_000]
+    conv[1, 46_000] = 2 ** 41 - simd[0, 46_000]
+    s3_of = np.zeros(n, np.int64)
+    s3_of[-1] = 1
+    base = (n - 1) * n
+    want = [-2 ** 40, base + 45_000, 2 ** 41, base + 46_000]
+    assert want[1] > 2 ** 31 and want[3] > 2 ** 31
+    return (conv, simd, s3_of, np.zeros(n, np.int64)), want
+
+
 def kernel_cases():
     rng = np.random.default_rng(2026)
     i64 = np.iinfo(np.int64)
@@ -357,39 +453,93 @@ def kernel_cases():
                           np.zeros(3, np.int64)),
         "table8_shape_311x311": _case(rng, 150, 11, 311, 311),
         "lattice128_shape_2345x2345": _case(rng, 680, 16, 2345, 2345),
+        "main_path_sorted": _main_path_sorted(),
+        # the route that reads the SIMD rows from global memory: 1000 rows
+        # of a 64-column tile do not fit in a block's shared memory
+        "simd_rows_past_tile": _case(rng, 50, 1000, 3001, 777),
+        # a SIMD panel near the shared route's limit (over 48 KB of
+        # dynamic shared memory): 27 run slots for 84 random rows an item,
+        # so four windows of runs an item
+        "simd_rows_at_tile_limit": _case(rng, 60, 420, 4000, 700),
+        # unsorted rows, nearly every one a run: 256 rows an item and 93
+        # run slots, so three windows an item, over three column tiles
+        "unsorted_windows": _case(rng, 2000, 3, 60_000, 130),
     }
     return cases
 
 
+# the route each case must take; the others take "shared"
+CASE_ROUTES = {"simd_rows_past_tile": "global"}
+
+
+def _one_call(args) -> tuple:
+    """One kernel call: its result and the route it took."""
+    from repro_torch.kernels.reduce import grid_minmax
+    before = dict(grid_minmax.routes)
+    got = grid_minmax(*args)
+    taken = [r for r, n in grid_minmax.routes.items() if n != before[r]]
+    return got, taken
+
+
 def hold_kernel(cases_dev) -> dict:
-    """Exact equality of the kernel and its plain version on the card;
-    launches made here are not the main path's and are not counted."""
-    from repro_torch.kernels.reduce import grid_minmax, grid_minmax_ref
+    """Exact equality of the kernel and its plain version on the card, the
+    route each case takes, and the same bits on a second call; launches
+    made here are not the main path's and are not counted."""
+    from repro_torch.kernels.reduce import grid_minmax_ref
     max_err, out = 0, {}
     for name, args in cases_dev.items():
-        k = grid_minmax(*args)
+        k, taken = _one_call(args)
+        again, _ = _one_call(args)
         r = grid_minmax_ref(*args)
         torch.cuda.synchronize()
         err = int((k - r).abs().max()) if not torch.equal(k, r) else 0
         max_err = max(max_err, err)
         out[name] = {"shape": [int(args[2].shape[0]), int(args[0].shape[1])],
+                     "n_simd": int(args[1].shape[0]), "route": taken,
                      "kernel": k.tolist(), "ref": r.tolist()}
         check(torch.equal(k, r), f"grid_minmax != grid_minmax_ref on "
               f"{name}: {k.tolist()} vs {r.tolist()}")
+        check(torch.equal(k, again), f"grid_minmax gave other bits on a "
+              f"second call on {name}: {again.tolist()}")
+        want = CASE_ROUTES.get(name, "shared")
+        check(taken == [want], f"grid_minmax took route {taken} on {name}, "
+              f"expected {want}")
     return {"cases": out, "max_abs_err": max_err}
 
 
-def kernel_bound_ms(args) -> tuple:
+def hold_index_past_2_31(device) -> dict:
+    """The kernel on 46,341 x 46,341 candidates against its plain version
+    (which materialises 17 GB of int64 three times over) and the answer
+    the case places past flat index 2**31."""
+    from repro_torch.kernels.reduce import grid_minmax_ref
+    arrs, want = index_past_2_31_case()
+    args = tuple(torch.from_numpy(a).to(device) for a in arrs)
+    got, taken = _one_call(args)
+    ref = grid_minmax_ref(*args)
+    torch.cuda.synchronize()
+    out = {"shape": [INDEX_PAST_2_31, INDEX_PAST_2_31], "route": taken,
+           "kernel": got.tolist(), "ref": ref.tolist(), "want": want}
+    del ref
+    torch.cuda.empty_cache()
+    check(out["kernel"] == want, f"grid_minmax on index_past_2_31: "
+          f"{out['kernel']}, expected {want}")
+    check(out["ref"] == want, f"grid_minmax_ref on index_past_2_31: "
+          f"{out['ref']}, expected {want}")
+    return out
+
+
+def kernel_bound_ms(args, int32_rate) -> tuple:
     """Least time the card needs for one call: each input read once and
-    the 32-byte result written once, over HBM bandwidth, against three
-    int64 operations per candidate (add, two compares) over the scalar
-    rate.  Returns ``(bound_ms, bound_by, gathered_bytes_ms)``; the last
-    counts the gathered operand rows (16 bytes per candidate) instead."""
+    the 32-byte result written once, over HBM bandwidth, against six
+    INT32 instructions a candidate (an int64 add and two int64 compares,
+    two each) at ``int32_rate``.  Returns ``(bound_ms, bound_by,
+    gathered_bytes_ms)``; the last counts the gathered operand rows (16
+    bytes per candidate) instead."""
     conv, simd, s3_of, v_of = args
     n = int(s3_of.shape[0]) * int(conv.shape[1])
     nbytes = sum(t.numel() * t.element_size() for t in args) + 32
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * n / SCALAR_OPS_PER_S * 1e3
+    t_ops = 6 * n / int32_rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", 16 * n / HBM_BYTES_PER_S * 1e3)
 
@@ -439,17 +589,20 @@ def kernel_names(fn, iters: int = 10) -> list:
 
 
 def check_one_kernel(name: str, names: list) -> None:
-    """A call of the batch-norm wrapper ``name`` launches exactly one
-    device kernel, ``<name>_kernel``: the profiler's trace of its calls
-    holds that kernel's name and no other."""
+    """A call of the wrapper ``name`` (a batch-norm kernel's, or
+    ``grid_minmax``) launches exactly one device kernel,
+    ``<name>_kernel``: the profiler's trace of its calls holds that
+    kernel's name and no other."""
     check(len(names) == 1 and f"{name}_kernel<" in names[0],
           f"{name}: the trace of its calls holds {names}, expected one "
           f"kernel {name}_kernel")
 
 
-def time_kernel(args) -> dict:
+def time_kernel(args, int32_rate) -> dict:
     from repro_torch.kernels.reduce import grid_minmax, grid_minmax_ref
-    bound, bound_by, gathered = kernel_bound_ms(args)
+    bound, bound_by, gathered = kernel_bound_ms(args, int32_rate)
+    names = kernel_names(lambda: grid_minmax(*args))
+    check_one_kernel("grid_minmax", names)
     prof = profile_device_ms(lambda: grid_minmax(*args), iters=50,
                              match="grid_minmax")
     return {"shape": [int(args[2].shape[0]), int(args[0].shape[1])],
@@ -457,8 +610,8 @@ def time_kernel(args) -> dict:
             "device_ms": queued_ms(lambda: grid_minmax(*args), iters=200,
                                    warmup=20),
             "profiler_ms": prof["device_ms"],
-            # two kernels a call: per-block partials, then the final merge
-            "profiler_records": f"{prof['records']} of 100",
+            "kernels_in_trace": names,
+            "profiler_records": f"{prof['records']} of 50",
             "plain_ms": cuda_ms(lambda: grid_minmax_ref(*args), iters=50,
                                 warmup=5),
             "bound_ms": bound, "bound_by": bound_by,
@@ -1859,10 +2012,12 @@ def main(argv=None) -> int:
           report["sass"]["flash_attention.cu"]["HGMMA"] > 0,
           "flash_attention.cu's library holds no tensor-core MMA")
 
-    results, launches, wall_s, inputs = drive_main_path(device)
+    results, launches, routes, wall_s, inputs = drive_main_path(device)
     report["launches"] = launches
+    report["routes"] = routes
     report["first_search_s"] = wall_s
-    print(f"main path launches of grid_minmax: {launches}")
+    print(f"main path launches of grid_minmax: {launches}; by route: "
+          f"{routes}")
     for label, s in wall_s.items():
         print(f"  first search {label}: {s} s")
     fused = [lab for lab, _, _, _ in main_path_searches(device)
@@ -1870,6 +2025,10 @@ def main(argv=None) -> int:
     for label in fused:
         check(launches[label] >= 1,
               f"{label}: the main path never launched grid_minmax")
+    for label, by_route in routes.items():
+        check(by_route["shared"] == launches[label],
+              f"{label}: grid_minmax's main-path launches took the routes "
+              f"{by_route}, expected every one on shared")
 
     report["parity"] = hold_against_numpy(results, device)
     print(f"parity with the numpy engine: {report['parity']['checks']} "
@@ -1882,15 +2041,26 @@ def main(argv=None) -> int:
         cases[f"main_path/{label}"] = args_
     held = hold_kernel(cases)
     report["kernel_checks"] = held
-    print(f"grid_minmax == grid_minmax_ref exactly on {len(cases)} cases "
-          f"({', '.join(cases)})")
+    print(f"grid_minmax == grid_minmax_ref exactly, and the same bits on a "
+          f"second call, on {len(cases)} cases ({', '.join(cases)}); "
+          f"routes: " + ", ".join(f"{n} {c['route']}" for n, c in
+                                   held["cases"].items()
+                                   if c["route"] != ["shared"]))
+    del cases
+    report["index_past_2_31"] = hold_index_past_2_31(device)
+    print(f"grid_minmax == grid_minmax_ref == the placed answer at "
+          f"46341 x 46341: {report['index_past_2_31']['kernel']}")
 
-    timing = {label: time_kernel(args_) for label, args_ in inputs.items()}
+    int32_rate = int32_ops_per_s()
+    report["int32_ops_per_s"] = int32_rate
+    timing = {label: time_kernel(args_, int32_rate)
+              for label, args_ in inputs.items()}
     report["kernel_times"] = timing
     for label, t in timing.items():
         print(f"  grid_minmax {label} {t['shape']}: {t['ms']} ms "
               f"(device {t['device_ms']} ms, profiler {t['profiler_ms']} "
-              f"ms from {t['profiler_records']} records), plain "
+              f"ms from {t['profiler_records']} records; kernels in the "
+              f"trace {t['kernels_in_trace']}), plain "
               f"{t['plain_ms']} ms, bound {t['bound_ms']} ms "
               f"({t['bound_by']}), gathered-bytes bound "
               f"{t['gathered_bytes_bound_ms']} ms  [{card}]")
@@ -1911,7 +2081,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/grid_minmax.cu",
         "replaces": "src/repro/kernels/reduce.py:65",
         "launches": sum(launches.values()),
-        "checks": len(cases),
+        "checks": len(held["cases"]) + 1,
         "max_abs_err": held["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,

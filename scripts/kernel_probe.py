@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Quick check of the GEMM, attention and batch-norm kernels on one CUDA card.
+"""Quick check of the port's CUDA kernels on one CUDA card.
 
-    python3 scripts/kernel_probe.py [--only gemm|attention|bn] [--src DIR]
+    python3 scripts/kernel_probe.py [--only gemm|attention|bn|grid_minmax]
+                                    [--src DIR]
 
 From the repository root.  Builds the sources it probes only, prints
 their ptxas reports (and the tensor-core instructions in the GEMM's and
@@ -13,11 +14,20 @@ against the plain versions with the tolerances of
 call that computes the same (calls queued behind a device sleep) and the
 bound.  For batch norm it also holds two calls bit-identical and reads
 how far the kernel's and the float32 plain version's outputs lie from
-the same formula in float64 at mean shifts 10, 100 and 1000.  ``--src``
-imports the port from another tree (an unpacked parent commit, say),
-whose batch-norm wrappers are only called through ``ops``.  It exits
-non-zero if a case fails.  About a minute; ``chip_smoke.py`` is the full
-run.
+the same formula in float64 at mean shifts 10, 100 and 1000.  For
+``grid_minmax`` it holds the kernel exactly against ``grid_minmax_ref``
+on ``chip_smoke.py``'s cases (ties, extremes, both routes, the main
+path's sorted projections, 46,341 x 46,341 candidates) and twice on each,
+then times both main-path shapes, built from the searches' real
+projections (2345 x 2345 and 311 x 311): device ms with the calls queued
+behind a device sleep, ms a call by events with the host, the plain
+version and the bound.  ``--src`` imports the port from another tree (an
+unpacked parent commit, say), whose batch-norm wrappers are only called
+through ``ops``; run it and the tree's own probe in one call to compare
+the two on one card.  A build of the kernel with ``-DGRID_MINMAX_TRACE``
+then gives each block's phase times in one call at both shapes.  It
+exits non-zero if a case fails.  About a minute;
+``chip_smoke.py`` is the full run.
 """
 from __future__ import annotations
 
@@ -310,9 +320,118 @@ def bn_times(dev) -> None:
         f"{k} {v:.4f}" for k, v in total.items()) + " ms")
 
 
+# ---- grid_minmax -----------------------------------------------------------
+
+def _smoke():
+    """``chip_smoke.py`` of this tree (its cases and bound); it imports the
+    port only inside its functions, so from ``SRC``."""
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke
+    return chip_smoke
+
+
+def hold_grid_minmax(hold: Holds, dev) -> None:
+    """Exactly ``grid_minmax_ref``, twice the same bits, on every case."""
+    from repro_torch.kernels.reduce import grid_minmax, grid_minmax_ref
+    cs = _smoke()
+    cases = dict(cs.kernel_cases())
+    cases.update((f"main_path/{k}", v)
+                 for k, v in cs.main_path_shapes().items())
+    big, want = cs.index_past_2_31_case()
+    cases["index_past_2_31"] = big
+    for name, arrs in cases.items():
+        args = tuple(torch.from_numpy(a).to(dev) for a in arrs)
+        try:
+            got, again = grid_minmax(*args), grid_minmax(*args)
+            ref_ = grid_minmax_ref(*args)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, ref_) and torch.equal(got, again)
+            if name == "index_past_2_31":
+                ok &= got.tolist() == want
+            print(f"{'ok  ' if ok else 'FAIL'} grid_minmax {name} "
+                  f"{tuple(args[2].shape) + tuple(args[0].shape[1:])}: "
+                  f"{got.tolist()} (plain {ref_.tolist()})")
+            del ref_
+        except Exception:       # report every case, then fail at the end
+            ok = False
+            print(f"EXC  grid_minmax {name}\n{traceback.format_exc()}")
+        hold.failed += not ok
+        del args
+        torch.cuda.empty_cache()
+    print(f"routes: {getattr(grid_minmax, 'routes', 'none (one route)')}")
+
+
+def grid_minmax_times(dev) -> None:
+    from repro_torch.kernels.reduce import grid_minmax, grid_minmax_ref
+    cs = _smoke()
+    rate = cs.int32_ops_per_s()
+    for label, arrs in cs.main_path_shapes().items():
+        args = tuple(torch.from_numpy(a).to(dev) for a in arrs)
+        bound, by, _ = cs.kernel_bound_ms(args, rate)
+        dev_ms = [queued_ms(lambda: grid_minmax(*args), 200)
+                  for _ in range(3)]
+        print(f"grid_minmax {label} {tuple(args[2].shape)} x "
+              f"{tuple(args[0].shape)} + {tuple(args[1].shape)}: device "
+              f"{dev_ms} ms (queued, 3 runs of 200), "
+              f"{cs.cuda_ms(lambda: grid_minmax(*args), 200, 20)} ms a call "
+              f"by events, plain "
+              f"{cs.cuda_ms(lambda: grid_minmax_ref(*args), 50, 5)} ms, "
+              f"bound {bound} ms ({by}; INT32 rate {rate:.4g}/s)")
+
+
+def grid_minmax_trace(dev) -> None:
+    """Where one call's time goes at each main-path shape: the kernel built
+    with ``-DGRID_MINMAX_TRACE`` records the global timer and the SM clock
+    of every block at its phase ends (``csrc/grid_minmax.cu``), read
+    after the last of five calls."""
+    import ctypes
+
+    import numpy as np
+    from repro_torch.kernels import reduce
+    src = _ext.CSRC / reduce.SOURCE
+    if "GRID_MINMAX_TRACE" not in src.read_text():
+        print("grid_minmax: this tree's kernel has no trace points")
+        return
+    path = _ext.BUILD_DIR / "grid_minmax-trace.so"
+    _ext.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_ext.nvcc_path(), *_ext.NVCC_FLAGS, "-DGRID_MINMAX_TRACE",
+                    "-o", str(path), str(src)], check=True,
+                   capture_output=True)
+    traced = reduce._bind(ctypes.CDLL(str(path)))
+    library = reduce._library
+    reduce._library = lambda: traced
+    try:
+        for label, arrs in _smoke().main_path_shapes().items():
+            args = tuple(torch.from_numpy(a).to(dev) for a in arrs)
+            for _ in range(5):
+                reduce.grid_minmax(*args)
+            torch.cuda.synchronize()
+            buf = np.zeros((2048, 16), np.int64)
+            traced.grid_minmax_trace_read(ctypes.c_void_p(buf.ctypes.data))
+            plan = reduce.launch_plan(args[2].shape[0], args[0].shape[1],
+                                      args[1].shape[0], torch.cuda
+                                      .get_device_properties(dev)
+                                      .multi_processor_count)
+            ns = buf[:plan.blocks, :7] - buf[:plan.blocks, 0].min()
+            cycles = np.diff(buf[:plan.blocks, 8:13], axis=1)
+            print(f"grid_minmax {label} trace ({plan.blocks} blocks): "
+                  f"first item's phases, SM cycles median/max: "
+                  + ", ".join(f"{name} {np.median(cycles[:, i])}/"
+                              f"{cycles[:, i].max()}" for i, name in
+                              enumerate(("staged", "numbered",
+                                         "first half landed", "walked")))
+                  + f"; global timer from the first block's start, ns: "
+                  f"blocks started by {ns[:, 0].max()}, partials merged "
+                  f"median {np.median(ns[:, 5])} max {ns[:, 5].max()}, "
+                  f"answer written {ns[:, 6].max()}")
+    finally:
+        reduce._library = library
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("gemm", "attention", "bn"))
+    ap.add_argument("--only", choices=("gemm", "attention", "bn",
+                                       "grid_minmax"))
     ap.add_argument("--src", help="import the port from this src/ tree")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -323,22 +442,25 @@ def main() -> int:
                          text=True).stdout.strip())
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           SRC)
-    parts = ("gemm", "attention", "bn") if args.only is None \
-        else (args.only,)
+    parts = ("gemm", "attention", "bn", "grid_minmax") \
+        if args.only is None else (args.only,)
     build([s for p, s in (("gemm", "matmul.cu"),
                           ("attention", "flash_attention.cu"),
-                          ("bn", "bn_forward.cu"), ("bn", "bn_backward.cu"))
+                          ("bn", "bn_forward.cu"), ("bn", "bn_backward.cu"),
+                          ("grid_minmax", "grid_minmax.cu"))
            if p in parts])
     torch.manual_seed(0)
     hold = Holds()
     for part, fn in (("gemm", hold_gemms), ("attention", hold_attention),
-                     ("bn", hold_bn)):
+                     ("bn", hold_bn), ("grid_minmax", hold_grid_minmax)):
         if part in parts:
             fn(hold, "cuda")
     if hold.failed == 0:
         for part, fn in (("attention", attention_times),
                          ("gemm", gemm_times), ("bn", bn_shift),
-                         ("bn", bn_times)):
+                         ("bn", bn_times),
+                         ("grid_minmax", grid_minmax_times),
+                         ("grid_minmax", grid_minmax_trace)):
             if part in parts:
                 fn("cuda")
     print(f"failed cases: {hold.failed}")
