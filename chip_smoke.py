@@ -33,7 +33,32 @@ From the repository root, on a machine with one CUDA card:
    events (the kernel also on the device alone, queued behind a device
    sleep, and from the profiler's trace, which must hold one kernel a
    call), beside its bound on this card;
-7. drives the kernel entry points ``repro_torch.kernels.ops`` at the full
+7. drives the LLM searches through the same entry points: Qwen3-0.6B
+   (``Workload("qwen3_0_6b", batch=2, seq=2048)``, the prefill's tokens)
+   for inference and training, and gemma3-27b training at 512 tokens, at
+   the 64x64 presets on the Table VIII lattice, for cycles (through the
+   kernel), energy and EDP; the counters set to 0 before each search and
+   read after it (one ``grid_minmax`` launch a cycles search, on the
+   shared route, and no call of the plain version); holds each result
+   bit-identical to the numpy engine and the kernel's LLM inputs against
+   the plain version, and prints how many candidates tie at each grid's
+   minimum and maximum;
+8. runs ``method="refine"`` for Qwen3 training and ResNet-50 inference on
+   a CUDA study, held equal to the same refine on a numpy study (best,
+   evaluations, archive, trajectory) and never worse than the grid;
+   serves a burst of 8 requests (ResNet-50 cycles and EDP, Qwen3
+   inference and training, gemma3-27b training at 1024 / 1024, Qwen3
+   through refine, a duplicate, a misspelt name) from 4 client threads
+   through one ``DSEService`` over a CUDA study, holding one failure
+   (``InvalidRequest``), a dedup hit, coalescing, one launch for each
+   workload of a grid cycles group and every answer bit-identical to a
+   direct search; and arms ``service_request_hang`` once so that an
+   abandoned pricing thread prices beside its serial retry, holding the
+   launch counts, the answers of both and one kernel workspace;
+9. times the LLM searches (warm, and with the frontier and Pareto set
+   read) beside the numpy engine, and the service burst (wall time,
+   latency percentiles, coalescing);
+10. drives the kernel entry points ``repro_torch.kernels.ops`` at the full
    width of two models, every launch counter set to 0 before each model
    and read after it: a Qwen3-0.6B prefill of 2 x 2048 tokens in bf16
    (all 28 layers; GEMMs, fused add+RMSNorm, causal GQA flash attention,
@@ -42,7 +67,7 @@ From the repository root, on a machine with one CUDA card:
    by route held too (every Qwen3 GEMM on `wgmma`, ResNet-50's on `wgmma`
    but the stem's, whose K = 147) and every ``bn_forward`` launch on the
    vector route;
-8. holds each of the four kernels against its plain version on the card,
+11. holds each of the four kernels against its plain version on the card,
    on the inputs the models gave it and on the edge cases of
    ``tests/test_kernels.py``, with that file's tolerances (the main
    path's bf16 attention also by the relative error of each query row,
@@ -54,14 +79,14 @@ From the repository root, on a machine with one CUDA card:
    float32 plain version), and the whole decoder against the same
    composition of plain versions; each batch-norm kernel gives the same
    bits on a second call on every main-path input;
-9. times each kernel at those shapes beside its plain version, the one
+12. times each kernel at those shapes beside its plain version, the one
    PyTorch call that computes the same (where there is one) and its bound:
    through the wrapper (CUDA events), on the device alone (the calls
    queued behind a device sleep), and as the profiler's trace sees it
    (where a batch-norm call must show exactly one kernel, its own);
    and times every compiled GEMM tile, with the split count the model
    gives it, against the tile model's pick;
-10. drives one ResNet-50 training step at full width and depth
+13. drives one ResNet-50 training step at full width and depth
     (``kernels/training.py``: batch 32, 224 x 224 images, 1000 classes,
     bf16 GEMMs and float32 BN, Goyal et al.'s zero-gamma init, seeded),
     every launch counter set to 0 before it and held after it to
@@ -69,7 +94,7 @@ From the repository root, on a machine with one CUDA card:
     ``bn_backward``; in bf16 all GEMMs but the stem's forward on
     `wgmma`; every BN launch on the vector route), then two more SGDM
     steps with finite losses; the same in float32 (every GEMM on `mma`);
-11. holds the second step's loss and every gradient against the plain
+14. holds the second step's loss and every gradient against the plain
     step from the same weights, on the same ReLU and max-pool choices
     (relative Frobenius error, limits ``TRAIN_REL``), and holds a control
     to fail each limit (float32: a plain step with noisy GEMMs on its own
@@ -79,7 +104,7 @@ From the repository root, on a machine with one CUDA card:
     plain versions on the step's inputs, on the cases of
     ``tests/test_kernels.py``, their bf16 forms and ragged shapes, and
     ``BatchNormFn`` against autograd of the plain forward;
-12. times ``bn_backward`` at the stem and over all 53 BN layers beside
+15. times ``bn_backward`` at the stem and over all 53 BN layers beside
     its plain version, its bound and ``native_batch_norm_backward``, and
     the warm step (kernel, plain and float32): by events with the host,
     and its device time from the profiler's trace, split into the GEMM
@@ -101,6 +126,7 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -230,7 +256,9 @@ class Recorder:
     """Wraps ``gridtorch.grid_minmax`` to keep, per path, the inputs the
     main path gives the kernel, and ``reduce.grid_minmax_ref`` to count
     calls of the plain version (none may come from the main path on the
-    card)."""
+    card).  ``zero()`` sets the launch counters and the count of plain
+    calls to 0 just before a path; ``read()`` reads them just after.  The
+    wrappers may run on a service's pricing threads."""
 
     def __init__(self):
         from repro_torch.core import gridtorch
@@ -240,14 +268,17 @@ class Recorder:
         self.label = None
         self.inputs = {}
         self.ref_calls = 0
+        self._lock = threading.Lock()
 
     def __enter__(self):
         def kernel(*args):
-            self.inputs.setdefault(self.label, args)
+            with self._lock:
+                self.inputs.setdefault(self.label, args)
             return self.kernel(*args)
 
         def ref(*args):
-            self.ref_calls += 1
+            with self._lock:
+                self.ref_calls += 1
             return self.ref(*args)
         self.gridtorch.grid_minmax = kernel
         self.reduce.grid_minmax_ref = ref
@@ -257,32 +288,38 @@ class Recorder:
         self.gridtorch.grid_minmax = self.kernel
         self.reduce.grid_minmax_ref = self.ref
 
+    def zero(self, label=None) -> None:
+        kernel = self.reduce.grid_minmax
+        kernel.launches = 0
+        kernel.routes = dict.fromkeys(kernel.routes, 0)
+        self.ref_calls = 0
+        self.label = label
 
-def drive_main_path(device):
+    def read(self) -> tuple:
+        """``(launches, launches by route, plain calls)`` since ``zero``."""
+        kernel = self.reduce.grid_minmax
+        return kernel.launches, dict(kernel.routes), self.ref_calls
+
+
+def drive_main_path(device, rec):
     """Run every main-path search once.  Returns the results, per path the
     launches of ``grid_minmax`` and its launches by route (set to 0 just
     before the path, read just after), the wall seconds, and the first
     kernel inputs of each path."""
-    from repro_torch.kernels.reduce import grid_minmax
     paths = [(label, lambda s=s, w=w, o=o: run_search(s, w, o, device))
              for label, s, w, o in main_path_searches(device)]
     paths.append(("search_many/torch",
                   lambda: run_search_many(device, "torch")))
     results, launches, routes, wall_s = {}, {}, {}, {}
-    with Recorder() as rec:
-        for label, fn in paths:
-            rec.label = label
-            grid_minmax.launches = 0
-            grid_minmax.routes = dict.fromkeys(grid_minmax.routes, 0)
-            t0 = time.perf_counter()
-            results[label] = fn()
-            wall_s[label] = time.perf_counter() - t0
-            launches[label] = grid_minmax.launches
-            routes[label] = dict(grid_minmax.routes)
-    if device.type == "cuda":
-        check(rec.ref_calls == 0, f"plain grid_minmax_ref ran "
-              f"{rec.ref_calls} times on the main path on the card")
-    return results, launches, routes, wall_s, rec.inputs
+    for label, fn in paths:
+        rec.zero(label)
+        t0 = time.perf_counter()
+        results[label] = fn()
+        wall_s[label] = time.perf_counter() - t0
+        launches[label], routes[label], ref_calls = rec.read()
+        check(ref_calls == 0, f"{label}: plain grid_minmax_ref ran "
+              f"{ref_calls} times on the main path on the card")
+    return results, launches, routes, wall_s, dict(rec.inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -653,6 +690,404 @@ def time_searches(device) -> dict:
             else 1.0 - prof["device_ms"] / prof["wall_ms"]
         out[label] = row
     return out
+
+
+# ---------------------------------------------------------------------------
+# LLM searches, refine and the service on the card
+# ---------------------------------------------------------------------------
+
+QWEN_TOKENS = dict(batch=2, seq=2048)   # the prefill's 2 x 2048 tokens
+GEMMA_SEQ = 512
+MISSPELT = "qwen3_0_6"
+# the hung pricing thread: its group sleeps HANG_S, the watchdog gives up
+# after WATCHDOG_S, and the serial retry prices beside it when it wakes
+HANG_S, WATCHDOG_S = 2.5, 2.0
+
+
+def llm_searches():
+    """``(label, study_kwargs, workload_kwargs, objective)`` of the LLM
+    searches, on the Table VIII lattice at 2048 KB / 2048: Qwen3-0.6B at 2
+    x 2048 tokens, inference on the 64x64 inference preset and training on
+    the training preset, and gemma3-27b training at 512 tokens; cycles
+    through the kernel, energy and EDP through the torch reductions."""
+    from repro_torch.core import INFER_PRESETS, TRAIN_PRESETS
+    qwen = dict(net="qwen3_0_6b", **QWEN_TOKENS)
+    out = []
+    for name, presets, wl in (
+            ("qwen3/inference", INFER_PRESETS, qwen),
+            ("qwen3/training", TRAIN_PRESETS, dict(qwen, training=True)),
+            ("gemma3/training", TRAIN_PRESETS,
+             dict(net="gemma3-27b", training=True, seq=GEMMA_SEQ))):
+        for obj in ("cycles", "energy", "edp"):
+            backend = "torch-fused" if obj == "cycles" else "torch"
+            out.append((f"llm/{name}/{obj}",
+                        dict(hw=presets[64], backend=backend), wl, obj))
+    return out
+
+
+def drive_llm(device, rec) -> dict:
+    """Each LLM search once, the counters set to 0 just before it and read
+    just after: one ``grid_minmax`` launch a cycles search, on the shared
+    route, none for energy and EDP, and no call of the plain version.
+    Then each result held bit-identical to the numpy engine's, each cycles
+    search's kernel inputs held against the plain version (twice the same
+    bits), and the candidates tied at each grid's minimum and maximum."""
+    from repro_torch.core import Workload
+    results, out = {}, {}
+    for label, study_kw, wl_kw, obj in llm_searches():
+        rec.zero(label)
+        t0 = time.perf_counter()
+        results[label] = run_search(study_kw, wl_kw, obj, device)
+        secs = time.perf_counter() - t0
+        launches, routes, ref_calls = rec.read()
+        want = 1 if obj == "cycles" else 0
+        check(launches == want and routes["shared"] == launches,
+              f"{label}: {launches} grid_minmax launches by route {routes}, "
+              f"expected {want} on shared")
+        check(ref_calls == 0, f"{label}: grid_minmax_ref ran {ref_calls} "
+              f"times on the card")
+        costs = results[label].grid.costs
+        out[label] = {"first_search_s": secs, "launches": launches,
+                      "routes": routes, "candidates": int(costs.size),
+                      "layers": len(Workload(**wl_kw).layers()),
+                      "grid_min": int(costs.min()),
+                      "grid_max": int(costs.max()),
+                      "tied_at_min": int((costs == costs.min()).sum()),
+                      "tied_at_max": int((costs == costs.max()).sum())}
+    n_checks = 0
+    for label, study_kw, wl_kw, obj in llm_searches():
+        want = run_search(study_kw, wl_kw, obj, device, backend="numpy")
+        n_checks += compare(label, results[label], want)
+    inputs = {label: rec.inputs[label] for label in results
+              if label.endswith("/cycles")}
+    held = hold_kernel(inputs)
+    return {"searches": out, "parity_checks": n_checks,
+            "kernel_checks": held, "results": results, "inputs": inputs}
+
+
+def _same_refine(label, got, want) -> None:
+    check(_pt(got.best) == _pt(want.best)
+          and _pt(got.worst) == _pt(want.worst),
+          f"{label}: refine's best or worst differs from the numpy study's")
+    check(got.refine.n_evals == want.refine.n_evals == got.n_candidates,
+          f"{label}: refine's evaluation count differs")
+    check([_pt(p) for p in got.archive] == [_pt(p) for p in want.archive],
+          f"{label}: refine's archive differs")
+    check([(s, k, _pt(p)) for s, k, p in got.refine.trajectory]
+          == [(s, k, _pt(p)) for s, k, p in want.refine.trajectory],
+          f"{label}: refine's trajectory differs")
+
+
+def hold_refine(device, rec, grid_best) -> dict:
+    """``method="refine"`` on a CUDA study, held equal to the same refine
+    on a ``backend="numpy"`` study and never worse than the grid's best
+    (``grid_best``, by label); refine prices on the host, so it launches
+    nothing."""
+    from repro_torch.core import INFER_PRESETS, TRAIN_PRESETS, Study, Workload
+    out = {}
+    for label, hw, wl_kw, grid_label in (
+            ("refine/qwen3/training", TRAIN_PRESETS[64],
+             dict(net="qwen3_0_6b", training=True, **QWEN_TOKENS),
+             "llm/qwen3/training/cycles"),
+            ("refine/resnet50/inference", INFER_PRESETS[64],
+             dict(net="resnet50"), "table8/inference/cycles")):
+        rec.zero(label)
+        t0 = time.perf_counter()
+        got = Study(hw, device=device).search(
+            Workload(**wl_kw), BUDGET_KB, BUDGET_BW, method="refine")
+        secs = time.perf_counter() - t0
+        launches, _, ref_calls = rec.read()
+        want = Study(hw, backend="numpy", device=device).search(
+            Workload(**wl_kw), BUDGET_KB, BUDGET_BW, method="refine")
+        _same_refine(label, got, want)
+        check(got.best.cycles <= grid_best[grid_label],
+              f"{label}: refine's best {got.best.cycles} is worse than the "
+              f"grid's {grid_best[grid_label]}")
+        check(launches == 0 and ref_calls == 0,
+              f"{label}: refine launched {launches} kernels and called the "
+              f"plain version {ref_calls} times")
+        out[label] = {"s": secs, "best": _pt(got.best),
+                      "grid_best_cycles": grid_best[grid_label],
+                      "n_evals": got.refine.n_evals,
+                      "grid_candidates": got.refine.grid_candidates}
+    return out
+
+
+def service_burst():
+    """``(tag, workload kwargs, budget, objective, method)`` of the burst:
+    ResNet-50 for cycles and EDP, Qwen3 (2 x 2048) for cycles in inference
+    and training, gemma3-27b training at 1024 / 1024, Qwen3 through
+    refine, a duplicate of the Qwen3 inference query and a misspelt
+    name."""
+    qwen = dict(net="qwen3_0_6b", **QWEN_TOKENS)
+    gemma = dict(net="gemma3-27b", training=True, seq=GEMMA_SEQ)
+    return [
+        ("resnet50/cycles", dict(net="resnet50"), BUDGET_KB, "cycles", "grid"),
+        ("resnet50/edp", dict(net="resnet50"), BUDGET_KB, "edp", "grid"),
+        ("qwen3/inference/cycles", qwen, BUDGET_KB, "cycles", "grid"),
+        ("qwen3/training/cycles", dict(qwen, training=True), BUDGET_KB,
+         "cycles", "grid"),
+        ("gemma3/training/cycles", gemma, 1024, "cycles", "grid"),
+        ("qwen3/inference/refine", qwen, BUDGET_KB, "cycles", "refine"),
+        ("qwen3/inference/cycles/again", qwen, BUDGET_KB, "cycles", "grid"),
+        ("misspelt", dict(net=MISSPELT), BUDGET_KB, "cycles", "grid"),
+    ]
+
+
+def _direct(device, req):
+    """A direct search of ``req`` on a fresh study of the service's preset
+    and device."""
+    from repro_torch.core import INFER_PRESETS, Study
+    return Study(INFER_PRESETS[64], device=device).search(
+        req.workload, req.size_budget_kb, req.bw_budget,
+        objective=req.objective, method=req.method)
+
+
+def _hold_answer(label, got, want) -> None:
+    if want.grid is None:
+        _same_refine(label, got, want)
+    else:
+        compare(label, got, want)
+
+
+def drive_service(device, rec) -> dict:
+    """One ``DSEService`` over a CUDA study: the burst submitted from 4
+    client threads, then ``start()``.  Held: one request fails, as
+    ``InvalidRequest``; a dedup hit and coalescing; one ``grid_minmax``
+    launch for each workload of a grid cycles group (all on shared), no
+    plain call; every answer bit-identical to a direct search."""
+    from repro_torch.core import INFER_PRESETS, Study, Workload
+    from repro_torch.serve import (DSEClient, DSERequest, DSEService,
+                                   InvalidRequest)
+    reqs = [DSERequest(Workload(**wl), b, b, objective=obj, method=m,
+                       tag=tag)
+            for tag, wl, b, obj, m in service_burst()]
+    svc = DSEService(Study(INFER_PRESETS[64], device=device),
+                     autostart=False, max_batch=len(reqs))
+    client = DSEClient(svc)
+    tickets = [None] * len(reqs)
+    barrier = threading.Barrier(4)
+
+    def submitter(tid):
+        barrier.wait()
+        for i in range(tid, len(reqs), 4):
+            tickets[i] = client.submit(reqs[i])
+
+    threads = [threading.Thread(target=submitter, args=(t,))
+               for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        check(not t.is_alive(), "a client thread did not finish submitting")
+    rec.zero("service")
+    t0 = time.perf_counter()
+    svc.start()
+    errors = [t.exception(timeout=600) for t in tickets]
+    wall = time.perf_counter() - t0
+    svc.close(timeout=60)
+    launches, routes, ref_calls = rec.read()
+    stats = svc.stats()
+
+    priced = {r.dedup_key: r for r, e in zip(reqs, errors) if e is None}
+    want_launches = sum(1 for r in priced.values()
+                        if r.method == "grid" and r.objective == "cycles")
+    failed = [(r.tag, e) for r, e in zip(reqs, errors) if e is not None]
+    check(len(failed) == 1 and failed[0][0] == "misspelt"
+          and isinstance(failed[0][1], InvalidRequest),
+          f"service: expected the misspelt request alone to fail as "
+          f"InvalidRequest, got {failed}")
+    check(stats.dedup_hits >= 1 and stats.coalescing_ratio > 1,
+          f"service: dedup_hits {stats.dedup_hits}, coalescing ratio "
+          f"{stats.coalescing_ratio}")
+    check(launches == want_launches and routes["shared"] == launches,
+          f"service: {launches} grid_minmax launches by route {routes}, "
+          f"expected {want_launches} on shared")
+    check(ref_calls == 0, f"service: grid_minmax_ref ran {ref_calls} times")
+    for req, t, err in zip(reqs, tickets, errors):
+        if err is None:
+            _hold_answer(f"service/{req.tag}", t.result(),
+                         _direct(device, req))
+    return {"wall_s": wall, "launches": launches, "routes": routes,
+            "expected_launches": want_launches,
+            "failed": [f"{tag}: {type(e).__name__}" for tag, e in failed],
+            "stats": {k: getattr(stats, k) for k in (
+                "submitted", "completed", "failed", "dedup_hits", "batches",
+                "searches", "priced_requests", "latency_p50_s",
+                "latency_p95_s", "latency_samples")},
+            "coalescing_ratio": stats.coalescing_ratio,
+            "batch_occupancy": stats.batch_occupancy}
+
+
+def drive_hung_service(device, rec) -> dict:
+    """``service_request_hang`` armed once: a group of two cycles queries
+    sleeps past its watchdog and is abandoned, the group degrades to
+    serial pricing, and the abandoned thread wakes and prices the group
+    while the serial retry is still pricing (the first serial call waits
+    until it has begun).  Held: 4 launches (2 a pricing), all on shared,
+    every answer of both threads bit-identical to a direct search, and one
+    ``grid_minmax`` workspace, the default stream's."""
+    from repro_torch.core import INFER_PRESETS, Study, Workload, faultinject
+    from repro_torch.kernels import reduce
+    from repro_torch.serve import DSEClient, DSERequest, DSEService
+    study = Study(INFER_PRESETS[64], device=device)
+    group_started = threading.Event()
+    calls, lock = [], threading.Lock()
+    search_requests = study.search_requests
+
+    def recorded(requests):
+        if len(requests) == 1:
+            check(group_started.wait(timeout=60),
+                  "hung service: the abandoned thread never priced")
+        else:
+            group_started.set()
+        t0 = time.perf_counter()
+        res = search_requests(requests)
+        with lock:
+            calls.append((len(requests), t0, time.perf_counter(), res))
+        return res
+
+    study.search_requests = recorded
+    reqs = [DSERequest(Workload("resnet50"), BUDGET_KB, BUDGET_BW),
+            DSERequest(Workload("qwen3_0_6b", **QWEN_TOKENS), BUDGET_KB,
+                       BUDGET_BW)]
+    faultinject.arm("service_request_hang", times=1, arg=HANG_S)
+    try:
+        svc = DSEService(study, autostart=False, batch_timeout_s=WATCHDOG_S)
+        tickets = DSEClient(svc).submit_burst(reqs)
+        rec.zero("service/hung")
+        svc.start()
+        results = [t.result(timeout=120) for t in tickets]
+        svc.close(timeout=60)
+        deadline = time.perf_counter() + 120
+        while len(calls) < 1 + len(reqs) and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        launches, routes, ref_calls = rec.read()
+        stats = svc.stats()
+        fired = faultinject.fired("service_request_hang")
+    finally:
+        faultinject.reset()
+    groups = [c for c in calls if c[0] == len(reqs)]
+    serial = [c for c in calls if c[0] == 1]
+    check(fired == 1 and stats.degraded_batches == 1
+          and len(groups) == 1 and len(serial) == len(reqs),
+          f"hung service: fired {fired}, degraded "
+          f"{stats.degraded_batches}, calls {[c[0] for c in calls]}")
+    overlap = [s for s in serial
+               if s[1] < groups[0][2] and groups[0][1] < s[2]]
+    check(bool(overlap), "hung service: the abandoned thread never priced "
+          "beside the serial retry")
+    check(launches == 2 * len(reqs) and routes["shared"] == launches
+          and ref_calls == 0,
+          f"hung service: {launches} launches by route {routes}, "
+          f"{ref_calls} plain calls, expected {2 * len(reqs)} on shared")
+    for i, req in enumerate(reqs):
+        want = _direct(device, req)
+        compare(f"hung service/serial/{i}", results[i], want)
+        compare(f"hung service/abandoned/{i}", groups[0][3][i], want)
+    workspaces = sorted(reduce._WORKSPACES)
+    default = (0, torch.cuda.default_stream(0).cuda_stream)
+    check(workspaces == [default], f"hung service: grid_minmax workspaces "
+          f"{workspaces}, expected only the default stream's {default}")
+    return {"launches": launches, "routes": routes,
+            "overlap_s": min(groups[0][2], overlap[0][2])
+            - max(groups[0][1], overlap[0][1]),
+            "workspaces": [list(w) for w in workspaces]}
+
+
+def time_llm_searches(device) -> dict:
+    """Warm LLM searches (tables cached, and each engine run once, by
+    ``drive_llm``), as ``time_searches`` times the ResNet-50 ones but with
+    fewer calls: the search (2 calls), and the search followed by reading
+    its frontier and Pareto set (1 call), by CUDA events, on its torch
+    backend and on the numpy engine; and the device's busy time in one
+    read search from the profiler."""
+    out = {}
+    for label, study_kw, wl_kw, obj in llm_searches():
+        row = {}
+        for backend in (study_kw["backend"], "numpy"):
+            row[f"{backend} search_ms"] = cuda_ms(
+                lambda b=backend: run_search(study_kw, wl_kw, obj, device,
+                                             backend=b),
+                iters=2, warmup=0)
+            row[f"{backend} search+read_ms"] = cuda_ms(
+                lambda b=backend: _search_and_read(study_kw, wl_kw, obj,
+                                                   device, b),
+                iters=1, warmup=0)
+        prof = profile_device_ms(lambda: _search_and_read(
+            study_kw, wl_kw, obj, device, study_kw["backend"]), iters=1)
+        row["device_busy_ms"] = prof["device_ms"]
+        row["idle_share"] = None if prof["device_ms"] is None \
+            else 1.0 - prof["device_ms"] / prof["wall_ms"]
+        out[label] = row
+    return out
+
+
+def llm_slice(device, card, report, rec, results) -> int:
+    """Phases (a)-(d): the LLM searches, refine on the card, the service
+    burst and a hung pricing thread beside its serial retry, and their
+    times.  Returns the ``grid_minmax`` launches they made and the number
+    of kernel cases they held."""
+    t0 = time.perf_counter()
+    llm = drive_llm(device, rec)
+    for label, row in llm["searches"].items():
+        print(f"  LLM search {label}: {row['layers']} layers, "
+              f"{row['candidates']} candidates, {row['launches']} "
+              f"grid_minmax launches {row['routes']}, grid min "
+              f"{row['grid_min']} (tied: {row['tied_at_min']} candidates), "
+              f"max {row['grid_max']} (tied: {row['tied_at_max']}), first "
+              f"search {row['first_search_s']} s")
+    print(f"LLM searches bit-identical to the numpy engine: "
+          f"{llm['parity_checks']} checks passed; grid_minmax == "
+          f"grid_minmax_ref exactly, and the same bits on a second call, on "
+          f"{len(llm['inputs'])} LLM inputs ("
+          + ", ".join(f"{lab} {c['shape']}" for lab, c in
+                      llm["kernel_checks"]["cases"].items()) + ")")
+    grid_best = {label: res.best.cycles for label, res in
+                 list(results.items()) + list(llm["results"].items())
+                 if label.endswith("/cycles") and res.grid is not None}
+    refine = hold_refine(device, rec, grid_best)
+    for label, row in refine.items():
+        print(f"  {label}: equal to refine on the numpy study; best "
+              f"{row['best']} against the grid's {row['grid_best_cycles']} "
+              f"cycles, {row['n_evals']} evaluations of "
+              f"{row['grid_candidates']}, 0 launches, {row['s']} s")
+    service = drive_service(device, rec)
+    print(f"service burst (8 requests from 4 threads, then start): "
+          f"{service['stats']['completed']} answered, bit-identical to "
+          f"direct searches; failed {service['failed']}; dedup hits "
+          f"{service['stats']['dedup_hits']}, coalescing ratio "
+          f"{service['coalescing_ratio']}, {service['launches']} "
+          f"grid_minmax launches (expected {service['expected_launches']}) "
+          f"{service['routes']}")
+    hung = drive_hung_service(device, rec)
+    print(f"hung pricing thread beside its serial retry: {hung['launches']} "
+          f"launches {hung['routes']}, {hung['overlap_s']} s of overlap, "
+          f"every answer bit-identical; workspaces {hung['workspaces']}")
+    times = time_llm_searches(device)
+    for label, row in times.items():
+        print(f"  warm search {label}: " + ", ".join(
+            f"{k} {v}" for k, v in row.items()) + f"  [{card}]")
+    print(f"  service burst: wall {service['wall_s']} s, latency p50 "
+          f"{service['stats']['latency_p50_s']} s, p95 "
+          f"{service['stats']['latency_p95_s']} s over "
+          f"{service['stats']['latency_samples']} requests, coalescing "
+          f"ratio {service['coalescing_ratio']}, batch occupancy "
+          f"{service['batch_occupancy']}, {service['stats']['searches']} "
+          f"searches for {service['stats']['priced_requests']} requests  "
+          f"[{card}]")
+    report["llm"] = {k: llm[k] for k in ("searches", "parity_checks",
+                                         "kernel_checks")}
+    report["refine"] = refine
+    report["service"] = service
+    report["service_hung"] = hung
+    report["llm_search_ms"] = times
+    report["llm_slice_s"] = time.perf_counter() - t0
+    print(f"LLM, refine and service phases: {report['llm_slice_s']} s")
+    llm_launches = sum(row["launches"] for row in llm["searches"].values())
+    return llm_launches + service["launches"] + hung["launches"], \
+        len(llm["kernel_checks"]["cases"])
 
 
 # ---------------------------------------------------------------------------
@@ -2012,7 +2447,9 @@ def main(argv=None) -> int:
           report["sass"]["flash_attention.cu"]["HGMMA"] > 0,
           "flash_attention.cu's library holds no tensor-core MMA")
 
-    results, launches, routes, wall_s, inputs = drive_main_path(device)
+    with Recorder() as rec:
+        results, launches, routes, wall_s, inputs = drive_main_path(device,
+                                                                    rec)
     report["launches"] = launches
     report["routes"] = routes
     report["first_search_s"] = wall_s
@@ -2069,6 +2506,10 @@ def main(argv=None) -> int:
         print(f"  warm search {label}: " + ", ".join(
             f"{k} {v}" for k, v in row.items()) + f"  [{card}]")
 
+    with Recorder() as rec:
+        llm_launches, llm_cases = llm_slice(device, card, report, rec,
+                                            results)
+
     slice_entries = kernel_slice(device, card, report)
     bn_back_entry, train_launches = training_slice(device, card, report)
     for entry in slice_entries:
@@ -2080,8 +2521,8 @@ def main(argv=None) -> int:
         "name": "grid_minmax", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grid_minmax.cu",
         "replaces": "src/repro/kernels/reduce.py:65",
-        "launches": sum(launches.values()),
-        "checks": len(held["cases"]) + 1,
+        "launches": sum(launches.values()) + llm_launches,
+        "checks": len(held["cases"]) + 1 + llm_cases,
         "max_abs_err": held["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,

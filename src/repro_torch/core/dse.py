@@ -52,9 +52,10 @@ scalar calls, and the equivalence is asserted bit-for-bit in
 ``tests/test_dse_equivalence.py``.
 
 The search is front-end-pluggable (``method=...``): the exhaustive grid
-above is the default and the reference.  The JAX package's
-``method="refine"`` local search (its ``core.optimize``) is not yet
-ported; ``Study`` raises for it.
+above is the default and the reference; ``method="refine"`` dispatches to
+the budget-constrained local search in ``core.optimize``, which drives
+the same batched tables off the power-of-two lattice down to arbitrary
+integer splits (see that module's docstring).
 
 Both tables carry, alongside the cycle quantities, the per-layer *energy*
 tensors of Sec. VI — busy cycles, SRAM bits per buffer, DRAM bits — all
@@ -1555,7 +1556,10 @@ class _GridEngine:
 #
 #   * "grid"   — the tensorized exhaustive sweep below (the default and
 #                the reference: bit-identical to ``search_reference``).
-#   * "refine" — the JAX package's local search; not yet ported.
+#   * "refine" — the budget-constrained local search in ``core.optimize``
+#                (seeded multi-start coordinate descent with successive
+#                lattice refinement down to arbitrary integer splits),
+#                registered lazily on first use; it prices on the host.
 # ---------------------------------------------------------------------------
 
 SEARCH_METHODS: Dict[str, object] = {}

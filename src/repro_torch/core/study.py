@@ -14,8 +14,7 @@ each axis of such a study a first-class value:
   * ``Study`` — where the search runs: owns the hardware base, the
     candidate space (lattices, budget tolerance), the energy model, the
     worker pool for parallel table builds, and the front-end registry
-    (``method="grid"`` exhaustive; the ``"refine"`` local search is not
-    yet ported).
+    (``method="grid"`` exhaustive / ``method="refine"`` local search).
 
 One study amortizes everything shareable: all its searches draw from the
 process-lifetime ``ConvTable``/``SimdTable`` caches, and because the
@@ -131,9 +130,10 @@ def _reference_point_cycles(hw_base: HardwareSpec,
 class Workload:
     """What runs on the accelerator: a network, a phase, a batch size.
 
-    ``net`` is either a name in ``repro_torch.core.networks.NETWORKS``
-    or an explicit layer sequence (stored as a tuple); LLM config names
-    are not yet ported and raise ``NotImplementedError``.  ``training=True`` selects the Table I training expansion
+    ``net`` is either a name in ``repro_torch.core.networks.NETWORKS``, an
+    LLM config name (``repro_torch.models.frontends.llm_config_names`` —
+    lowered to a GEMM + SIMD graph), or an explicit layer sequence (stored
+    as a tuple).  ``training=True`` selects the Table I training expansion
     (and, for named CNNs, the BN-bearing graph); ``batch`` defaults to
     the paper's setup for CNNs — 1 for inference, 32 for training
     (Sec. VII-A) — and to 1 for LLM configs (their token count is
@@ -170,8 +170,8 @@ class Workload:
         """The concrete layer list, training-expanded when asked.  Named
         CNNs follow ``simulate``'s conventions: BN layers appear only in
         training graphs (inference graphs are BN-folded).  Names not in
-        the CNN registry raise ``NotImplementedError``: the LLM
-        front-end is not yet ported."""
+        the CNN registry resolve as LLM configs and lower to a GEMM +
+        SIMD graph (``repro_torch.models.frontends.lower_llm``)."""
         if isinstance(self.net, str):
             from .networks import NETWORKS
             if self.net in NETWORKS:
@@ -183,11 +183,16 @@ class Workload:
                     else (32 if self.training else 1)
                 net = NETWORKS[self.net](batch, bn=self.training)
             else:
-                raise NotImplementedError(
-                    f"network {self.net!r} is not in the CNN registry "
-                    f"{sorted(NETWORKS)}; LLM workloads (the JAX "
-                    f"package's models.frontends) are not yet ported to "
-                    f"repro_torch")
+                from ..models.frontends import (llm_config_names,
+                                                lower_llm,
+                                                resolve_llm_config)
+                cfg = resolve_llm_config(self.net)
+                if cfg is None:
+                    raise ValueError(
+                        f"unknown network {self.net!r}; registered CNN "
+                        f"networks: {sorted(NETWORKS)}; LLM configs: "
+                        f"{llm_config_names()}")
+                net = lower_llm(cfg, batch=self.batch or 1, seq=self.seq)
         else:
             net = list(self.net)
         return expand_training_graph(net) if self.training else net
@@ -216,7 +221,7 @@ class SweepRequest:
     objective, and front-end, so heterogeneous queries — different
     networks, budgets, objectives, inference and training — become plain
     values that can be queued, grouped, and deduplicated.  This is the
-    unit the serving subsystem (``repro.serve``) moves around; the
+    unit the serving subsystem (``repro_torch.serve``) moves around; the
     synchronous batch entry is ``Study.search_requests``.
 
     ``objective`` is a registered name or an ``Objective`` instance.
@@ -261,8 +266,8 @@ class Study:
     Every ``search``/``search_many`` call runs over this study's lattice
     (``sizes`` x ``bws``, four coordinates each, filtered to the +-``tol``
     budget band) with its energy model and worker pool; front-ends come
-    from its method registry (``"grid"`` built in, ``register_method``
-    for custom ones).
+    from its method registry (``"grid"`` and ``"refine"`` built in,
+    ``register_method`` for custom ones).
 
     The default ``workers=0`` serial path is the fast path: uncached
     per-size-triple ``ConvTable``s are batch-built through the vectorized
@@ -287,11 +292,12 @@ class Study:
     best/worst through the CUDA grid min/max kernel); ``None`` follows
     ``$REPRO_DSE_BACKEND``.  All backends are pinned bit-identical
     (``repro_torch.core.gridtorch``); front-ends that don't take a
-    ``backend`` parameter (third-party registrations) are called without
-    it.  ``device`` is the torch device of the reductions, forwarded the
-    same way: ``"cuda"`` by default, and construction raises when CUDA is
-    absent — a study runs on the CPU only when asked (``device="cpu"``).
-    The ``"refine"`` front-end is not yet ported and raises.
+    ``backend`` parameter (``"refine"``, whose scalar neighborhoods are
+    priced on the host's numpy tables, and third-party registrations) are
+    called without it.  ``device`` is the torch device of the reductions,
+    forwarded the same way: ``"cuda"`` by default, and construction raises
+    when CUDA is absent — a study runs on the CPU only when asked
+    (``device="cpu"``).
     """
 
     _INHERIT = object()          # store default: follow env/global rules
@@ -336,9 +342,11 @@ class Study:
             else SEARCH_METHODS
         fn = registry.get(method)
         if fn is None and method == "refine":
-            raise NotImplementedError(
-                "method='refine' (the JAX package's core.optimize) is not "
-                "yet ported to repro_torch; use method='grid'")
+            from . import optimize                    # registers itself
+            del optimize
+            fn = SEARCH_METHODS.get(method)
+            if self._methods is not None:
+                self._methods.setdefault(method, fn)
         if fn is None:
             raise ValueError(f"unknown search method {method!r}; "
                              f"registered: {sorted(registry)}")
@@ -419,7 +427,7 @@ class Study:
         ``objective`` may be a registered name (``"cycles"``,
         ``"energy"``, ``"edp"``) or an ``Objective`` instance (e.g.
         ``CyclesUnderPowerCap(cap_w=30.0)``); ``method`` one of this
-        study's front-ends (``"grid"``)."""
+        study's front-ends (``"grid"``/``"refine"``)."""
         wl = as_workload(workload)
         key = wl.label
         return self.search_many({key: wl}, size_budget_kb, bw_budget,
@@ -441,7 +449,7 @@ class Study:
         are column gathers over the union tables with unchanged summation
         order (pinned in tests/test_service.py).
 
-        This is the synchronous coalescing primitive; ``repro.serve``
+        This is the synchronous coalescing primitive; ``repro_torch.serve``
         wraps it with a queue, admission control, deduplication, fault
         isolation, and metrics."""
         requests = [r if isinstance(r, SweepRequest) else SweepRequest(*r)

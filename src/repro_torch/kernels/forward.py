@@ -25,6 +25,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..configs import get_config
 from ..core.layers import ConvLayer, SimdLayer
 from ..core.networks import resnet50
 from . import ops
@@ -47,11 +48,13 @@ class DecoderDims:
     n_layers: int
 
 
-# Qwen3-0.6B (the JAX package's configs/qwen3_0_6b.py): 28 layers,
-# d_model 1024, 16 heads, 8 KV heads, head_dim 128, d_ff 3072, vocabulary
-# 151936, tied embeddings.
-QWEN3_0_6B = DecoderDims(d_model=1024, n_heads=16, n_kv=8, head_dim=128,
-                         d_ff=3072, vocab=151936, n_layers=28)
+# Qwen3-0.6B (configs/qwen3_0_6b.py): 28 layers, d_model 1024, 16 heads,
+# 8 KV heads, head_dim 128, d_ff 3072, vocabulary 151936, tied embeddings.
+_QWEN3 = get_config("qwen3-0.6b")
+QWEN3_0_6B = DecoderDims(d_model=_QWEN3.d_model, n_heads=_QWEN3.n_heads,
+                         n_kv=_QWEN3.n_kv_heads, head_dim=_QWEN3.hd,
+                         d_ff=_QWEN3.d_ff, vocab=_QWEN3.vocab_size,
+                         n_layers=_QWEN3.n_layers)
 
 
 def decoder_param_shapes(dims: DecoderDims,

@@ -190,8 +190,9 @@ def _workspace(index: int, stream: int) -> tuple:
     """``(partials, ticket)`` device addresses of the workspace of
     ``stream`` on device ``index``: one partial for each block of the
     largest grid, then a ticket that the kernel leaves at 0.  Made
-    (zeroed) on the first call on that stream; calls on one stream run
-    in order, so they share it."""
+    (zeroed) once, under a lock, by the first call on that stream from
+    any thread; calls on one stream run in order on the device, whichever
+    thread launched them, so they share it."""
     with _WS_LOCK:
         ws = _WORKSPACES.get((index, stream))
         if ws is None:
@@ -220,9 +221,20 @@ def _grid_minmax_cuda(conv_rows, simd_rows, s3_of, v_of) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("grid_minmax launch failed: "
                            + lib.grid_minmax_error_string(err).decode())
-    grid_minmax.launches += 1
-    grid_minmax.routes[plan.route] += 1
+    _count(plan.route)
     return out
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(route: str) -> None:
+    """Count one launch on ``route``.  Searches may launch from several
+    threads at once (a service's pricing threads), so the read-modify-
+    write of the counters is taken under a lock."""
+    with _COUNT_LOCK:
+        grid_minmax.launches += 1
+        grid_minmax.routes[route] += 1
 
 
 def grid_minmax(conv_rows: torch.Tensor, simd_rows: torch.Tensor,

@@ -60,6 +60,18 @@ def test_port_has_the_training_slice_modules():
     assert (PORT / "kernels" / "csrc" / "bn_backward.cu").is_file()
 
 
+def test_port_has_the_front_end_and_service_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.configs", "repro_torch.models.common",
+            "repro_torch.models.frontends", "repro_torch.core.optimize",
+            "repro_torch.serve", "repro_torch.serve.service",
+            "repro_torch.serve.client", "repro_torch.serve.metrics"} <= mods
+    for arch in ("qwen3_0_6b", "gemma3_27b", "whisper_tiny", "pixtral_12b",
+                 "mamba2_130m", "llama4_maverick", "granite_moe_1b",
+                 "recurrentgemma_9b", "smollm_360m", "stablelm_1_6b"):
+        assert f"repro_torch.configs.{arch}" in mods
+
+
 def test_every_port_module_imports_without_jax_or_repro():
     script = (
         "import importlib, json, sys\n"
@@ -67,6 +79,18 @@ def test_every_port_module_imports_without_jax_or_repro():
         f"mods = {_port_modules()!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
+        # what runs only when called: the LLM lowering, refine, a service
+        "from repro_torch import configs\n"
+        "from repro_torch.core import INFER_PRESETS, Study, Workload\n"
+        "from repro_torch.serve import DSEClient, DSEService\n"
+        "for arch in configs.ARCHS:\n"
+        "    assert Workload(arch, training=True).layers()\n"
+        "study = Study(INFER_PRESETS[16], sizes=(32, 64, 128, 256),\n"
+        "              bws=(8, 16, 32, 64), device='cpu')\n"
+        "wl = Workload('qwen3_0_6b', seq=16)\n"
+        "assert study.search(wl, 512, 64, method='refine').refine\n"
+        "with DSEService(study) as svc:\n"
+        "    DSEClient(svc).query(wl, 512, 64)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or\n"
         "    m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "    m.startswith('repro.'))))\n")

@@ -7,9 +7,11 @@ objectives cycles/energy/EDP, with both torch backends at
 ``device="cpu"``.  Bit-identical, not close: the same best/worst points,
 the same frontiers in the same order, the same Pareto sets, bitwise-equal
 int64 cost grids and float64 score grids.  Also pinned: the port refuses
-to fall back (no CUDA, unknown backend, unported front-ends), and its
-table store never shares a file with the JAX package's.
+to fall back (no CUDA, unknown backend), runs the front-ends it once
+refused (refine, LLM names), and its table store never shares a file
+with the JAX package's.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -173,12 +175,22 @@ def test_default_backend_is_fused_and_unknown_backends_raise(monkeypatch):
 
 
 def test_unported_front_ends_raise():
+    """Once refused, now ported: ``method="refine"`` runs and never does
+    worse than the grid, an LLM name resolves to a GEMM + SIMD graph, and
+    a misspelt name raises ``ValueError`` listing both registries, as the
+    JAX package's ``Workload`` does."""
     study = Study(INFER_PRESETS[16], backend="numpy", device="cpu")
-    with pytest.raises(NotImplementedError, match="refine"):
-        study.search(Workload("resnet50"), BUDGET_KB, BUDGET_BW,
-                     method="refine")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Workload("qwen3_0_6b").layers()
+    wl = Workload("resnet50")
+    grid = study.search(wl, BUDGET_KB, BUDGET_BW)
+    refined = study.search(wl, BUDGET_KB, BUDGET_BW, method="refine")
+    assert refined.refine is not None and refined.archive
+    assert refined.best.cycles <= grid.best.cycles
+    layers = Workload("qwen3_0_6b").layers()
+    assert [dataclasses.astuple(l) for l in layers] == \
+        [dataclasses.astuple(l) for l in RefWorkload("qwen3_0_6b").layers()]
+    with pytest.raises(ValueError, match="unknown network") as err:
+        Workload("qwen3_0_6").layers()
+    assert "resnet50" in str(err.value) and "qwen3_0_6b" in str(err.value)
 
 
 def test_store_never_shares_files_with_reference(tmp_path):
