@@ -113,7 +113,26 @@ From the repository root, on a machine with one CUDA card:
     simulator's figure for a 64x64 array); the step's GEMMs by phase
     (fwd, dX, dW), each timed alone beside ``torch.matmul`` on the same
     operands, with each dW's tile, split and blocks; ``MatmulFn``'s
-    transposed copies.
+    transposed copies;
+16. serves Qwen3-0.6B at full width and depth through the port's model
+    stack (``models/transformer.py::Model`` on ``kernels.ops``,
+    ``launch/serve.py``'s ``make_prefill_step`` and ``make_serve_step``):
+    seeded bf16 weights, batch 4, prompts of 2048 tokens, 32 greedy decode
+    steps, every launch counter set to 0 before the prefill and before
+    each step and read after it (``serve_launches``: 197 ``matmul``, all
+    on `wgmma`, 57 ``fused_add_rmsnorm`` and 28 ``flash_attention`` a
+    prefill; 197, 57 and 0 a step); holds the prefill's last logits and
+    each teacher-forced step's logits against the same ``Model`` composed
+    of the plain versions (worst row's relative error,
+    ``SERVE_BF16_ROW_REL``), the kernel route's teacher-forced argmax
+    equal to its own greedy tokens, and in float32 a prefill plus decode
+    against one forward of the same tokens (``SERVE_F32_ABS``); prints how
+    many greedy tokens the two routes share and both routes' last logits
+    against a float32 plain prefill; times both routes (prefill ms, decode
+    ms a step, tokens/s, one step's device time from the profiler's trace
+    and its idle share); and runs ``serve_loop("qwen3-0.6b",
+    use_reduced=False)`` at its defaults on the card (float32, every GEMM
+    on `mma`, its launches held).
 
 Any failed phase raises and the script exits non-zero.  Without CUDA, or
 without the repository's ``src/`` beside it, it exits non-zero and prints
@@ -2164,11 +2183,12 @@ STEP_KERNELS = (("GEMM", ("::mm_bf16<", "::mm_f32<", "::mm_wgmma<",
                 ("BN fwd", ("bn_forward_kernel",)))
 
 
-def profile_step(step) -> dict:
+def profile_step(step, groups=STEP_KERNELS) -> dict:
     """Device time of one step from the profiler's trace: every kernel,
     copy and set record summed (one stream, so nothing overlaps), split
-    into the port's GEMM and BN kernels (by name) and everything else;
-    the records of each, and the 12 kernels with the most time.  The
+    into the port's kernels by name (``groups``: the GEMM and BN kernels
+    by default) and everything else; the records of each, and the 12
+    kernels with the most time.  The
     trace may drop a few records of the port's kernels, so ``records``
     is to be read against the launches."""
     from torch.profiler import ProfilerActivity, profile
@@ -2183,7 +2203,7 @@ def profile_step(step) -> dict:
         ms = evt.device_time_total / 1e3
         t, n = by_name.get(evt.name, (0.0, 0))
         by_name[evt.name] = (t + ms, n + 1)
-        part = next((p for p, keys in STEP_KERNELS
+        part = next((p for p, keys in groups
                      if any(k in evt.name for k in keys)), "other")
         parts[part] = parts.get(part, 0.0) + ms
         records[part] = records.get(part, 0) + 1
@@ -2401,6 +2421,294 @@ def training_slice(device, card, report):
     return entry, runs[torch.bfloat16]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the serving slice: Qwen3-0.6B through the port's model stack
+# (models/transformer.py, launch/serve.py) at full width and depth
+# ---------------------------------------------------------------------------
+
+SERVE_SEED = 2026
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# The float32 hold: prefill of SERVE_F32_PROMPT tokens, then
+# SERVE_F32_STEPS teacher-forced decode steps, against one forward over
+# all of them; the limit of tests/test_decode.py.
+SERVE_F32_PROMPT, SERVE_F32_STEPS = 256, 16
+SERVE_F32_ABS = 5e-3
+# bf16 logits of the kernel route against the plain route from the same
+# weights and tokens, per row: |got - want| / |want| over the vocabulary;
+# the bf16 tolerance of the tests applied to the row norm, as phase 11
+# holds attention (ATTN_BF16_ROW_REL).
+SERVE_BF16_ROW_REL = 3e-2
+# the serving path's kernels in the profiler's trace, by name
+SERVE_KERNELS = STEP_KERNELS[:1] + (("attention", ("flash_fwd",)),
+                                    ("add+norm", ("addnorm<",)))
+
+
+def serve_launches(n_layers: int, prefill: bool) -> dict:
+    """Kernel launches of one prefill or decode step of an RMSNorm
+    attention model through ``Model``: 7 GEMMs a layer and the LM head;
+    norm1 and norm2 of each layer and the final norm; a flash attention
+    a layer in a prefill only."""
+    return {"matmul": 7 * n_layers + 1,
+            "fused_add_rmsnorm": 2 * n_layers + 1,
+            "flash_attention": n_layers if prefill else 0}
+
+
+def counted(what: str, fn, want: dict, route: str):
+    """``fn()`` with every counter set to 0 just before it and read just
+    after; the launches must equal ``want`` and every GEMM take
+    ``route``.  Returns the result, the launches and the GEMM routes."""
+    zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {name: c.launches for name, c in _counters().items()}
+    for name, n in got.items():
+        check(n == want.get(name, 0), f"{what}: {name} launched {n} times, "
+              f"expected {want.get(name, 0)}")
+    routes = dict(_routes())
+    check(routes[route] == want["matmul"], f"{what}: matmul routes "
+          f"{routes}, expected all {want['matmul']} on {route}")
+    return out, got, routes
+
+
+def row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Worst row's |got - want| / |want| (rows: the last axis)."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+def greedy(prefill, step, params, prompts, steps: int, count=None):
+    """Tokens (B, 1 + steps) of a prefill and ``steps`` serve steps, and
+    the launches of the prefill and of each step when ``count`` gives
+    ``(label, n_layers, route)``."""
+    def run_prefill():
+        return prefill(params, {"tokens": prompts})
+    if count:
+        label, n, route = count
+        (last, cache), pre, _ = counted(f"{label} prefill", run_prefill,
+                                        serve_launches(n, True), route)
+    else:
+        last, cache = run_prefill()
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    out, per_step = [tok], []
+    for i in range(steps):
+        if count:
+            (nxt, cache), got, _ = counted(
+                f"{label} decode step {i}", lambda: step(params, cache, tok),
+                serve_launches(n, False), route)
+            per_step.append(got)
+        else:
+            nxt, cache = step(params, cache, tok)
+        tok = nxt[:, None]
+        out.append(tok)
+    launches = None
+    if count:
+        launches = {name: pre[name] + sum(s[name] for s in per_step)
+                    for name in pre}
+    return torch.cat(out, dim=1), launches
+
+
+def teacher_forced(model, params, prompts, tokens, max_len):
+    """Last-position logits of a prefill of ``prompts``, then of a decode
+    step on each of ``tokens`` (B, T) in turn."""
+    last, cache = model.prefill(params, prompts, max_len)
+    logits = [last]
+    for i in range(tokens.shape[1]):
+        lg, cache = model.decode_step(params, tokens[:, i:i + 1], cache)
+        logits.append(lg)
+    return logits
+
+
+def time_route(prefill, step, params, prompts, steps: int) -> dict:
+    """Warm times of one route: prefill ms (events, a fresh cache each),
+    decode ms a step and tokens/s over ``steps`` greedy steps (events
+    around the host loop), and the device time of a prefill and of a
+    decode step from the profiler's trace, hence their busy and idle
+    shares."""
+    batch = {"tokens": prompts}
+    prefill_ms = cuda_ms(lambda: prefill(params, batch), iters=3,
+                         warmup=1)
+    pprof = profile_device_ms(lambda: prefill(params, batch), iters=2)
+    pbusy = None if pprof["device_ms"] is None else \
+        pprof["device_ms"] / prefill_ms
+    last, cache = prefill(params, batch)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        nxt, cache = step(params, cache, tok)
+        tok = nxt[:, None]
+    stop.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(stop) / steps
+    # the trace of 4 more steps (and 1 before it) on a fresh prefill's cache
+    _, cache = prefill(params, batch)
+    prof = profile_device_ms(lambda: step(params, cache, tok), iters=4)
+    busy = None if prof["device_ms"] is None else prof["device_ms"] / step_ms
+    return {"prefill_ms": prefill_ms, "prefill_device_ms": pprof["device_ms"],
+            "prefill_idle": None if pbusy is None else 1.0 - pbusy,
+            "decode_ms_per_step": step_ms,
+            "tokens_per_s": prompts.shape[0] * 1e3 / step_ms,
+            "decode_device_ms": prof["device_ms"],
+            "decode_trace_records": prof["records"],
+            "decode_busy": busy,
+            "decode_idle": None if busy is None else 1.0 - busy}
+
+
+def serving_slice(device, card, report) -> dict:
+    """Phase 16: serve Qwen3-0.6B at full width and depth through
+    ``make_prefill_step``/``make_serve_step`` on the kernels, hold it
+    against the plain route and a float32 forward, time both routes, and
+    run ``serve_loop`` at its defaults on the card.  Returns the
+    main-path launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import forward as F
+    from repro_torch.launch import serve
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Model
+    cfg = get_config("qwen3-0.6b")
+    n = cfg.n_layers
+    model, plain = Model(cfg), Model(cfg, impl=F.PLAIN)
+    params = model.init(torch.Generator(device=device)
+                        .manual_seed(SERVE_SEED))
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            device=device, generator=torch.Generator(
+                                device=device).manual_seed(SERVE_SEED + 1))
+    max_len = SERVE_PROMPT + SERVE_GEN + 8
+    steps = {name: (serve.make_prefill_step(m, None, max_len),
+                    serve.make_serve_step(m, None))
+             for name, m in (("kernels", model), ("plain", plain))}
+    out = {"config": f"qwen3-0.6b, {n} layers, bf16, batch {SERVE_BATCH}, "
+                     f"prompt {SERVE_PROMPT}, {SERVE_GEN} decode steps",
+           "params": model.n_params()}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens, launches = greedy(*steps["kernels"], params, prompts, SERVE_GEN,
+                              count=("qwen3 bf16", n, "wgmma"))
+    out["first_run_s"] = time.perf_counter() - t0
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = launches
+    out["launches_per_prefill"] = serve_launches(n, True)
+    out["launches_per_decode_step"] = serve_launches(n, False)
+    check(tokens.shape == (SERVE_BATCH, SERVE_GEN + 1) and
+          bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"greedy tokens {tuple(tokens.shape)} misshapen or out of range")
+    print(f"serving Qwen3-0.6B ({out['params']} parameters, bf16, batch "
+          f"{SERVE_BATCH} x {SERVE_PROMPT} prompt tokens, {SERVE_GEN} "
+          f"greedy steps) through make_prefill_step/make_serve_step: "
+          f"launches a prefill {out['launches_per_prefill']} and a decode "
+          f"step {out['launches_per_decode_step']}, every GEMM on wgmma, "
+          f"held on the prefill and each of the {SERVE_GEN} steps; first "
+          f"run {out['first_run_s']} s, peak memory "
+          f"{out['peak_memory_gb']} GB  [{card}]")
+
+    # the kernel route against the plain route, teacher-forced on the
+    # kernel route's greedy tokens, from the same weights
+    feed = tokens[:, :-1]
+    got = teacher_forced(model, params, prompts, feed, max_len)
+    want = teacher_forced(plain, params, prompts, feed, max_len)
+    rels = [row_rel(g, w) for g, w in zip(got, want)]
+    out["bf16_row_rel_prefill"] = rels[0]
+    out["bf16_row_rel_decode_max"] = max(rels[1:])
+    for i, r in enumerate(rels):
+        check(r <= SERVE_BF16_ROW_REL, f"bf16 serving logits at step {i} "
+              f"(0: the prefill) off the plain route by {r} (worst row, "
+              f"relative), above {SERVE_BF16_ROW_REL}")
+    forced = torch.stack([g.argmax(-1) for g in got[:-1]], dim=1)
+    out["teacher_forced_equal_greedy"] = int((forced == tokens[:, :-1])
+                                             .sum())
+    check(out["teacher_forced_equal_greedy"] == tokens[:, :-1].numel(),
+          "the kernel route's teacher-forced argmax differs from its own "
+          "greedy tokens: the route is not deterministic")
+    plain_tokens, _ = greedy(*steps["plain"], params, prompts, SERVE_GEN)
+    out["greedy_agree"] = int((plain_tokens == tokens).sum())
+    out["greedy_total"] = tokens.numel()
+    # bf16 itself: both routes against a float32 plain prefill from the
+    # same (bf16) weights
+    p32 = tree_map(lambda t: t.float(), params)
+    last32, _ = Model(cfg.replace(dtype=torch.float32), impl=F.PLAIN) \
+        .prefill(p32, prompts, max_len)
+    out["bf16_vs_f32_row_rel"] = {"kernels": row_rel(got[0], last32),
+                                  "plain": row_rel(want[0], last32)}
+    del got, want, last32
+    print(f"  bf16 logits against the plain route (worst row, relative; "
+          f"limit {SERVE_BF16_ROW_REL}): prefill {rels[0]}, decode steps "
+          f"max {out['bf16_row_rel_decode_max']}; teacher-forced argmax "
+          f"equal to the greedy tokens {out['teacher_forced_equal_greedy']}"
+          f" of {feed.numel()}; greedy tokens of the two routes agree "
+          f"{out['greedy_agree']} of {out['greedy_total']}; last prefill "
+          f"logits against a float32 plain prefill: "
+          f"{out['bf16_vs_f32_row_rel']}")
+
+    # float32: prefill + decode against one forward of the same tokens
+    m32 = Model(cfg.replace(dtype=torch.float32))
+    total = SERVE_F32_PROMPT + SERVE_F32_STEPS
+    ids = prompts[:, :total]
+    with torch.inference_mode():
+        full, _, _ = m32.forward(p32, ids)
+    got32 = teacher_forced(m32, p32, ids[:, :SERVE_F32_PROMPT],
+                           ids[:, SERVE_F32_PROMPT:], total + 8)
+    errs = [float((g - full[:, SERVE_F32_PROMPT - 1 + i]).abs().max())
+            for i, g in enumerate(got32)]
+    out["f32_prefill_decode_vs_forward_max_abs"] = max(errs)
+    out["f32_logits_max_abs"] = float(full.abs().max())
+    check(max(errs) <= SERVE_F32_ABS, f"f32 prefill + decode off the "
+          f"forward by {max(errs)}, above {SERVE_F32_ABS}")
+    del full, got32, p32
+    print(f"  float32, all {n} layers: prefill of {SERVE_F32_PROMPT} + "
+          f"{SERVE_F32_STEPS} decode steps against one forward, max abs "
+          f"err {max(errs)} (limit {SERVE_F32_ABS}; logits reach "
+          f"{out['f32_logits_max_abs']})")
+
+    out["times"] = {name: time_route(*steps[name], params, prompts,
+                                     SERVE_GEN) for name in steps}
+    for name, t in out["times"].items():
+        print(f"  {name} route: prefill {t['prefill_ms']} ms (device "
+              f"{t['prefill_device_ms']} ms, idle {t['prefill_idle']}); decode "
+              f"{t['decode_ms_per_step']} ms a step ({t['tokens_per_s']} "
+              f"tokens/s); one step's device time {t['decode_device_ms']} "
+              f"ms ({t['decode_trace_records']} records of 4 steps), busy "
+              f"{t['decode_busy']}, idle {t['decode_idle']}  [{card}]")
+
+    # where a kernel-route prefill and decode step spend the device's time
+    pre, step = steps["kernels"]
+    batch = {"tokens": prompts}
+    last, cache = pre(params, batch)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    out["trace"] = {"prefill": profile_step(lambda: pre(params, batch),
+                                            SERVE_KERNELS),
+                    "decode step": profile_step(
+                        lambda: step(params, cache, tok), SERVE_KERNELS)}
+    del last, cache
+    for name, t in out["trace"].items():
+        print(f"  kernels route, one {name} in the profiler's trace: device "
+              f"{t['device_ms']} ms, by part {t['parts_ms']} ms, records "
+              f"{t['records']}  [{card}]")
+        for kname, ms, count in t["top"][:6]:
+            print(f"    {kname[:70]}: {ms} ms, {count} records")
+
+    # the reference's demo at its defaults, full size, on the card
+    logs = []
+    (res, loop_launches, routes) = counted(
+        "serve_loop", lambda: serve.serve_loop(
+            "qwen3-0.6b", use_reduced=False, device=device,
+            log=logs.append),
+        {name: k + 15 * serve_launches(n, False)[name]
+         for name, k in serve_launches(n, True).items()}, "mma")
+    check(res["generated"].shape == (4, 16) and
+          ((res["generated"] >= 0) & (res["generated"] < cfg.vocab_size))
+          .all(), f"serve_loop tokens {res['generated'].shape}")
+    out["serve_loop"] = {"elapsed_s": res["elapsed_s"], "log": logs[0],
+                         "launches": loop_launches}
+    print(f"  serve_loop('qwen3-0.6b', use_reduced=False) at its defaults "
+          f"(batch 4, prompt 16, 16 tokens, float32): {logs[0]}; "
+          f"launches {loop_launches}, every GEMM on mma  [{card}]")
+    report["serving"] = out
+    return {name: launches[name] + loop_launches[name] for name in launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -2512,8 +2820,10 @@ def main(argv=None) -> int:
 
     slice_entries = kernel_slice(device, card, report)
     bn_back_entry, train_launches = training_slice(device, card, report)
+    serving = serving_slice(device, card, report)
     for entry in slice_entries:
-        entry["launches"] += train_launches[entry["name"]]
+        entry["launches"] += train_launches[entry["name"]] + \
+            serving.get(entry["name"], 0)
 
     main_label = "lattice128/training/cycles"
     t = timing[main_label]

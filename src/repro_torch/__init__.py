@@ -6,5 +6,7 @@ model (``core``) is numpy, its grid reductions run in torch on a CUDA
 device (``core.gridtorch``), and its hot cycles reduction goes through a
 hand-written CUDA kernel (``kernels.reduce``).  The kernel entry point
 ``kernels.ops`` runs the GEMM, fused add+RMSNorm, BN forward and flash
-attention kernels.  Nothing here imports jax or the ``repro`` package.
+attention kernels; the model stack (``models``) and its serving loop
+(``launch.serve``) run the attention LLMs on them.  Nothing here imports
+jax or the ``repro`` package.
 """

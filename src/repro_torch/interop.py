@@ -6,6 +6,10 @@ package and to the port.  ``np.asarray`` of a JAX bfloat16 array has the
 ``torch.from_numpy`` refuses.  Such arrays cross through a 16-bit integer
 view of the same bits, so nothing is rounded on the way.  The dtype is
 recognised by its name: this module imports neither jax nor ml_dtypes.
+
+``params_from_numpy`` carries a whole tree the same way: the JAX
+package's parameters or KV cache, taken to numpy leaf by leaf, become the
+port's tree with the same keys and bits.
 """
 from __future__ import annotations
 
@@ -37,3 +41,11 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype(_BF16))
     return t.numpy()
+
+
+def params_from_numpy(tree, device) -> dict:
+    """A tree of nested dicts of numpy arrays (a parameter tree or a
+    cache) as the same tree of tensors on ``device``, bit for bit."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return from_numpy(np.asarray(tree), device)

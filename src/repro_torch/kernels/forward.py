@@ -7,7 +7,8 @@
   a SwiGLU MLP (gate, up, down); then a final fused add + RMSNorm and the
   tied LM head.  That is 5 GEMMs, 2 add+norms and 1 attention a layer,
   plus 1 GEMM and 1 add+norm.  Rotary embeddings and the q/k norms of
-  Qwen3 are not applied: they run no kernel of this slice.
+  Qwen3 are not applied: they run no kernel.  The whole model, on the
+  same kernels, is ``models.transformer.Model``.
 * ResNet-50's training forward as the kernels see it (``resnet50_calls``):
   each of its 53 BN layers is a ``bn_forward`` over (h*w*n, c), and each
   of its 54 convolutions (the FC layer included) a GEMM with M = n*oh*ow,

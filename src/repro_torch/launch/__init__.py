@@ -1,0 +1,2 @@
+"""Entry points of the port's model stack: ``serve`` (prefill and batched
+greedy decode)."""

@@ -1,17 +1,24 @@
-"""Model-stack foundations of the port: the model configuration.
+"""Model-stack foundations of the port: config, parameter declaration.
 
 ``ModelConfig`` is the port's own copy of the JAX package's
 (``models/common.py``): the same fields and defaults, except that
-``dtype`` defaults to ``torch.bfloat16``.  The cost-model lowering
-(``models.frontends.lower_llm``) reads its shapes; the parameter
-declarations and sharding rules beside it in the JAX package belong to
-the model stack, which the port does not have yet.
+``dtype`` defaults to ``torch.bfloat16``.  Parameters are declared once
+as ``ParamDef`` trees (shape + logical axes + initializer), nested dicts
+with the JAX package's keys; the same tree materializes to
+  * initialized tensors           (``init_params``)
+  * ``TensorSpec``s               (``abstract_params``)
+  * a count of parameters         (``param_count``)
+
+Sharding is not ported: ``rules`` stays in the signatures and must be
+``None`` (``check_rules``); ``shard`` is then the identity.  The logical
+axes of a ``ParamDef`` are kept for the day it is.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -96,3 +103,87 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules (not ported)
+# ---------------------------------------------------------------------------
+
+Rules = Dict[str, Any]   # logical axis -> mesh axis (str | tuple | None)
+
+
+def check_rules(rules: Optional[Rules]) -> None:
+    """Raise unless ``rules`` is ``None``: the port runs on one device."""
+    if rules is not None:
+        raise NotImplementedError(
+            "sharding rules are not ported: pass rules=None (ROADMAP "
+            "Queue 1 item 9, the JAX package's models/common.py:116-207)")
+
+
+def shard(x: torch.Tensor, rules: Optional[Rules], *axes: Optional[str]):
+    """The identity; ``rules`` must be ``None`` (``check_rules``)."""
+    check_rules(rules)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Parameter declaration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"          # normal | zeros | ones
+    scale: float = 1.0            # stddev multiplier for 'normal'
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamDef: shape {self.shape} and axes "
+                             f"{self.axes} differ in rank")
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape and type, without its storage."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of nested dicts, keys in sorted
+    order (the order in which ``jax.tree_util`` flattens a dict)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def init_params(generator: torch.Generator, defs,
+                dtype=torch.bfloat16) -> Dict:
+    """Tensors for a ``ParamDef`` tree on ``generator``'s device: normal
+    leaves drawn in float32 with std ``scale / sqrt(fan_in)``, ``fan_in =
+    shape[-2]`` (``shape[-1]`` for a vector), then cast to ``dtype``.
+    The draws differ from the JAX package's (another generator)."""
+    device = generator.device
+
+    def make(d: ParamDef) -> torch.Tensor:
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dtype, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dtype, device=device)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale / math.sqrt(max(1, fan_in))
+        return (torch.randn(d.shape, generator=generator, device=device,
+                            dtype=torch.float32) * std).to(dtype)
+    return tree_map(make, defs)
+
+
+def abstract_params(defs, dtype=torch.bfloat16) -> Dict:
+    return tree_map(lambda d: TensorSpec(tuple(d.shape), dtype), defs)
+
+
+def param_count(defs) -> int:
+    """Parameters a ``ParamDef`` tree declares."""
+    leaves = []
+    tree_map(leaves.append, defs)
+    return sum(math.prod(d.shape) for d in leaves)

@@ -11,23 +11,58 @@ resolves through ``resolve_llm_config``, so every downstream feature
 (objectives, refine, Pareto, phase attribution, store, backends) prices
 LLM serving and training.
 
-This is the port's own copy of the lowering half of the JAX package's
-``models/frontends.py``, the same layer for layer.  The input stubs
-beside it there (``frontend_input_specs``, ``synth_frontend_inputs``)
-build arrays for the model stack, which the port does not have yet.
+Stubs (the ``[audio]``/``[vlm]`` entries specify the transformer backbone
+only): whisper-tiny consumes precomputed frame embeddings (batch,
+encoder_seq, d_model) in place of its conv1d mel frontend; pixtral-12b
+consumes precomputed patch embeddings (batch, n_patches, d_model)
+prepended to the token stream (early fusion).
+``frontend_input_specs`` gives their shapes, ``synth_frontend_inputs``
+synthetic values for the model stack.
+
+This is the port's own copy of the JAX package's ``models/frontends.py``,
+the lowering the same layer for layer.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Union
+
+import torch
 
 from ..core import layers as L
 from ..core.layers import GemmLayer, SimdLayer, gemm
-from .common import ModelConfig
+from .common import ModelConfig, TensorSpec
 
 LLM_SEQ_DEFAULT = 512
 
 LlmLayer = Union[GemmLayer, SimdLayer]
+
+
+def frontend_input_specs(cfg: ModelConfig, batch: int) -> Dict:
+    """Extra abstract inputs the stubbed frontends inject."""
+    out: Dict[str, TensorSpec] = {}
+    if cfg.encoder_layers > 0:
+        out["frames"] = TensorSpec((batch, cfg.encoder_seq, cfg.d_model),
+                                   cfg.dtype)
+    if cfg.n_patches > 0:
+        out["patches"] = TensorSpec((batch, cfg.n_patches, cfg.d_model),
+                                    cfg.dtype)
+    return out
+
+
+def synth_frontend_inputs(cfg: ModelConfig, batch: int,
+                          generator: Optional[torch.Generator] = None,
+                          device="cuda") -> Dict:
+    """Concrete synthetic embeddings (normal, std 0.02, in ``cfg.dtype``)
+    on ``device``; ``generator`` defaults to seed 0 there.  The values
+    differ from the JAX package's (another generator)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    out: Dict[str, torch.Tensor] = {}
+    for name, spec in frontend_input_specs(cfg, batch).items():
+        out[name] = torch.randn(spec.shape, generator=generator,
+                                device=device, dtype=cfg.dtype) * 0.02
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,395 @@
+"""Unified model: attention mixers with dense FFNs assembled into layer
+stacks -- the serving path of the JAX package's ``models/transformer.py``
+for its attention architectures (qwen3, smollm, stablelm, gemma3,
+pixtral, whisper).
+
+Layer stacking follows the JAX package: the layer list is ``cfg.pattern``
+repeated; each *pattern position* ``gi`` is a homogeneous stack whose
+parameters (``params['blk<gi>']``) carry a leading ``(groups,)`` axis, and
+the remainder ``n_layers % len(pattern)`` layers (``rem<j>``) are
+unrolled.  Where the JAX package scans the groups, this module loops over
+the stacked slices in Python; remat does not apply to serving.
+
+Caches mirror the parameter structure: ``cache['blk<i>']`` holds the
+stacked per-layer KV buffer and position (``pos``: shape ``(groups,)``),
+``cache['rem<j>']`` the unrolled remainder's, ``cache['blk<i>']['_cross']``
+the encoder KV of enc-dec models.  They are updated in place.
+
+Kernel routing (``impl``, ``kernels.ops`` by default; ``kernels.forward.
+PLAIN`` gives the same model composed of the plain versions): every
+product of activations with a weight goes through ``impl.matmul``, the
+self-attention of a prefill through ``impl.flash_attention``
+(``attention.attention``), and for ``norm_type == "rmsnorm"`` every
+residual add followed by an RMSNorm through ``impl.fused_add_rmsnorm`` --
+each block's norm2, the next block's norm1 and the final norm.  A block
+therefore hands its last residual (``pending``) to the next norm instead
+of adding it itself; the first norm1 adds a zero residual.  LayerNorm
+configs add and normalize in plain PyTorch.
+
+Mamba2 and RG-LRU mixers and MoE FFNs are not ported: a config that uses
+one raises ``NotImplementedError`` (ROADMAP Queue 1 item 5).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..kernels import ops
+from . import attention as ATT
+from .common import (ModelConfig, ParamDef, Rules, TensorSpec,
+                     abstract_params, check_rules, init_params, param_count)
+from .layers import (apply_mlp, apply_norm, embed_defs, embed_tokens,
+                     linear, lm_logits, mlp_defs, norm_defs)
+
+_UNPORTED = {"mamba2": "the Mamba2 mixer (models/ssm.py)",
+             "rglru": "the RG-LRU mixer (models/rglru.py)",
+             "moe": "the MoE FFN (models/moe.py)"}
+
+
+def _mixer_kind(entry: str) -> str:
+    return entry.split("+")[0]
+
+
+def _is_moe(entry: str) -> bool:
+    return entry.endswith("+moe")
+
+
+def _check_entry(entry: str) -> None:
+    """Raise ``NotImplementedError`` for a pattern entry this port cannot
+    run, ``ValueError`` for one the JAX package does not know either."""
+    kind = _mixer_kind(entry)
+    for part in (kind, "moe" if _is_moe(entry) else None):
+        if part in _UNPORTED:
+            raise NotImplementedError(
+                f"{_UNPORTED[part]} is not ported yet (block entry "
+                f"{entry!r}): ROADMAP Queue 1 item 5")
+    if kind != "attn":
+        raise ValueError(kind)
+
+
+def _block_defs(cfg: ModelConfig, entry: str, lead: Tuple[int, ...],
+                cross: bool) -> Dict:
+    _check_entry(entry)
+    defs: Dict[str, Any] = {"norm1": norm_defs(cfg, cfg.d_model, lead),
+                            "attn": ATT.attn_defs(cfg, lead)}
+    if cross:
+        defs["xnorm"] = norm_defs(cfg, cfg.d_model, lead)
+        defs["xattn"] = ATT.attn_defs(cfg, lead, cross=True)
+    if cfg.d_ff > 0:
+        defs["norm2"] = norm_defs(cfg, cfg.d_model, lead)
+        defs["mlp"] = mlp_defs(cfg, lead)
+    return defs
+
+
+def add_norm(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+             delta: Optional[torch.Tensor], impl=ops
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(norm(x + delta), x + delta)``; ``delta`` None adds nothing.
+
+    RMSNorm goes through ``impl.fused_add_rmsnorm`` (a zero residual when
+    ``delta`` is None).  In bfloat16 it normalizes the unrounded float32
+    sum, where the JAX package rounds ``x + delta`` to bfloat16 first and
+    normalizes that; the sum it returns is rounded once, as there.  In
+    float32 the two are the same function."""
+    if cfg.norm_type != "rmsnorm":
+        x = x if delta is None else x + delta
+        return apply_norm(cfg, p, x), x
+    delta = torch.zeros_like(x) if delta is None else delta
+    rows = (-1, x.shape[-1])
+    h, s = impl.fused_add_rmsnorm(delta.reshape(rows).contiguous(),
+                                  x.reshape(rows).contiguous(), p["scale"])
+    return h.reshape(x.shape), s.reshape(x.shape)
+
+
+def _apply_block(cfg: ModelConfig, entry: str, p: Dict, x: torch.Tensor,
+                 rules: Optional[Rules], *,
+                 pending: Optional[torch.Tensor] = None,
+                 window=None, cache: Optional[Dict] = None,
+                 enc_out: Optional[torch.Tensor] = None,
+                 causal: Optional[bool] = None, impl=ops,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """One block on the residual stream ``x + pending``.  Returns ``(x,
+    pending, cache)``: the stream is again ``x + pending``, the block's
+    last residual not yet added (``add_norm`` of the next norm adds it)."""
+    _check_entry(entry)
+    # the cached cross-attention KV is read-only; the rest is the mixer's
+    cross_kv = None if cache is None else cache.get("_cross")
+    h, x = add_norm(cfg, p["norm1"], x, pending, impl)
+    mix, cache = ATT.attention(cfg, p["attn"], h, rules, cache=cache,
+                               window=window, causal=causal, impl=impl)
+    pending = mix
+    if "xattn" in p:
+        hx, x = add_norm(cfg, p["xnorm"], x, pending, impl)
+        if cross_kv is not None:
+            pending = ATT.attend_precomputed(cfg, p["xattn"], hx,
+                                             cross_kv["k"], cross_kv["v"],
+                                             rules, impl=impl)
+        else:
+            pending, _ = ATT.attention(cfg, p["xattn"], hx, rules,
+                                       kv_x=enc_out, causal=False,
+                                       impl=impl)
+    if cfg.d_ff > 0:
+        h2, x = add_norm(cfg, p["norm2"], x, pending, impl)
+        pending = apply_mlp(cfg, p["mlp"], h2, rules, impl)
+    return x, pending, cache
+
+
+def _index(tree, i: int):
+    """Slice ``i`` of the leading axis of every leaf (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    impl: Any = field(default=ops, compare=False)
+    # the tied head's contiguous (d, vocab) copy: (embedding, version, copy)
+    _tied: Dict = field(default_factory=dict, init=False, compare=False,
+                        repr=False)
+
+    def __post_init__(self):
+        for entry in self.pat:
+            _check_entry(entry)
+
+    # ---- structure ---------------------------------------------------------
+    @property
+    def pat(self) -> Tuple[str, ...]:
+        return self.cfg.pattern
+
+    @property
+    def groups(self) -> int:
+        return self.cfg.n_layers // len(self.pat)
+
+    @property
+    def remainder(self) -> int:
+        return self.cfg.n_layers % len(self.pat)
+
+    def _windows(self) -> List[int]:
+        """Per-layer window sizes from cfg.attn_pattern (0 = full)."""
+        cfg = self.cfg
+        pat = cfg.attn_pattern or ("global",)
+        return [cfg.window if pat[i % len(pat)] == "local" else 0
+                for i in range(cfg.n_layers)]
+
+    # ---- params ------------------------------------------------------------
+    def param_defs(self) -> Dict:
+        cfg = self.cfg
+        cross = cfg.encoder_layers > 0
+        defs: Dict[str, Any] = {"embed": embed_defs(cfg)}
+        if cfg.learned_pos:
+            defs["pos_emb"] = ParamDef((cfg.learned_pos, cfg.d_model),
+                                       ("pos", "embed"))
+        for gi, entry in enumerate(self.pat):
+            if self.groups > 0:
+                defs[f"blk{gi}"] = _block_defs(cfg, entry, (self.groups,),
+                                               cross)
+        for j in range(self.remainder):
+            defs[f"rem{j}"] = _block_defs(cfg, self.pat[j], (), cross)
+        defs["final_norm"] = norm_defs(cfg, cfg.d_model)
+        if cross:
+            defs["enc"] = {
+                "blk": _block_defs(cfg, "attn", (cfg.encoder_layers,), False),
+                "norm": norm_defs(cfg, cfg.d_model),
+                "pos_emb": ParamDef((cfg.encoder_seq, cfg.d_model),
+                                    ("pos", "embed")),
+            }
+        return defs
+
+    def init(self, generator: torch.Generator) -> Dict:
+        """Random parameters on ``generator``'s device."""
+        return init_params(generator, self.param_defs(), self.cfg.dtype)
+
+    def abstract(self) -> Dict:
+        return abstract_params(self.param_defs(), self.cfg.dtype)
+
+    def n_params(self) -> int:
+        return param_count(self.param_defs())
+
+    def head(self, params: Dict) -> torch.Tensor:
+        """The LM head as a contiguous (d, vocab) tensor: ``head``, or the
+        tied embedding's transpose, copied once for each embedding tensor
+        (and again after an in-place update of it)."""
+        emb = params["embed"]
+        if "head" in emb:
+            return emb["head"]
+        table = emb["embedding"]
+        version = None if table.is_inference() else table._version
+        kept = self._tied.get("head")
+        if kept is None or kept[0] is not table or kept[1] != version:
+            kept = (table, version, table.t().contiguous())
+            self._tied["head"] = kept
+        return kept[2]
+
+    # ---- encoder (enc-dec only) ---------------------------------------------
+    def encode(self, params: Dict, frames: torch.Tensor,
+               rules: Optional[Rules]) -> torch.Tensor:
+        cfg = self.cfg
+        x = frames.to(cfg.dtype)
+        x = x + params["enc"]["pos_emb"][:x.shape[1]].to(cfg.dtype)
+        blk = params["enc"]["blk"]
+        pending = None
+        for i in range(cfg.encoder_layers):
+            x, pending, _ = _apply_block(cfg, "attn", _index(blk, i), x,
+                                         rules, pending=pending,
+                                         causal=False, impl=self.impl)
+        return add_norm(cfg, params["enc"]["norm"], x, pending,
+                        self.impl)[0]
+
+    # ---- main stacks ---------------------------------------------------------
+    def _run_stack(self, params: Dict, x: torch.Tensor,
+                   rules: Optional[Rules], cache: Optional[Dict],
+                   enc_out: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                              Optional[Dict]]:
+        """The layers on ``x``; returns ``(x, pending, cache)`` (the
+        stream is ``x + pending``)."""
+        cfg = self.cfg
+        wins = self._windows()
+        plen = len(self.pat)
+        pending = None
+        for g in range(self.groups):
+            for gi, entry in enumerate(self.pat):
+                csl = None if cache is None else _index(cache[f"blk{gi}"], g)
+                x, pending, _ = _apply_block(
+                    cfg, entry, _index(params[f"blk{gi}"], g), x, rules,
+                    pending=pending, window=wins[g * plen + gi], cache=csl,
+                    enc_out=enc_out, impl=self.impl)
+        base = self.groups * plen
+        for j in range(self.remainder):
+            csl = None if cache is None else cache[f"rem{j}"]
+            x, pending, _ = _apply_block(
+                cfg, self.pat[j], params[f"rem{j}"], x, rules,
+                pending=pending, window=wins[base + j], cache=csl,
+                enc_out=enc_out, impl=self.impl)
+        return x, pending, cache
+
+    # ---- forward -------------------------------------------------------------
+    def forward(self, params: Dict, tokens: torch.Tensor,
+                rules: Optional[Rules] = None,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None,
+                cache: Optional[Dict] = None,
+                ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+        """Returns (logits_f32, cache, moe_aux_loss); ``cache`` is
+        updated in place."""
+        check_rules(rules)
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens, rules, cfg.dtype)
+        if patches is not None:
+            x = torch.cat([patches.to(cfg.dtype), x], dim=1)
+        if cfg.learned_pos:
+            off = cache["pos_offset"] if (cache is not None
+                                          and "pos_offset" in cache) else 0
+            pos = off + torch.arange(x.shape[1], device=x.device)
+            x = x + params["pos_emb"][pos].to(cfg.dtype)
+
+        enc_out = None
+        if cfg.encoder_layers > 0 and frames is not None:
+            enc_out = self.encode(params, frames, rules)
+
+        x, pending, cache = self._run_stack(params, x, rules, cache, enc_out)
+        if cache is not None and "pos_offset" in cache:
+            cache["pos_offset"].add_(x.shape[1])
+        x, _ = add_norm(cfg, params["final_norm"], x, pending, self.impl)
+        logits = lm_logits(params["embed"], x, rules, self.impl,
+                           head=self.head(params))
+        return logits, cache, torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
+
+    # ---- caches -----------------------------------------------------------------
+    def _cache_entry(self, entry: str, lead: Tuple[int, ...], batch: int,
+                     max_len: int, abstract: bool, device) -> Dict:
+        cfg = self.cfg
+        _check_entry(entry)
+        mk = TensorSpec if abstract else (
+            lambda s, d: torch.zeros(s, dtype=d, device=device))
+        kv, hd = cfg.n_kv_heads, cfg.hd
+        cdt = cfg.cache_dtype or cfg.dtype
+        c = {"k": mk(lead + (batch, max_len, kv, hd), cdt),
+             "v": mk(lead + (batch, max_len, kv, hd), cdt),
+             "pos": mk(lead, torch.int32)}
+        if cdt == torch.int8:
+            c["k_scale"] = mk(lead + (batch, max_len, kv), torch.float32)
+            c["v_scale"] = mk(lead + (batch, max_len, kv), torch.float32)
+        if cfg.encoder_layers > 0:
+            c["_cross"] = {
+                "k": mk(lead + (batch, cfg.encoder_seq, kv, hd), cfg.dtype),
+                "v": mk(lead + (batch, cfg.encoder_seq, kv, hd), cfg.dtype)}
+        return c
+
+    def make_cache(self, batch: int, max_len: int, abstract: bool = False,
+                   device="cuda") -> Dict:
+        """A zero cache on ``device`` (``TensorSpec``s if ``abstract``)."""
+        cache: Dict[str, Any] = {}
+        for gi, entry in enumerate(self.pat):
+            if self.groups > 0:
+                cache[f"blk{gi}"] = self._cache_entry(
+                    entry, (self.groups,), batch, max_len, abstract, device)
+        for j in range(self.remainder):
+            cache[f"rem{j}"] = self._cache_entry(
+                self.pat[j], (), batch, max_len, abstract, device)
+        if self.cfg.learned_pos:
+            cache["pos_offset"] = TensorSpec((), torch.int32) if abstract \
+                else torch.zeros((), dtype=torch.int32, device=device)
+        return cache
+
+    # ---- serving ---------------------------------------------------------------
+    @torch.inference_mode()
+    def prefill(self, params: Dict, tokens: torch.Tensor, max_len: int,
+                rules: Optional[Rules] = None,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        cache = self.make_cache(tokens.shape[0], max_len,
+                                device=tokens.device)
+        if frames is not None and self.cfg.encoder_layers > 0:
+            enc_out = self.encode(params, frames, rules)
+            cache = self._fill_cross(params, cache, enc_out)
+            logits, cache, _ = self.forward(params, tokens, rules,
+                                            cache=cache)
+        else:
+            logits, cache, _ = self.forward(params, tokens, rules,
+                                            patches=patches, cache=cache)
+        # a copy, so that the (B, S, vocab) logits are freed
+        return logits[:, -1].clone(memory_format=torch.contiguous_format), \
+            cache
+
+    def _fill_cross(self, params: Dict, cache: Dict,
+                    enc_out: torch.Tensor) -> Dict:
+        cfg = self.cfg
+        d, kvh, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
+        b, t, _ = enc_out.shape
+
+        def kv(p):
+            k = linear(self.impl, enc_out, p["wk"].reshape(d, kvh * hd))
+            v = linear(self.impl, enc_out, p["wv"].reshape(d, kvh * hd))
+            return (k.reshape(b, t, kvh, hd).to(cfg.dtype),
+                    v.reshape(b, t, kvh, hd).to(cfg.dtype))
+
+        for gi in range(len(self.pat)):
+            key = f"blk{gi}"
+            if key in cache and "_cross" in cache[key]:
+                pairs = [kv(_index(params[key]["xattn"], g))
+                         for g in range(self.groups)]
+                cache[key]["_cross"] = {
+                    "k": torch.stack([k for k, _ in pairs]),
+                    "v": torch.stack([v for _, v in pairs])}
+        for j in range(self.remainder):
+            key = f"rem{j}"
+            if key in cache and "_cross" in cache[key]:
+                k, v = kv(params[key]["xattn"])
+                cache[key]["_cross"] = {"k": k, "v": v}
+        return cache
+
+    @torch.inference_mode()
+    def decode_step(self, params: Dict, tokens: torch.Tensor, cache: Dict,
+                    rules: Optional[Rules] = None
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """tokens: (B, 1) -> (logits (B, vocab), cache updated in place)."""
+        logits, cache, _ = self.forward(params, tokens, rules, cache=cache)
+        return logits[:, -1].clone(memory_format=torch.contiguous_format), \
+            cache

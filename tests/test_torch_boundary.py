@@ -72,6 +72,13 @@ def test_port_has_the_front_end_and_service_modules():
         assert f"repro_torch.configs.{arch}" in mods
 
 
+def test_port_has_the_model_stack_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.transformer", "repro_torch.launch",
+            "repro_torch.launch.serve"} <= mods
+
+
 def test_every_port_module_imports_without_jax_or_repro():
     script = (
         "import importlib, json, sys\n"
@@ -91,6 +98,10 @@ def test_every_port_module_imports_without_jax_or_repro():
         "assert study.search(wl, 512, 64, method='refine').refine\n"
         "with DSEService(study) as svc:\n"
         "    DSEClient(svc).query(wl, 512, 64)\n"
+        # the model stack: a reduced Qwen3 served on the CPU
+        "from repro_torch.launch.serve import serve_loop\n"
+        "serve_loop('qwen3-0.6b', batch=1, prompt_len=3, gen=2,\n"
+        "           device='cpu', log=lambda msg: None)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or\n"
         "    m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "    m.startswith('repro.'))))\n")
