@@ -132,7 +132,28 @@ From the repository root, on a machine with one CUDA card:
     ms a step, tokens/s, one step's device time from the profiler's trace
     and its idle share); and runs ``serve_loop("qwen3-0.6b",
     use_reduced=False)`` at its defaults on the card (float32, every GEMM
-    on `mma`, its launches held).
+    on `mma`, its launches held);
+17. trains SmolLM-360M at full width and depth through the port's
+    trainer (``launch/train.py::train_loop``: float32, batch 8 x 1024,
+    20 AdamW steps at lr 3e-3, seeded, a checkpoint every 10 steps in a
+    temporary directory) on ``Model(cfg, impl=ops.differentiable())``,
+    every launch counter set to 0 before each run and held after it
+    (``llm_step_launches``: 675 ``matmul`` -- forward, dX, dW -- all on
+    `mma`, 65 ``fused_add_rmsnorm`` and 32 ``flash_attention`` a step);
+    holds every loss finite and prints whether the last 3 average below
+    the first 3; reads the step-20 checkpoint back bit for bit; stops a
+    second run after 10 steps, resumes it from its checkpoint and holds
+    steps 11-20 against the uninterrupted run (``LLM_RESUME_TOL``);
+    holds one step (its launches exactly) against the plain route from
+    the same weights, with the attention projections rescaled
+    (``conditioned``), by the loss, gradient norm, every gradient and
+    every updated parameter (``LLM_STEP_REL``), and a control whose
+    GEMMs are rounded to bfloat16 to fail each limit; holds each kernel
+    on the step's inputs against its plain version; and times the warm
+    step of both routes (events, tokens/s, peak memory, device time by
+    phase and kernel group from the profiler's trace, idle share, model
+    FLOPs against the float32 peak), the step's GEMMs by phase alone
+    beside ``torch.matmul``, and the plain backwards alone.
 
 Any failed phase raises and the script exits non-zero.  Without CUDA, or
 without the repository's ``src/`` beside it, it exits non-zero and prints
@@ -1939,10 +1960,12 @@ def round_mantissa(x: torch.Tensor, bits: int) -> torch.Tensor:
     return (i & -(1 << shift)).view(torch.float32).to(x.dtype)
 
 
-def control_plain(matmul):
-    """The plain versions with ``matmul`` for the GEMM."""
-    from repro_torch.kernels.training import PLAIN
-    return SimpleNamespace(**{**vars(PLAIN), "matmul": matmul})
+def control_plain(matmul, base=None):
+    """``base``'s plain versions (``kernels.training.PLAIN`` by default)
+    with ``matmul`` for the GEMM."""
+    if base is None:
+        from repro_torch.kernels.training import PLAIN as base
+    return SimpleNamespace(**{**vars(base), "matmul": matmul})
 
 
 def noisy_plain(rel: float, generator: torch.Generator):
@@ -2709,6 +2732,477 @@ def serving_slice(device, card, report) -> dict:
     return {name: launches[name] + loop_launches[name] for name in launches}
 
 
+# ---------------------------------------------------------------------------
+# the LLM training slice: SmolLM-360M through launch/train.py at full
+# width and depth
+# ---------------------------------------------------------------------------
+
+LLM_ARCH = "smollm-360m"
+LLM_STEPS, LLM_BATCH, LLM_SEQ = 20, 8, 1024
+LLM_CKPT_EVERY, LLM_STOP_AFTER = 10, 10
+LLM_LR = 3e-3                     # the trainer's command line default
+LLM_SEED = 2026
+# One step of the kernel route against the plain route (Model(cfg,
+# impl=PLAIN), autograd through the plain versions) from the same
+# weights and batch: relative error of the loss and of the gradient norm,
+# and the worst leaf's relative Frobenius error of its gradient and of
+# its updated value.  Set before the first chip run, between what
+# float32 GEMMs summed in another order and GEMMs rounded to bfloat16
+# (the control, ``LLM_CONTROL_BITS``) moved in a CPU proxy of the step;
+# the phase prints the kernel route's and the control's readings.
+LLM_STEP_REL = {"loss": 1e-6, "grad_norm": 1e-5, "grad": 1e-3,
+                "param": 1e-3}
+LLM_CONTROL_BITS = 7              # bfloat16's explicit mantissa bits
+# The resumed run's losses against the uninterrupted run's: the limit of
+# tests/test_checkpoint.py (rtol = atol = 2e-4).
+LLM_RESUME_TOL = 2e-4
+LLM_KERNELS = STEP_KERNELS[:1] + (("attention", ("flash_fwd",)),
+                                  ("add+norm", ("addnorm<",)))
+
+
+def llm_step_launches(n_layers: int) -> dict:
+    """Kernel launches of one training step of an RMSNorm attention model
+    through ``Model(cfg, impl=ops.differentiable())`` without ``ce_chunk``:
+    each of the 7n + 1 GEMMs forward, and its dX and dW in the backward
+    (every GEMM input needs a gradient: the first layer's through the
+    embedding); 2n + 1 add+norms and n attentions forward only, their
+    backwards being plain PyTorch."""
+    return {"matmul": 3 * (7 * n_layers + 1),
+            "fused_add_rmsnorm": 2 * n_layers + 1,
+            "flash_attention": n_layers}
+
+
+def conditioned(params: dict) -> dict:
+    """``params`` with the attention projections rescaled to a standard
+    deviation of 1/sqrt(their whole fan-in): wq, wk, wv (d, heads, hd)
+    by sqrt(heads / d), wo (heads, hd, d) by 1/sqrt(heads).  The
+    reference's init takes the fan-in from the heads axis (shape[-2]),
+    which saturates SmolLM's softmax and makes its step chaotic."""
+    import math
+    out = {k: v for k, v in params.items()}
+    for key in [k for k in params if k.startswith("blk")]:
+        attn = dict(params[key]["attn"])
+        for w in ("wq", "wk", "wv"):
+            attn[w] = attn[w] * math.sqrt(attn[w].shape[-2]
+                                          / attn[w].shape[-3])
+        attn["wo"] = attn["wo"] / math.sqrt(attn["wo"].shape[-3])
+        out[key] = {**params[key], "attn": attn}
+    return out
+
+
+class KeepGrads:
+    """An optimizer that keeps the gradients it is handed."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.opt.update(grads, state, params)
+
+
+def leaf_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_items(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def llm_adamw():
+    """AdamW at ``train_loop``'s schedule for ``LLM_STEPS`` steps."""
+    from repro_torch.optim import AdamW, cosine_schedule
+    return AdamW(schedule=cosine_schedule(
+        LLM_LR, warmup=max(2, LLM_STEPS // 10), total=LLM_STEPS))
+
+
+def held_step(cfg, impl, params, batch, count=False):
+    """One ``make_train_step`` step of ``Model(cfg, impl=impl)`` from
+    ``params`` (``llm_adamw``): the loss, gradient norm, gradients and
+    updated parameters, and with ``count`` the launches of the step,
+    every counter set to 0 just before it."""
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Model
+    opt = KeepGrads(llm_adamw())
+    p = train.trainable(params)
+    state = {"params": p, "opt": opt.init(p)}
+    step = train.make_train_step(Model(cfg, impl=impl), opt, None)
+    if count:
+        zero_counters()
+    new, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "grads": dict(leaf_items(opt.grads)),
+           "params": {k: v.detach() for k, v in
+                      leaf_items(new["params"])}}
+    if count:
+        out["launches"] = {n: c.launches for n, c in _counters().items()}
+        out["routes"] = dict(_routes())
+    return out
+
+
+def step_errors(got: dict, want: dict) -> dict:
+    """Relative errors of ``got``'s step against ``want``'s: loss, norm,
+    and the worst leaf of the gradients and of the updated parameters."""
+    def fro(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+    out = {k: abs(got[k] - want[k]) / abs(want[k])
+           for k in ("loss", "grad_norm")}
+    for part, key in (("grads", "grad"), ("params", "param")):
+        errs = {name: fro(got[part][name], want[part][name])
+                for name in want[part]}
+        worst = max(errs, key=errs.get)
+        out[key], out[f"{key}_worst"] = errs[worst], worst
+        out[f"{key}_median"] = sorted(errs.values())[len(errs) // 2]
+    return out
+
+
+def phased_step(model, opt, state, batch):
+    """``make_train_step``'s work with a device sleep (``spin_kernel`` in
+    the trace) between the forward, the backward and the update."""
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_map
+    params = state["params"]
+    loss, _ = model.loss(params, batch)
+    torch.cuda._sleep(1000)
+    grads = iter(torch.autograd.grad(loss, train.leaves(params)))
+    grads = tree_map(lambda _: next(grads), params)
+    torch.cuda._sleep(1000)
+    with torch.no_grad():
+        opt.update(grads, state["opt"], params)
+
+
+def profile_phases(fn) -> dict:
+    """Device ms of one call of ``fn`` from the profiler's trace, by
+    phase (the records between ``spin_kernel``s, in start order: forward,
+    backward, update) and by kernel group within each (``LLM_KERNELS``
+    and the rest); the sleeps themselves excluded."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    phases, records = [{}], [0]
+    for evt in evts:
+        if "spin_kernel" in evt.name:
+            phases.append({})
+            records.append(0)
+            continue
+        part = next((p for p, keys in LLM_KERNELS
+                     if any(k in evt.name for k in keys)), "other")
+        phases[-1][part] = phases[-1].get(part, 0.0) + \
+            evt.device_time_total / 1e3
+        records[-1] += 1
+    names = ("forward", "backward", "update")
+    if len(phases) != 3:       # the sleeps were not in the trace
+        return {"device_ms": sum(sum(p.values()) for p in phases),
+                "phases": None, "records": records}
+    return {"device_ms": sum(sum(p.values()) for p in phases),
+            "phases": dict(zip(names, phases)),
+            "records": dict(zip(names, records))}
+
+
+def llm_gemm_shapes(cfg, batch: int, seq: int) -> list:
+    """``(m, k, n, count)`` of the step's forward GEMMs: the layers' q, k,
+    v, o, gate, up and down at ``batch * seq`` rows, the head at
+    ``batch * (seq - 1)``."""
+    rows, d, f = batch * seq, cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    n = cfg.n_layers
+    return [(rows, d, q, n), (rows, d, kv, 2 * n), (rows, q, d, n),
+            (rows, d, f, 2 * n), (rows, f, d, n),
+            (batch * (seq - 1), d, cfg.vocab_size, 1)]
+
+
+def time_llm_gemms(cfg, device) -> dict:
+    """Device ms of the step's GEMMs by phase, each shape timed alone
+    (queued) through ``ops.matmul`` and ``torch.matmul`` on seeded float32
+    operands: fwd (m, k) @ (k, n), dX (m, n) @ (n, k), dW (k, m) @ (m, n);
+    summed over the step's count of each."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=device).manual_seed(LLM_SEED + 3)
+    out = {f"{lib} {p}": 0.0 for lib in ("kernel", "torch")
+           for p in ("fwd", "dX", "dW")}
+    for m, k, n, count in llm_gemm_shapes(cfg, LLM_BATCH, LLM_SEQ):
+        for phase, (r, inner, c) in (("fwd", (m, k, n)), ("dX", (m, n, k)),
+                                     ("dW", (k, m, n))):
+            a = torch.randn((r, inner), generator=gen, device=device)
+            b = torch.randn((inner, c), generator=gen, device=device) \
+                * inner ** -0.5
+            out[f"kernel {phase}"] += count * queued_ms(
+                lambda: ops.matmul(a, b), iters=3, warmup=1)
+            out[f"torch {phase}"] += count * queued_ms(
+                lambda: torch.matmul(a, b), iters=3, warmup=1)
+            del a, b
+    return out
+
+
+def time_plain_backwards(cfg, device) -> dict:
+    """Device ms of one step's plain backwards, each timed alone (queued)
+    on seeded inputs of the step's shapes: attention's (the recomputed
+    ``flash_attention_ref`` and its gradients) times n, add+norm's times
+    2n + 1."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(LLM_SEED + 4)
+    n, b, s, d = cfg.n_layers, LLM_BATCH, LLM_SEQ, cfg.d_model
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    q = rn(b * cfg.n_heads, s, cfg.hd).requires_grad_()
+    k, v = (rn(b * cfg.n_kv_heads, s, cfg.hd).requires_grad_()
+            for _ in range(2))
+    dout = rn(*q.shape)
+
+    def attn():
+        torch.autograd.grad(ref.flash_attention_ref(
+            q, k, v, cfg.n_heads, cfg.n_kv_heads, True, 0), (q, k, v), dout)
+    x, r = (rn(b * s, d).requires_grad_() for _ in range(2))
+    sc = (rn(d) + 1.0).requires_grad_()
+    dy, dres = rn(b * s, d), rn(b * s, d)
+
+    def addnorm():
+        torch.autograd.grad(ref.fused_add_rmsnorm_ref(x, r, sc),
+                            (x, r, sc), (dy, dres))
+    return {"attention": n * queued_ms(attn, iters=3, warmup=1),
+            "add+norm": (2 * n + 1) * queued_ms(addnorm, iters=5, warmup=1)}
+
+
+def time_llm_route(cfg, impl, params, batch) -> dict:
+    """Warm steps of one route from ``params``: each step's ms by CUDA
+    events (median of 3 after one), tokens/s, the peak memory of those
+    steps, and one phased step's device time from the profiler's trace,
+    hence the idle share."""
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Model
+    model = Model(cfg, impl=impl)
+    opt = llm_adamw()
+    step = train.make_train_step(model, opt, None)
+    p = train.trainable(params)
+    state = {"params": p, "opt": opt.init(p)}
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        if i:
+            ms.append(start.elapsed_time(stop))
+    out = {"step_ms": sorted(ms)[1], "steps_ms": ms,
+           "tokens_per_s": LLM_BATCH * LLM_SEQ * 1e3 / sorted(ms)[1],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    trace = profile_phases(lambda: phased_step(model, opt, state, batch))
+    out.update(trace)
+    out["idle_share"] = 1.0 - trace["device_ms"] / out["step_ms"] \
+        if trace["device_ms"] else None
+    return out
+
+
+def training_llm_slice(device, card, report) -> dict:
+    """Phase 17: train SmolLM-360M at full width and depth through
+    ``train_loop`` on the kernels (launches held), resume it from a
+    checkpoint against the uninterrupted run, hold one step against the
+    plain route with a control, hold each kernel on the step's inputs,
+    and time the step.  Returns the main-path launches by kernel."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import forward as F
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Model
+    cfg = get_config(LLM_ARCH).replace(dtype=torch.float32, remat=False)
+    n = cfg.n_layers
+    per_step = llm_step_launches(n)
+    out = {"config": f"{LLM_ARCH}, {n} layers, d {cfg.d_model}, float32, "
+                     f"batch {LLM_BATCH} x {LLM_SEQ}, {LLM_STEPS} AdamW "
+                     f"steps at lr {LLM_LR}",
+           "params": Model(cfg).n_params(), "launches_per_step": per_step}
+    kw = dict(use_reduced=False, steps=LLM_STEPS, batch=LLM_BATCH,
+              seq=LLM_SEQ, ckpt_every=LLM_CKPT_EVERY, lr=LLM_LR,
+              seed=LLM_SEED, device=device)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    launches = dict.fromkeys(per_step, 0)
+
+    def run(what, steps, **extra):
+        """``train_loop`` with every counter set to 0 just before it and
+        read just after: ``steps`` steps' launches, every GEMM on `mma`."""
+        zero_counters()
+        logs = []
+        t0 = time.perf_counter()
+        res = train.train_loop(LLM_ARCH, log=logs.append, **kw, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res["grad_norms"] = [float(ln.split(" gnorm ")[1].split()[0])
+                             for ln in logs if " gnorm " in ln]
+        got = {name: c.launches for name, c in _counters().items()}
+        for name, c in got.items():
+            want = steps * per_step.get(name, 0)
+            check(c == want, f"{what}: {name} launched {c} times, expected "
+                  f"{want} ({steps} steps)")
+            launches[name] = launches.get(name, 0) + c
+        routes = dict(_routes())
+        check(routes["mma"] == got["matmul"] and routes["wgmma"] == 0,
+              f"{what}: matmul routes {routes}, expected every GEMM on mma")
+        check(len(res["losses"]) == steps and
+              all(np.isfinite(res["losses"])), f"{what}: losses "
+              f"{res['losses']} not {steps} finite values")
+        return res, wall, routes
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        full, wall, routes = run("train_loop", LLM_STEPS,
+                                 ckpt_dir=str(tmp / "full"))
+        losses = full["losses"]
+        out.update(losses=losses, grad_norms=full["grad_norms"],
+                   train_loop_s=wall, routes=routes,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   first3=float(np.mean(losses[:3])),
+                   last3=float(np.mean(losses[-3:])))
+        out["lowered"] = out["last3"] < out["first3"]
+        print(f"training SmolLM-360M ({out['params']} parameters, {n} "
+              f"layers, float32, batch {LLM_BATCH} x {LLM_SEQ}, "
+              f"{LLM_STEPS} AdamW steps, lr {LLM_LR}) through train_loop "
+              f"on the kernels: {wall} s, peak memory "
+              f"{out['peak_memory_gb']} GB; launches a step {per_step} "
+              f"held over the run, every GEMM on mma  [{card}]")
+        print(f"  losses {losses}")
+        print(f"  gradient norms before clipping {full['grad_norms']}")
+        print(f"  mean of the last 3 {out['last3']} below the first 3 "
+              f"{out['first3']}: {out['lowered']}")
+        # the saved checkpoint, read back by the port's loader
+        mgr = CheckpointManager(str(tmp / "full"))
+        check(mgr.all_steps() == [LLM_CKPT_EVERY, LLM_STEPS],
+              f"checkpoints {mgr.all_steps()}")
+        saved, extra = mgr.restore(LLM_STEPS, full["state"])
+        same = [torch.equal(a, b.detach()) for (_, a), (_, b) in zip(
+            leaf_items(saved), leaf_items(full["state"]))]
+        check(all(same) and extra["train_step"] == LLM_STEPS,
+              f"checkpoint {LLM_STEPS} restored other bits in "
+              f"{same.count(False)} of {len(same)} leaves")
+        out["checkpoint_leaves_equal"] = len(same)
+        final = full["state"]
+        del full, saved
+        shutil.rmtree(tmp / "full")
+
+        # preempted after LLM_STOP_AFTER steps, then resumed
+        part1, wall1, _ = run("train_loop, stopped", LLM_STOP_AFTER,
+                              ckpt_dir=str(tmp / "resumed"),
+                              stop_after=LLM_STOP_AFTER)
+        part2, wall2, _ = run("train_loop, resumed",
+                              LLM_STEPS - LLM_STOP_AFTER,
+                              ckpt_dir=str(tmp / "resumed"))
+        got, want = np.array(part2["losses"]), np.array(
+            losses[LLM_STOP_AFTER:])
+        out["resume_max_abs"] = float(np.abs(got - want).max())
+        out["resume_losses_equal"] = bool((got == want).all())
+        out["resume_state_equal"] = all(
+            torch.equal(a.detach(), b.detach()) for (_, a), (_, b) in zip(
+                leaf_items(part2["state"]), leaf_items(final)))
+        check(part1["losses"] == losses[:LLM_STOP_AFTER],
+              "the stopped run's losses differ from the first steps")
+        check(np.allclose(got, want, rtol=LLM_RESUME_TOL,
+                          atol=LLM_RESUME_TOL),
+              f"resumed losses {got.tolist()} off the uninterrupted run's "
+              f"{want.tolist()}")
+        print(f"  stopped after {LLM_STOP_AFTER} steps ({wall1} s) and "
+              f"resumed from the checkpoint ({wall2} s): steps "
+              f"{LLM_STOP_AFTER + 1}-{LLM_STEPS} max abs difference "
+              f"{out['resume_max_abs']} (limit {LLM_RESUME_TOL}), losses "
+              f"equal {out['resume_losses_equal']}, final state equal "
+              f"{out['resume_state_equal']}; checkpoint {LLM_STEPS} read "
+              f"back bit for bit ({len(same)} leaves)")
+        del part1, part2, final
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one step against the plain route, from conditioned weights
+    params = conditioned(Model(cfg).init(
+        torch.Generator(device=device).manual_seed(LLM_SEED)))
+    tokens = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=LLM_SEQ,
+                           global_batch=LLM_BATCH, seed=LLM_SEED
+                           ).batch_at(0)["tokens"]
+    batch = {"tokens": torch.from_numpy(tokens).to(device)}
+    rec = RecordingOps()
+    rec.model = "smollm-360m training step f32"
+    kern = held_step(cfg, ops.differentiable(rec), params, batch,
+                     count=True)
+    rec.model = None
+    for name, c in kern["launches"].items():
+        check(c == per_step.get(name, 0), f"held step: {name} launched "
+              f"{c} times, expected {per_step.get(name, 0)}")
+    for name in per_step:
+        launches[name] += kern["launches"][name]
+    plain = held_step(cfg, F.PLAIN, params, batch)
+    control = held_step(cfg, ops.differentiable(control_plain(
+        rounded_plain(LLM_CONTROL_BITS).matmul, F.PLAIN)), params, batch)
+    out["step_vs_plain"] = step_errors(kern, plain)
+    out["control_vs_plain"] = step_errors(control, plain)
+    del kern, plain, control
+    e, c = out["step_vs_plain"], out["control_vs_plain"]
+    for key, limit in LLM_STEP_REL.items():
+        check(e[key] <= limit, f"training step off the plain route: {key} "
+              f"{e[key]} (relative; {e.get(key + '_worst', '')}), limit "
+              f"{limit}")
+        check(c[key] > limit, f"bf16 control within the {key} limit "
+              f"{limit}: {c[key]}")
+    def brief(errs):
+        return {k: v for k, v in errs.items() if not k.endswith("median")}
+    print(f"  one step (launches {per_step}, held) against the plain route "
+          f"from the same conditioned weights (limits {LLM_STEP_REL}): "
+          f"{brief(e)}; the control (GEMMs rounded to {LLM_CONTROL_BITS} "
+          f"mantissa bits): {brief(c)}")
+    held = Held()
+    for (name, shapes), (model, args, kwargs) in rec.inputs.items():
+        hold_call(held, name, f"{model} {shapes}", args, kwargs, main=True)
+    del rec
+    out["kernel_checks"] = {name: held.cases[name] for name in per_step}
+    print(f"  each kernel on the step's inputs against its plain version: "
+          + ", ".join(f"{name} {len(held.cases[name])} shapes, max abs err "
+                      f"{held.max_err(name)}" for name in per_step))
+
+    # time it
+    init = Model(cfg).init(torch.Generator(device=device)
+                           .manual_seed(LLM_SEED))
+    out["times"] = {
+        "kernels": time_llm_route(cfg, ops.differentiable(), init, batch),
+        "plain": time_llm_route(cfg, F.PLAIN, init, batch)}
+    out["gemm_alone_ms"] = time_llm_gemms(cfg, device)
+    out["plain_backward_alone_ms"] = time_plain_backwards(cfg, device)
+    tokens_n = LLM_BATCH * LLM_SEQ
+    attn = 6 * LLM_BATCH * cfg.n_heads * LLM_SEQ ** 2 * cfg.hd * n
+    out["model_flop"] = 6 * out["params"] * tokens_n + attn
+    for name, t in out["times"].items():
+        t["flop_share_of_f32_peak"] = out["model_flop"] / (
+            t["step_ms"] / 1e3) / SCALAR_OPS_PER_S
+        print(f"  {name} route: step {t['step_ms']} ms (median of "
+              f"{t['steps_ms']}), {t['tokens_per_s']} tokens/s, model "
+              f"FLOPs {t['flop_share_of_f32_peak']} of the float32 peak; "
+              f"one step's device time {t['device_ms']} ms, idle "
+              f"{t['idle_share']}; peak memory {t['peak_memory_gb']} GB  "
+              f"[{card}]")
+        print(f"    by phase (ms): {t['phases']}; records {t['records']}")
+    print(f"  the step's GEMMs, each shape alone (queued ms): "
+          f"{out['gemm_alone_ms']}; plain backwards alone: "
+          f"{out['plain_backward_alone_ms']}  [{card}]")
+    out["launches"] = launches
+    out["held"] = {name: (len(held.cases[name]), held.max_err(name))
+                   for name in per_step}
+    report["training_llm"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -2821,9 +3315,15 @@ def main(argv=None) -> int:
     slice_entries = kernel_slice(device, card, report)
     bn_back_entry, train_launches = training_slice(device, card, report)
     serving = serving_slice(device, card, report)
+    llm_train = training_llm_slice(device, card, report)
     for entry in slice_entries:
-        entry["launches"] += train_launches[entry["name"]] + \
-            serving.get(entry["name"], 0)
+        name = entry["name"]
+        entry["launches"] += train_launches[name] + \
+            serving.get(name, 0) + llm_train["launches"].get(name, 0)
+        if name in llm_train["held"]:
+            checks, err = llm_train["held"][name]
+            entry["checks"] += checks
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
 
     main_label = "lattice128/training/cycles"
     t = timing[main_label]

@@ -12,6 +12,16 @@ it runs ``flash_attention_ref``, the plain version.  Both mask keys at or
 past S, as the oracle does (the Pallas kernel, without ``causal``, lets
 its zero padding into the softmax when S is not a multiple of its key
 block).
+
+``FlashAttentionFn`` is the call as a ``torch.autograd.Function``: its
+forward is ``impl.flash_attention``, the kernel on the card; its backward
+is written in plain PyTorch.  The JAX package's ``flash_attention_pallas``
+is forward only (XLA differentiates its model), so no backward kernel is
+invented: the backward recomputes ``flash_attention_ref`` from the saved
+q, k and v under autograd and returns its gradients.  That is the
+derivative of the function the kernel computes, keys at or past S masked
+included; it holds the (B*H, S, S) float32 weights of one call while it
+runs.
 """
 from __future__ import annotations
 
@@ -24,7 +34,8 @@ from ._dispatch import (DTYPE_CODE, call, device_kind, library,
                         positive_int, same_dtype)
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS",
+           "FlashAttentionFn"]
 
 SOURCE = "flash_attention.cu"
 _LAUNCH = "flash_attention_launch"
@@ -91,3 +102,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``impl.flash_attention(q, k, v, n_heads, n_kv, causal, window)``,
+    ``kernels.ops`` by default; the backward differentiates the plain
+    version recomputed from the saved q, k and v (a backward in plain
+    PyTorch beside a forward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads, n_kv, causal=True, window=0,
+                impl=None):
+        if impl is None:
+            from . import ops as impl
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (n_heads, n_kv, causal, window)
+        return impl.flash_attention(q, k, v, n_heads, n_kv, causal=causal,
+                                    window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        inputs = [t.detach().requires_grad_(need) for t, need
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = flash_attention_ref(*inputs, *ctx.args)
+            grads = iter(torch.autograd.grad(out, wanted, dout))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None,) * 5

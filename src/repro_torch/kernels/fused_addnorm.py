@@ -7,6 +7,14 @@ On CUDA tensors it launches the hand-written kernel
 ``fused_add_rmsnorm_pallas``; the source says how it is laid out and what
 bounds it).  On CPU tensors it runs ``fused_add_rmsnorm_ref``, the plain
 version.
+
+``FusedAddRMSNormFn`` is the call as a ``torch.autograd.Function``: its
+forward is ``impl.fused_add_rmsnorm``, the kernel on the card; its
+backward is written in plain PyTorch.  The JAX package has no backward
+kernel for ``fused_add_rmsnorm_pallas`` (XLA differentiates its model),
+so none is invented: the backward recomputes ``fused_add_rmsnorm_ref``
+from the saved inputs under autograd and returns its gradients, the
+derivative of the function the kernel computes.
 """
 from __future__ import annotations
 
@@ -18,7 +26,8 @@ from ._dispatch import (DTYPE_CODE, call, device_kind, library,
                         positive_int, same_dtype)
 from .ref import fused_add_rmsnorm_ref
 
-__all__ = ["fused_add_rmsnorm", "fused_add_rmsnorm_ref"]
+__all__ = ["fused_add_rmsnorm", "fused_add_rmsnorm_ref",
+           "FusedAddRMSNormFn"]
 
 SOURCE = "fused_addnorm.cu"
 _LAUNCH = "fused_addnorm_launch"
@@ -65,3 +74,28 @@ def fused_add_rmsnorm(x: torch.Tensor, resid: torch.Tensor,
 
 
 fused_add_rmsnorm.launches = 0
+
+
+class FusedAddRMSNormFn(torch.autograd.Function):
+    """``impl.fused_add_rmsnorm(x, resid, scale)``, ``kernels.ops`` by
+    default, returning ``(y, res)``; the backward differentiates the
+    plain version recomputed from the saved ``x``, ``resid`` and
+    ``scale`` (a backward in plain PyTorch beside a forward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, resid, scale, impl=None):
+        if impl is None:
+            from . import ops as impl
+        ctx.save_for_backward(x, resid, scale)
+        return impl.fused_add_rmsnorm(x, resid, scale)
+
+    @staticmethod
+    def backward(ctx, dy, dres):
+        inputs = [t.detach().requires_grad_(need) for t, need
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y, res = fused_add_rmsnorm_ref(*inputs, EPS)
+            grads = iter(torch.autograd.grad((y, res), wanted, (dy, dres)))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None,)

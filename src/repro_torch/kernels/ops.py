@@ -31,8 +31,18 @@ The block arguments were the Pallas kernels' VMEM tiles.  On the card:
 
 A GEMM's result depends on the tile and the split only through the order
 of float32 sums.
+
+``differentiable(impl)`` gives ``matmul``, ``fused_add_rmsnorm`` and
+``flash_attention`` over ``impl`` (this module by default) as autograd
+functions (``MatmulFn``, ``FusedAddRMSNormFn``, ``FlashAttentionFn``):
+on the card a kernel writes into a fresh tensor that autograd cannot see
+into, so a model that is to be differentiated (the trainer's) calls its
+kernels through these; serving calls them directly.
 """
 from __future__ import annotations
+
+import sys
+from types import SimpleNamespace
 
 import torch
 
@@ -46,7 +56,7 @@ from .flash_attention import flash_attention
 from .fused_addnorm import fused_add_rmsnorm
 
 __all__ = ["matmul", "flash_attention", "fused_add_rmsnorm", "bn_forward",
-           "bn_backward", "launch_counters"]
+           "bn_backward", "launch_counters", "differentiable"]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 0, bn: int = 0,
@@ -78,3 +88,20 @@ def launch_counters() -> dict:
     return {"matmul": _mm.matmul, "fused_add_rmsnorm": _an.fused_add_rmsnorm,
             "bn_forward": _bn.bn_forward, "bn_backward": _bn.bn_backward,
             "flash_attention": _fa.flash_attention}
+
+
+def differentiable(impl=None) -> SimpleNamespace:
+    """``impl``'s ``matmul``, ``fused_add_rmsnorm`` and
+    ``flash_attention`` (this module's by default) through their autograd
+    functions, with the signatures a model calls them by."""
+    impl = sys.modules[__name__] if impl is None else impl
+
+    def fused_add_rmsnorm(x, resid, scale):
+        return _an.FusedAddRMSNormFn.apply(x, resid, scale, impl)
+
+    def flash_attention(q, k, v, n_heads, n_kv, causal=True, window=0):
+        return _fa.FlashAttentionFn.apply(q, k, v, n_heads, n_kv, causal,
+                                          window, impl)
+    return SimpleNamespace(
+        matmul=lambda a, b: _mm.MatmulFn.apply(a, b, impl),
+        fused_add_rmsnorm=fused_add_rmsnorm, flash_attention=flash_attention)

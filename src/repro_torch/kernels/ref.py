@@ -30,8 +30,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group = n_heads // n_kv
     b = bh // n_heads
     qh = q.reshape(b, n_heads, s, d)
-    kh = k.reshape(b, n_kv, s, d).repeat_interleave(group, dim=1)
-    vh = v.reshape(b, n_kv, s, d).repeat_interleave(group, dim=1)
+    # each KV head repeated for its group of query heads: an expanded view
+    # whose backward sums the group with a plain reduction, the same bits
+    # every run (an index-add, as repeat_interleave may take, need not be)
+    kh = k.reshape(b, n_kv, 1, s, d).expand(b, n_kv, group, s, d).reshape(
+        b, n_heads, s, d)
+    vh = v.reshape(b, n_kv, 1, s, d).expand(b, n_kv, group, s, d).reshape(
+        b, n_heads, s, d)
     logits = torch.einsum("bhqd,bhkd->bhqk", qh, kh).float()
     logits = logits / math.sqrt(d)
     qi = torch.arange(s, device=q.device)[:, None]

@@ -1,2 +1,2 @@
 """Entry points of the port's model stack: ``serve`` (prefill and batched
-greedy decode)."""
+greedy decode) and ``train`` (the train step and loop)."""

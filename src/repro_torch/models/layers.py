@@ -124,7 +124,9 @@ def embed_defs(cfg: ModelConfig) -> Dict:
 
 def embed_tokens(p: Dict, tokens: torch.Tensor, rules: Optional[Rules],
                  dtype) -> torch.Tensor:
-    x = p["embedding"][tokens].to(dtype)
+    # F.embedding, not indexing: its backward on the card sorts the
+    # tokens and sums each one's rows in order (the same bits every run)
+    x = F.embedding(tokens, p["embedding"]).to(dtype)
     return shard(x, rules, "batch", "seq", "act_embed")
 
 

@@ -1,14 +1,19 @@
 """Unified model: attention mixers with dense FFNs assembled into layer
-stacks -- the serving path of the JAX package's ``models/transformer.py``
-for its attention architectures (qwen3, smollm, stablelm, gemma3,
-pixtral, whisper).
+stacks -- the JAX package's ``models/transformer.py`` for its attention
+architectures (qwen3, smollm, stablelm, gemma3, pixtral, whisper):
+serving (``forward``, ``prefill``, ``decode_step``) and training
+(``loss``).
 
 Layer stacking follows the JAX package: the layer list is ``cfg.pattern``
 repeated; each *pattern position* ``gi`` is a homogeneous stack whose
 parameters (``params['blk<gi>']``) carry a leading ``(groups,)`` axis, and
 the remainder ``n_layers % len(pattern)`` layers (``rem<j>``) are
 unrolled.  Where the JAX package scans the groups, this module loops over
-the stacked slices in Python; remat does not apply to serving.
+the stacked slices in Python (``torch.unbind``, so that the backward
+stacks each leaf's layer gradients once).  ``cfg.remat`` is ignored:
+it changes memory, not values, and the port keeps every activation for
+the backward (``launch/train.py`` sets it False, as the JAX trainer
+does).
 
 Caches mirror the parameter structure: ``cache['blk<i>']`` holds the
 stacked per-layer KV buffer and position (``pos``: shape ``(groups,)``),
@@ -16,7 +21,9 @@ stacked per-layer KV buffer and position (``pos``: shape ``(groups,)``),
 the encoder KV of enc-dec models.  They are updated in place.
 
 Kernel routing (``impl``, ``kernels.ops`` by default; ``kernels.forward.
-PLAIN`` gives the same model composed of the plain versions): every
+PLAIN`` gives the same model composed of the plain versions; a model
+that is differentiated on the card takes ``kernels.ops.differentiable()``,
+the same calls through autograd functions): every
 product of activations with a weight goes through ``impl.matmul``, the
 self-attention of a prefill through ``impl.flash_attention``
 (``attention.attention``), and for ``norm_type == "rmsnorm"`` every
@@ -25,6 +32,11 @@ each block's norm2, the next block's norm1 and the final norm.  A block
 therefore hands its last residual (``pending``) to the next norm instead
 of adding it itself; the first norm1 adds a zero residual.  LayerNorm
 configs add and normalize in plain PyTorch.
+
+``loss`` is the JAX package's next-token cross-entropy over the same
+stack, its LM head built inside the caller's graph; ``ce_chunk > 0``
+rematerializes one chunk of logits at a time (``torch.utils.checkpoint``
+where the JAX package uses ``jax.checkpoint``).
 
 Mamba2 and RG-LRU mixers and MoE FFNs are not ported: a config that uses
 one raises ``NotImplementedError`` (ROADMAP Queue 1 item 5).
@@ -35,6 +47,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from . import attention as ATT
@@ -143,6 +157,17 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree, n: int) -> List:
+    """The ``n`` slices of the leading axis of every leaf, as ``n`` trees
+    of views; one ``unbind`` a leaf, whose backward stacks the slices'
+    gradients in one pass (``n`` ``select``s would each write a
+    gradient of the whole leaf)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -230,12 +255,11 @@ class Model:
         cfg = self.cfg
         x = frames.to(cfg.dtype)
         x = x + params["enc"]["pos_emb"][:x.shape[1]].to(cfg.dtype)
-        blk = params["enc"]["blk"]
         pending = None
-        for i in range(cfg.encoder_layers):
-            x, pending, _ = _apply_block(cfg, "attn", _index(blk, i), x,
-                                         rules, pending=pending,
-                                         causal=False, impl=self.impl)
+        for p in _unbind(params["enc"]["blk"], cfg.encoder_layers):
+            x, pending, _ = _apply_block(cfg, "attn", p, x, rules,
+                                         pending=pending, causal=False,
+                                         impl=self.impl)
         return add_norm(cfg, params["enc"]["norm"], x, pending,
                         self.impl)[0]
 
@@ -251,11 +275,13 @@ class Model:
         wins = self._windows()
         plen = len(self.pat)
         pending = None
+        stacks = [_unbind(params[f"blk{gi}"], self.groups)
+                  for gi in range(plen if self.groups else 0)]
         for g in range(self.groups):
             for gi, entry in enumerate(self.pat):
                 csl = None if cache is None else _index(cache[f"blk{gi}"], g)
                 x, pending, _ = _apply_block(
-                    cfg, entry, _index(params[f"blk{gi}"], g), x, rules,
+                    cfg, entry, stacks[gi][g], x, rules,
                     pending=pending, window=wins[g * plen + gi], cache=csl,
                     enc_out=enc_out, impl=self.impl)
         base = self.groups * plen
@@ -268,14 +294,14 @@ class Model:
         return x, pending, cache
 
     # ---- forward -------------------------------------------------------------
-    def forward(self, params: Dict, tokens: torch.Tensor,
-                rules: Optional[Rules] = None,
-                frames: Optional[torch.Tensor] = None,
-                patches: Optional[torch.Tensor] = None,
-                cache: Optional[Dict] = None,
-                ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-        """Returns (logits_f32, cache, moe_aux_loss); ``cache`` is
-        updated in place."""
+    def _final_hidden(self, params: Dict, tokens: torch.Tensor,
+                      rules: Optional[Rules],
+                      frames: Optional[torch.Tensor] = None,
+                      patches: Optional[torch.Tensor] = None,
+                      cache: Optional[Dict] = None,
+                      ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+        """The final norm's output (B, S, d), ``cache`` (updated in
+        place) and the MoE aux loss (0: no MoE is ported)."""
         check_rules(rules)
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, rules, cfg.dtype)
@@ -295,10 +321,67 @@ class Model:
         if cache is not None and "pos_offset" in cache:
             cache["pos_offset"].add_(x.shape[1])
         x, _ = add_norm(cfg, params["final_norm"], x, pending, self.impl)
+        return x, cache, torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
+
+    def forward(self, params: Dict, tokens: torch.Tensor,
+                rules: Optional[Rules] = None,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None,
+                cache: Optional[Dict] = None,
+                ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+        """Returns (logits_f32, cache, moe_aux_loss); ``cache`` is
+        updated in place."""
+        x, cache, aux = self._final_hidden(params, tokens, rules, frames,
+                                           patches, cache)
         logits = lm_logits(params["embed"], x, rules, self.impl,
                            head=self.head(params))
-        return logits, cache, torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
+        return logits, cache, aux
+
+    # ---- loss ------------------------------------------------------------------
+    def loss(self, params: Dict, batch: Dict, rules: Optional[Rules] = None
+             ) -> Tuple[torch.Tensor, Dict]:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` (and
+        ``frames`` / ``patches``) plus 0.01 x the aux loss; returns
+        ``(loss, {"ce", "aux"})``, differentiable in ``params`` when the
+        model's ``impl`` is (``kernels.ops.differentiable()`` on the
+        card)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        patches = batch.get("patches")
+        x, _, aux = self._final_hidden(params, tokens, rules,
+                                       frames=batch.get("frames"),
+                                       patches=patches)
+        if patches is not None:
+            x = x[:, patches.shape[1]:]
+        targets = tokens[:, 1:].long()
+        x = x[:, :-1]
+        # the head inside this graph (not ``Model.head``'s kept copy), so
+        # that a tied embedding gets the head's gradient too
+        emb = params["embed"]
+        w = emb["head"] if "head" in emb else emb["embedding"].t().contiguous()
+
+        def ce_of(xc, tc):
+            logits = linear(self.impl, xc, w).float()
+            return -torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                                 tc[..., None]).squeeze(-1)
+
+        chunk = cfg.ce_chunk
+        s = x.shape[1]
+        if chunk and s > chunk:
+            pad = (-s) % chunk
+            xp = F.pad(x, (0, 0, 0, pad))
+            tp = F.pad(targets, (0, pad))
+            # the backward rematerializes one chunk of logits at a time:
+            # only (B, chunk, V) of them is ever live
+            ce = torch.cat([checkpoint(ce_of, xp[:, i:i + chunk],
+                                       tp[:, i:i + chunk],
+                                       use_reentrant=False)
+                            for i in range(0, s + pad, chunk)], 1)[:, :s]
+        else:
+            ce = ce_of(x, targets)
+        loss = ce.mean() + 0.01 * aux
+        return loss, {"ce": ce.mean(), "aux": aux}
 
     # ---- caches -----------------------------------------------------------------
     def _cache_entry(self, entry: str, lead: Tuple[int, ...], batch: int,

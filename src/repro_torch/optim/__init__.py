@@ -1,7 +1,7 @@
-"""Optimizers of the port: what a training step needs from the JAX
-package's ``repro/optim/optimizers.py``, over dicts of tensors."""
-from .optimizers import (SGDM, clip_by_global_norm, constant_schedule,
+"""Optimizers of the port: the JAX package's ``repro/optim/optimizers.py``
+over trees of tensors."""
+from .optimizers import (SGDM, AdamW, clip_by_global_norm, constant_schedule,
                          cosine_schedule, global_norm)
 
-__all__ = ["SGDM", "clip_by_global_norm", "constant_schedule",
+__all__ = ["AdamW", "SGDM", "clip_by_global_norm", "constant_schedule",
            "cosine_schedule", "global_norm"]

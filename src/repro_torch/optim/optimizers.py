@@ -1,29 +1,47 @@
-"""SGD with momentum, learning-rate schedules and global-norm clipping:
-the port of what a training step needs from the JAX package's
-``repro/optim/optimizers.py`` (``cosine_schedule`` :22,
-``constant_schedule``, ``global_norm``, ``clip_by_global_norm`` :49 and
-``SGDM`` :123), with the same arithmetic in the same order.
+"""AdamW, SGD with momentum, learning-rate schedules and global-norm
+clipping: the port of the JAX package's ``repro/optim/optimizers.py``
+(``cosine_schedule`` :22, ``constant_schedule``, ``global_norm``,
+``clip_by_global_norm`` :49, ``AdamW`` :61 and ``SGDM`` :123), with the
+same arithmetic in the same order.
 
-A pytree of parameters becomes a dict of tensors, walked in sorted key
-order as ``jax.tree_util`` walks a dict.  As in the JAX package the
-update is functional: it returns new tensors and leaves its inputs as
-they are.  The step count and the learning rate are 0-dim tensors on
-the CPU (int32 and float32), which PyTorch applies as scalars to tensors
-on any device.  ``AdamW`` and the sharding rules (``state_specs``) are
-not ported yet.
+A pytree of parameters becomes a tree of nested dicts of tensors, walked
+in sorted key order as ``jax.tree_util`` walks a dict.  As in the JAX
+package the update is functional: it returns new tensors and leaves its
+inputs as they are (run it under ``torch.no_grad()`` when the parameters
+require gradients).  The step count and the learning rate are 0-dim
+tensors on the CPU (int32 and float32), which PyTorch applies as scalars
+to tensors on any device.  The sharding rules (``state_specs``) wait for
+the sharding slice (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-Tensors = Dict[str, torch.Tensor]
+Tensors = Dict[str, Any]      # nested dicts of tensors
 
 __all__ = ["cosine_schedule", "constant_schedule", "global_norm",
-           "clip_by_global_norm", "SGDM"]
+           "clip_by_global_norm", "AdamW", "SGDM"]
+
+
+def _leaves(tree: Tensors) -> List[torch.Tensor]:
+    """The tensors of ``tree`` in ``jax.tree_util``'s order (sorted keys,
+    depth first)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def _map(fn, tree: Tensors, *rest: Tensors):
+    """``fn`` on the leaves of ``tree`` and the matching leaves of
+    ``rest``, as a tree of ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +74,8 @@ def constant_schedule(base_lr: float) -> Callable:
 def global_norm(tree: Tensors) -> torch.Tensor:
     """The float32 norm of every tensor of ``tree`` taken together."""
     total = 0
-    for key in sorted(tree):
-        total = total + torch.sum(torch.square(tree[key].float()))
+    for leaf in _leaves(tree):
+        total = total + torch.sum(torch.square(leaf.float()))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -67,13 +85,59 @@ def clip_by_global_norm(tree: Tensors,
     each tensor in its own type, and the norm before scaling."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: (g.float() * scale).to(g.dtype)
-            for k, g in tree.items()}, norm
+    return _map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
 
 # ---------------------------------------------------------------------------
 # Optimizers
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class AdamW:
+    """Adam with decoupled weight decay after global-norm clipping: the
+    moments in ``mv_dtype`` (float32 by default; bfloat16 halves their
+    memory), the bias corrections and the update in float32, each
+    parameter back in its own type."""
+    schedule: Callable
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    mv_dtype: torch.dtype = torch.float32
+
+    def init(self, params: Tensors) -> dict:
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=self.mv_dtype, device=p.device)
+        return {"m": _map(zeros, params), "v": _map(zeros, params),
+                "step": torch.zeros((), dtype=torch.int32)}
+
+    def update(self, grads: Tensors, state: dict, params: Tensors):
+        """``(new_params, new_state, {"lr", "grad_norm"})``."""
+        grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
+        step = state["step"] + 1
+        lr = self.schedule(step)
+        b1, b2 = self.b1, self.b2
+        bc1 = 1 - b1 ** step.float()
+        bc2 = 1 - b2 ** step.float()
+
+        def upd(g, m, v, p):
+            gf = g.float()
+            m_new = b1 * m.float() + (1 - b1) * gf
+            v_new = b2 * v.float() + (1 - b2) * gf * gf
+            mhat = m_new / bc1
+            vhat = v_new / bc2
+            delta = mhat / (torch.sqrt(vhat) + self.eps) \
+                + self.weight_decay * p.float()
+            return (m_new.to(self.mv_dtype), v_new.to(self.mv_dtype),
+                    (p.float() - lr * delta).to(p.dtype))
+
+        out = _map(upd, grads, state["m"], state["v"], params)
+        new_m, new_v, new_p = (_map(lambda o, i=i: o[i], out)
+                               for i in range(3))
+        return new_p, {"m": new_m, "v": new_v, "step": step}, \
+            {"lr": lr, "grad_norm": gnorm}
+
 
 @dataclass(frozen=True)
 class SGDM:

@@ -79,6 +79,14 @@ def test_port_has_the_model_stack_modules():
             "repro_torch.launch.serve"} <= mods
 
 
+def test_port_has_the_training_path_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.distributed", "repro_torch.distributed.fault",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train"} <= mods
+
+
 def test_every_port_module_imports_without_jax_or_repro():
     script = (
         "import importlib, json, sys\n"
@@ -102,6 +110,14 @@ def test_every_port_module_imports_without_jax_or_repro():
         "from repro_torch.launch.serve import serve_loop\n"
         "serve_loop('qwen3-0.6b', batch=1, prompt_len=3, gen=2,\n"
         "           device='cpu', log=lambda msg: None)\n"
+        # the training path: two steps with a checkpoint, then a resume
+        "import tempfile\n"
+        "from repro_torch.launch.train import train_loop\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    for stop in (1, None):\n"
+        "        train_loop('smollm-360m', steps=2, batch=1, seq=8,\n"
+        "                   ckpt_dir=d, stop_after=stop, device='cpu',\n"
+        "                   log=lambda msg: None)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or\n"
         "    m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "    m.startswith('repro.'))))\n")
