@@ -153,7 +153,34 @@ From the repository root, on a machine with one CUDA card:
     step of both routes (events, tokens/s, peak memory, device time by
     phase and kernel group from the profiler's trace, idle share, model
     FLOPs against the float32 peak), the step's GEMMs by phase alone
-    beside ``torch.matmul``, and the plain backwards alone.
+    beside ``torch.matmul``, and the plain backwards alone;
+18. holds ``flash_attention`` at head_dim 256 on recurrentgemma's
+    shapes (16 query heads over 1 KV head, window 2048, S 2048) in both
+    types against its plain version, finds tensor-core instructions in
+    its bf16 instantiation's SASS, prints ptxas's registers and spills,
+    holds head_dim 96 to raise, and times it beside its bound and SDPA;
+    then serves granite-moe-1b-a400m (32 greedy steps), mamba2-130m (32)
+    and recurrentgemma-9b (16) at full width and depth through
+    ``Model`` and ``make_prefill_step``/``make_serve_step``: seeded bf16
+    weights, batch 4, prompts of 2048 tokens, every launch counter set
+    to 0 before the prefill and before each step and read after it
+    (``serve_launches``: granite 2,425 ``matmul``, 49
+    ``fused_add_rmsnorm``, 24 ``flash_attention`` a prefill; mamba2
+    49/25/0; recurrentgemma 293/77/12; a step the same less the
+    attentions; granite and recurrentgemma from ``conditioned``
+    weights, whose logits at the reference's init are printed); holds
+    each teacher-forced step's logits against the plain route
+    (``SERVE_BF16_ROW_REL``, or ``MIXER_CONTROL_FACTOR`` times the plain
+    route with its GEMM sums reordered where bf16's own floor is above
+    it; granite's plain route on the kernel route's MoE choices,
+    ``models.moe.Routing``, printing how many choices differ unpinned),
+    each kernel on the inputs the model gave it, a float32 prefill plus
+    decode against a forward
+    (``SERVE_F32_ABS``; granite at ``moe_capacity`` 8.0); times the
+    kernel route (prefill, decode a step, tokens/s, device time by part
+    and idle share, peak memory) and the plain prefill; and runs
+    ``serve_loop(arch, use_reduced=False)`` on each (float32, every GEMM
+    on `mma`, launches held).
 
 Any failed phase raises and the script exits non-zero.  Without CUDA, or
 without the repository's ``src/`` beside it, it exits non-zero and prints
@@ -216,17 +243,22 @@ def int32_ops_per_s() -> float:
     return INT32_LANES_PER_SM * sms * mhz * 1e6
 
 
-def sass_counts(sources=("matmul.cu", "flash_attention.cu")) -> dict:
-    """Tensor-core instructions in each built library's SASS
-    (``cuobjdump --dump-sass``): HGMMA (wgmma) and HMMA (mma.sync)."""
+def sass_of(source: str) -> str:
+    """The SASS of ``source``'s built library (``cuobjdump --dump-sass``)."""
     from repro_torch.kernels import _ext
     tool = Path(_ext.nvcc_path()).parent / "cuobjdump"
+    return subprocess.run(
+        [str(tool), "--dump-sass", str(_ext.library_path(source))],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+
+
+def sass_counts(sources=("matmul.cu", "flash_attention.cu")) -> dict:
+    """Tensor-core instructions in each built library's SASS: HGMMA
+    (wgmma) and HMMA (mma.sync)."""
     out = {}
     for source in sources:
-        sass = subprocess.run(
-            [str(tool), "--dump-sass", str(_ext.library_path(source))],
-            check=True, capture_output=True, text=True, timeout=300).stdout
-        out[source] = {op: sum(f" {op}." in ln for ln in sass.splitlines())
+        lines = sass_of(source).splitlines()
+        out[source] = {op: sum(f" {op}." in ln for ln in lines)
                        for op in ("HGMMA", "HMMA")}
     return out
 
@@ -650,19 +682,27 @@ def profile_device_ms(fn, iters: int, match: str = "") -> dict:
             "wall_ms": wall / iters * 1e3, "records": records}
 
 
-def kernel_names(fn, iters: int = 10) -> list:
+def kernel_names(fn, iters: int = 10, traces: int = 3) -> list:
     """The device kernels ``iters`` calls of ``fn`` launch, by name, from
-    the profiler's trace (which can drop the record of a single call)."""
+    the profiler's trace (which can drop the record of a single call).
+    A trace that holds no device record at all (the profiler on the H100
+    now and then drops every one) is taken again, up to ``traces``
+    times; an empty list means that every trace was empty."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sorted({evt.name for evt in prof.events()
-                   if evt.device_type == torch.autograd.DeviceType.CUDA})
+    names = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({evt.name for evt in prof.events() if
+                        evt.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            break
+    return names
 
 
 def check_one_kernel(name: str, names: list) -> None:
@@ -1713,6 +1753,34 @@ def time_op(fn, plain, library, flops, nbytes, peak, match, iters,
             "bound_ms": b, "bound_by": by}
 
 
+def time_attention(q, k, v, h, kv, window=0) -> dict:
+    """``time_op`` of a causal bf16 ``flash_attention`` call beside SDPA
+    (whose causal mask stands for ``window`` only when it is 0 or covers
+    the sequence), with the kernels SDPA runs and the rate of each."""
+    import torch.nn.functional as tf
+    from repro_torch.kernels import ops, ref
+    bh, s, d = q.shape
+    check(window == 0 or window >= s, f"SDPA's causal mask does not "
+          f"stand for window {window} over {s} positions")
+    pairs = bh * s * (s + 1) // 2            # causal: k_pos <= q_pos
+    b = bh // h
+    qb, kb = q.view(b, h, s, d), k.view(b, kv, s, d)
+    vb = v.view(b, kv, s, d)
+
+    def sdpa():
+        return tf.scaled_dot_product_attention(qb, kb, vb, is_causal=True,
+                                               enable_gqa=True)
+    t = time_op(lambda: ops.flash_attention(q, k, v, h, kv, window=window),
+                lambda: ref.flash_attention_ref(q, k, v, h, kv, True, window),
+                sdpa, 4.0 * d * pairs, 2 * _nbytes(q) + _nbytes(k, v),
+                BF16_OPS_PER_S, "flash_fwd", iters=20)
+    # what the yardstick runs, and the rate each reaches
+    t["library_kernels"] = kernel_names(sdpa)
+    for key in ("device_ms", "library_ms"):
+        t[f"{key[:-3]}_tflops"] = 4.0 * d * pairs / (t[key] * 1e9)
+    return t
+
+
 def time_slice(slice_run) -> dict:
     """Times at the main path's shapes: CUDA events around repeated calls
     after a warm-up; device time from the profiler's trace of the kernel
@@ -1744,25 +1812,7 @@ def time_slice(slice_run) -> dict:
                 5.0 * x.numel(), 2 * _nbytes(x, r) + _nbytes(s),
                 SCALAR_OPS_PER_S, "addnorm", iters=50)
         elif name == "flash_attention":
-            q, k, v, h, kv = args[:5]
-            bh, s, d = q.shape
-            pairs = bh * s * (s + 1) // 2            # causal: k_pos <= q_pos
-            qb, kb = q.view(bh // h, h, s, d), k.view(bh // h, kv, s, d)
-            vb = v.view(bh // h, kv, s, d)
-
-            def sdpa():
-                return tf.scaled_dot_product_attention(
-                    qb, kb, vb, is_causal=True, enable_gqa=True)
-            out[label] = time_op(
-                lambda: ops.flash_attention(*args, **kwargs),
-                lambda: ref.flash_attention_ref(q, k, v, h, kv, True), sdpa,
-                4.0 * d * pairs, 2 * _nbytes(q) + _nbytes(k, v),
-                BF16_OPS_PER_S, "flash_fwd", iters=20)
-            # what the yardstick runs, and the rate each reaches
-            out[label]["library_kernels"] = kernel_names(sdpa)
-            for key in ("device_ms", "library_ms"):
-                out[label][f"{key[:-3]}_tflops"] = \
-                    4.0 * d * pairs / (out[label][key] * 1e9)
+            out[label] = time_attention(*args[:5], kwargs.get("window", 0))
         else:
             x, g, b = args[:3]
             out[label] = time_op(
@@ -1966,6 +2016,19 @@ def control_plain(matmul, base=None):
     if base is None:
         from repro_torch.kernels.training import PLAIN as base
     return SimpleNamespace(**{**vars(base), "matmul": matmul})
+
+
+def reordered_plain():
+    """The serving path's plain versions (``kernels.forward.PLAIN``) with
+    each GEMM's float32 sum taken over the two halves of K and added:
+    the same function, its sums in another order."""
+    from repro_torch.kernels import forward as F
+
+    def matmul(a, b):
+        k = a.shape[1] // 2
+        return (a[:, :k].float() @ b[:k].float()
+                + a[:, k:].float() @ b[k:].float()).to(a.dtype)
+    return control_plain(matmul, F.PLAIN)
 
 
 def noisy_plain(rel: float, generator: torch.Generator):
@@ -2466,20 +2529,33 @@ SERVE_KERNELS = STEP_KERNELS[:1] + (("attention", ("flash_fwd",)),
                                     ("add+norm", ("addnorm<",)))
 
 
-def serve_launches(n_layers: int, prefill: bool) -> dict:
-    """Kernel launches of one prefill or decode step of an RMSNorm
-    attention model through ``Model``: 7 GEMMs a layer and the LM head;
-    norm1 and norm2 of each layer and the final norm; a flash attention
-    a layer in a prefill only."""
-    return {"matmul": 7 * n_layers + 1,
-            "fused_add_rmsnorm": 2 * n_layers + 1,
-            "flash_attention": n_layers if prefill else 0}
+def serve_launches(cfg, prefill: bool) -> dict:
+    """Kernel launches of one prefill or decode step of ``Model(cfg)``
+    for an RMSNorm config: per layer its mixer's GEMMs (attention: q, k,
+    v, o and, in a prefill, one flash attention; mamba2: in and out;
+    RG-LRU: x, gate, r, i, out), its FFN's (dense: 3; MoE: the router
+    and 3 for each expert and for a shared expert), an add+norm before
+    the mixer and one before the FFN; then the final add+norm and the
+    LM head."""
+    mixer = {"attn": 4, "mamba2": 2, "rglru": 5}
+    out = {"matmul": 1, "fused_add_rmsnorm": 1, "flash_attention": 0}
+    for entry in cfg.layer_kinds():
+        kind = entry.split("+")[0]
+        out["matmul"] += mixer[kind]
+        out["flash_attention"] += int(prefill and kind == "attn")
+        out["fused_add_rmsnorm"] += 1
+        if cfg.d_ff:
+            out["fused_add_rmsnorm"] += 1
+            out["matmul"] += (1 + 3 * cfg.n_experts + 3 * cfg.shared_expert
+                              if entry.endswith("+moe") else 3)
+    return out
 
 
-def counted(what: str, fn, want: dict, route: str):
+def counted(what: str, fn, want: dict, route):
     """``fn()`` with every counter set to 0 just before it and read just
     after; the launches must equal ``want`` and every GEMM take
-    ``route``.  Returns the result, the launches and the GEMM routes."""
+    ``route`` (None: any route).  Returns the result, the launches and
+    the GEMM routes."""
     zero_counters()
     out = fn()
     torch.cuda.synchronize()
@@ -2488,8 +2564,9 @@ def counted(what: str, fn, want: dict, route: str):
         check(n == want.get(name, 0), f"{what}: {name} launched {n} times, "
               f"expected {want.get(name, 0)}")
     routes = dict(_routes())
-    check(routes[route] == want["matmul"], f"{what}: matmul routes "
-          f"{routes}, expected all {want['matmul']} on {route}")
+    check(route is None or routes[route] == want["matmul"],
+          f"{what}: matmul routes {routes}, expected all {want['matmul']} "
+          f"on {route}")
     return out, got, routes
 
 
@@ -2499,26 +2576,36 @@ def row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
 
 
-def greedy(prefill, step, params, prompts, steps: int, count=None):
+def greedy(prefill, step, params, prompts, steps: int, count=None,
+           routes=None):
     """Tokens (B, 1 + steps) of a prefill and ``steps`` serve steps, and
     the launches of the prefill and of each step when ``count`` gives
-    ``(label, n_layers, route)``."""
+    ``(label, launches a prefill, launches a step, route)``; the GEMM
+    launches by route are added into ``routes`` if given."""
     def run_prefill():
         return prefill(params, {"tokens": prompts})
+
+    def add(by_route):
+        for key, n in by_route.items():
+            routes[key] = routes.get(key, 0) + n
     if count:
-        label, n, route = count
-        (last, cache), pre, _ = counted(f"{label} prefill", run_prefill,
-                                        serve_launches(n, True), route)
+        label, want_prefill, want_step, route = count
+        (last, cache), pre, by_route = counted(
+            f"{label} prefill", run_prefill, want_prefill, route)
+        if routes is not None:
+            add(by_route)
     else:
         last, cache = run_prefill()
     tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
     out, per_step = [tok], []
     for i in range(steps):
         if count:
-            (nxt, cache), got, _ = counted(
+            (nxt, cache), got, by_route = counted(
                 f"{label} decode step {i}", lambda: step(params, cache, tok),
-                serve_launches(n, False), route)
+                want_step, route)
             per_step.append(got)
+            if routes is not None:
+                add(by_route)
         else:
             nxt, cache = step(params, cache, tok)
         tok = nxt[:, None]
@@ -2530,13 +2617,15 @@ def greedy(prefill, step, params, prompts, steps: int, count=None):
     return torch.cat(out, dim=1), launches
 
 
-def teacher_forced(model, params, prompts, tokens, max_len):
+def teacher_forced(model, params, prompts, tokens, max_len, routing=None):
     """Last-position logits of a prefill of ``prompts``, then of a decode
-    step on each of ``tokens`` (B, T) in turn."""
-    last, cache = model.prefill(params, prompts, max_len)
+    step on each of ``tokens`` (B, T) in turn; ``routing`` records or
+    replays the MoE choices (``models.moe.Routing``)."""
+    last, cache = model.prefill(params, prompts, max_len, routing=routing)
     logits = [last]
     for i in range(tokens.shape[1]):
-        lg, cache = model.decode_step(params, tokens[:, i:i + 1], cache)
+        lg, cache = model.decode_step(params, tokens[:, i:i + 1], cache,
+                                      routing=routing)
         logits.append(lg)
     return logits
 
@@ -2609,12 +2698,13 @@ def serving_slice(device, card, report) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tokens, launches = greedy(*steps["kernels"], params, prompts, SERVE_GEN,
-                              count=("qwen3 bf16", n, "wgmma"))
+                              count=("qwen3 bf16", serve_launches(cfg, True),
+                                     serve_launches(cfg, False), "wgmma"))
     out["first_run_s"] = time.perf_counter() - t0
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["launches"] = launches
-    out["launches_per_prefill"] = serve_launches(n, True)
-    out["launches_per_decode_step"] = serve_launches(n, False)
+    out["launches_per_prefill"] = serve_launches(cfg, True)
+    out["launches_per_decode_step"] = serve_launches(cfg, False)
     check(tokens.shape == (SERVE_BATCH, SERVE_GEN + 1) and
           bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           f"greedy tokens {tuple(tokens.shape)} misshapen or out of range")
@@ -2718,8 +2808,8 @@ def serving_slice(device, card, report) -> dict:
         "serve_loop", lambda: serve.serve_loop(
             "qwen3-0.6b", use_reduced=False, device=device,
             log=logs.append),
-        {name: k + 15 * serve_launches(n, False)[name]
-         for name, k in serve_launches(n, True).items()}, "mma")
+        {name: k + 15 * serve_launches(cfg, False)[name]
+         for name, k in serve_launches(cfg, True).items()}, "mma")
     check(res["generated"].shape == (4, 16) and
           ((res["generated"] >= 0) & (res["generated"] < cfg.vocab_size))
           .all(), f"serve_loop tokens {res['generated'].shape}")
@@ -2780,7 +2870,8 @@ def conditioned(params: dict) -> dict:
     which saturates SmolLM's softmax and makes its step chaotic."""
     import math
     out = {k: v for k, v in params.items()}
-    for key in [k for k in params if k.startswith("blk")]:
+    for key in [k for k in params if k.startswith(("blk", "rem"))
+                and "attn" in params[k]]:
         attn = dict(params[key]["attn"])
         for w in ("wq", "wk", "wv"):
             attn[w] = attn[w] * math.sqrt(attn[w].shape[-2]
@@ -3203,6 +3294,360 @@ def training_llm_slice(device, card, report) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the mixers: granite-moe-1b, mamba2-130m and recurrentgemma-9b served
+# through Model and launch/serve.py at full width and depth
+# ---------------------------------------------------------------------------
+
+# (arch, greedy decode steps); each in bf16 at batch SERVE_BATCH x
+# SERVE_PROMPT from weights seeded with SERVE_SEED
+MIXER_MODELS = (("granite-moe-1b-a400m", 32), ("mamba2-130m", 32),
+                ("recurrentgemma-9b", 16))
+# the float32 hold's MoE capacity: tests/test_decode.py's no-drop 8.0 (at
+# the config's 1.25 a prefill drops tokens that a 4-token decode step
+# keeps, a property of the reference)
+MIXER_F32_CAPACITY = 8.0
+# The bf16 logits' limit against the plain route is SERVE_BF16_ROW_REL or,
+# where bf16's own floor is above it, this many times the control's
+# reading: the plain route with each GEMM's float32 sum reordered
+# (``reordered_plain``), on the same tokens and MoE choices.  Two orders
+# of the same sums move mamba2's logits by 6-13% and recurrentgemma's by
+# 5% (worst row of the prefill and the decode steps, batch 4 x 2048, an
+# H100; phase 18 prints it) where granite's move by 1%.  A wrong kernel
+# or wiring moves rows by O(1), and each kernel is held on the model's
+# inputs beside.
+MIXER_CONTROL_FACTOR = 2.0
+# recurrentgemma's local attention in a prefill of 4 x 2048 tokens: 16
+# query heads over 1 KV head, head_dim 256, window 2048
+RG_ATTN = dict(batch=4, heads=16, kv=1, seq=2048, d=256, window=2048)
+
+
+def routing_flips(got, want) -> tuple:
+    """``(tokens, of)``: the (token, MoE layer) pairs whose set of experts
+    differs between two runs' recorded choices, of all of them, over the
+    calls both runs made (the first ``min`` of each, in order)."""
+    flips = total = 0
+    for g, w in zip(got.choices, want.choices):
+        g, w = g.sort(-1).values, w.to(g.device).sort(-1).values
+        flips += int((g != w).any(-1).sum())
+        total += g[..., 0].numel()
+    return flips, total
+
+
+def sass_of_functions(source: str, fragment: str) -> dict:
+    """HGMMA and HMMA instructions in the SASS of each function of
+    ``source``'s library whose mangled name holds ``fragment``."""
+    out, name = {}, ""
+    for ln in sass_of(source).splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+        elif fragment in name:
+            counts = out.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+            for op in counts:
+                counts[op] += f" {op}." in ln
+    return out
+
+
+def ptxas_of(source: str, fragment: str) -> list:
+    """ptxas's register and spill lines for the functions of ``source``
+    whose mangled name holds ``fragment`` (this process's build)."""
+    from repro_torch.kernels import _ext
+    lines, name = [], ""
+    for ln in _ext.BUILD_LOGS.get(source, "").splitlines():
+        if "entry function '" in ln:
+            name = ln.split("entry function '")[1].split("'")[0]
+        elif "Function properties for " in ln:
+            name = ln.split("Function properties for ")[1].strip()
+        if fragment in name and ("registers" in ln or "spill" in ln):
+            lines.append(f"{name}: {ln.strip()}")
+    return lines
+
+
+def hold_attention_256(held, device, card) -> dict:
+    """``flash_attention`` at head_dim 256 on recurrentgemma's shapes
+    (``RG_ATTN``) in both types against its plain version; tensor-core
+    instructions in the bf16 instantiation's SASS; ptxas's registers and
+    spills of both; the raise of an uncompiled head_dim (96); and the
+    bf16 call's times beside its bound and SDPA's."""
+    from repro_torch.kernels import ops
+    b, h, kv, s, d, w = (RG_ATTN[k] for k in ("batch", "heads", "kv", "seq",
+                                               "d", "window"))
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED + 5)
+
+    def rn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    out = {"sass": sass_of_functions("flash_attention.cu",
+                                     "flash_fwd_tcILi256E"),
+           "ptxas": ptxas_of("flash_attention.cu", "ILi256E")}
+    check(any(c["HMMA"] + c["HGMMA"] > 0 for c in out["sass"].values()),
+          f"flash_attention.cu: no tensor-core instruction in the head_dim "
+          f"256 instantiation's SASS ({out['sass']})")
+    for dtype in (torch.float32, torch.bfloat16):   # bf16 last: timed
+        q, k, v = (rn(b * n, s, d, dtype=dtype) for n in (h, kv, kv))
+        hold_call(held, "flash_attention", f"{dtype} D256 recurrentgemma "
+                  f"({b * h}, {s}, {d}) MQA window {w}", (q, k, v, h, kv),
+                  dict(causal=True, window=w))
+    try:
+        ops.flash_attention(*(rn(2 * n, 64, 96, dtype=torch.bfloat16)
+                              for n in (2, 1, 1)), 2, 1)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check("not compiled" in raised, f"flash_attention at head_dim 96 did "
+          f"not raise as uncompiled: {raised!r}")
+    out["head_dim_96"] = raised
+    out["times"] = t = time_attention(q, k, v, h, kv, w)
+    print(f"  flash_attention head_dim 256, recurrentgemma's prefill "
+          f"({b * h}, {s}, {d}) over 1 KV head, window {w}: held in bf16 "
+          f"and float32; SASS of the bf16 instantiation {out['sass']}; "
+          f"ptxas {out['ptxas']}; head_dim 96 raises ({raised!r})")
+    print(f"    bf16: {t['ms']} ms (device {t['device_ms']} ms, "
+          f"{t['device_tflops']} TFLOP/s), plain {t['plain_ms']} ms, bound "
+          f"{t['bound_ms']} ms ({t['bound_by']}), SDPA {t['library_ms']} "
+          f"ms (device {t['library_device_ms']} ms; "
+          f"{t['library_kernels']})  [{card}]")
+    return out
+
+
+def serve_mixer(arch, gen, device, card, held) -> dict:
+    """Serve ``arch`` at full width and depth in bf16 through
+    ``make_prefill_step``/``make_serve_step`` (launches held a prefill
+    and a step), hold it against the plain route (on the kernel route's
+    MoE choices), each kernel on its inputs against its plain version, a
+    float32 prefill + decode against a forward, time it, and run
+    ``serve_loop(use_reduced=False)``.  Returns the numbers, with the
+    main-path launches by kernel.
+
+    A model with attention is served from ``conditioned`` weights: at
+    the reference's init its attention logits reach hundreds (granite's
+    ``wk``, (1024, 8, 64), draws std 1/sqrt(8); recurrentgemma's, (4096,
+    1, 256), std 1), so each softmax row is one-hot and the plain
+    version's bf16 rounding of the logits, the oracle's own arithmetic,
+    moves whole rows.  The prefill's logits at the reference's init
+    against the plain route are printed, not held."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import forward as F
+    from repro_torch.launch import serve
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.moe import Routing
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch)
+    moe = cfg.n_experts > 0
+    rec = RecordingOps()
+    rec.model = arch
+    model, plain = Model(cfg, impl=rec), Model(cfg, impl=F.PLAIN)
+    params = model.init(torch.Generator(device=device)
+                        .manual_seed(SERVE_SEED))
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            device=device, generator=torch.Generator(
+                                device=device).manual_seed(SERVE_SEED + 1))
+    max_len = SERVE_PROMPT + gen + 8
+    attention = any(e.startswith("attn") for e in cfg.pattern)
+    reference_init = None
+    if attention:
+        rec.model = None
+        chosen = Routing() if moe else None
+        got = model.prefill(params, prompts, max_len, routing=chosen)[0]
+        want = plain.prefill(params, prompts, max_len,
+                             routing=chosen.pinned() if moe else None)[0]
+        reference_init = row_rel(got, want)
+        del got, want, chosen
+        params = conditioned(params)
+        rec.model = arch
+    want_pre, want_step = serve_launches(cfg, True), serve_launches(cfg, False)
+    prefill = serve.make_prefill_step(model, None, max_len)
+    step = serve.make_serve_step(model, None)
+    out = {"config": f"{arch}, {cfg.n_layers} layers, d {cfg.d_model}, "
+                     f"bf16, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+                     f"{gen} decode steps"
+                     + (", conditioned attention" if attention else ""),
+           "params": model.n_params(), "launches_per_prefill": want_pre,
+           "launches_per_decode_step": want_step, "routes": {},
+           "bf16_row_rel_prefill_reference_init": reference_init}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens, launches = greedy(prefill, step, params, prompts, gen,
+                              count=(f"{arch} bf16", want_pre, want_step,
+                                     None), routes=out["routes"])
+    out["first_run_s"] = time.perf_counter() - t0
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = launches
+    check(tokens.shape == (SERVE_BATCH, gen + 1) and
+          bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"{arch}: greedy tokens {tuple(tokens.shape)} misshapen or out of "
+          f"range")
+    print(f"serving {out['config']} ({out['params']} parameters, seed "
+          f"{SERVE_SEED}) through make_prefill_step/make_serve_step: "
+          f"launches a "
+          f"prefill {want_pre} and a decode step {want_step}, held on the "
+          f"prefill and each step; GEMMs by route {out['routes']}; first "
+          f"run {out['first_run_s']} s, peak memory "
+          f"{out['peak_memory_gb']} GB  [{card}]")
+
+    # each kernel on the inputs the model gave it
+    before = {name: len(held.cases[name]) for name in OPS}
+    for (name, shapes), (_, args, kwargs) in rec.inputs.items():
+        hold_call(held, name, f"main path {arch} {shapes}", args, kwargs,
+                  main=True)
+    rec.inputs.clear()
+    rec.model = None
+    out["held"] = {name: len(held.cases[name]) - before[name]
+                   for name in OPS if len(held.cases[name]) > before[name]}
+    print(f"  each kernel on {arch}'s inputs (one call a shape) against "
+          f"its plain version: {out['held']} shapes held")
+
+    # the kernel route against the plain route from the same weights,
+    # teacher-forced on the kernel route's greedy tokens; a MoE model's
+    # plain route on the kernel route's choices
+    feed = tokens[:, :-1]
+    chosen = Routing() if moe else None
+    got = teacher_forced(model, params, prompts, feed, max_len, chosen)
+    want = teacher_forced(plain, params, prompts, feed, max_len,
+                          chosen.pinned() if moe else None)
+    ctl = teacher_forced(Model(cfg, impl=reordered_plain()), params,
+                         prompts, feed, max_len,
+                         chosen.pinned() if moe else None)
+    rels = [row_rel(g, w) for g, w in zip(got, want)]
+    control = [row_rel(c, w) for c, w in zip(ctl, want)]
+    limit = max(SERVE_BF16_ROW_REL, MIXER_CONTROL_FACTOR * max(control))
+    out["bf16_row_rel_prefill"] = rels[0]
+    out["bf16_row_rel_decode_max"] = max(rels[1:])
+    out["bf16_control_row_rel"] = {"prefill": control[0],
+                                   "decode_max": max(control[1:])}
+    out["bf16_row_rel_limit"] = limit
+    for i, r in enumerate(rels):
+        check(r <= limit, f"{arch}: bf16 logits at step {i} (0: the "
+              f"prefill) off the plain route by {r} (worst row, relative), "
+              f"above {limit} (the reordered control reads {control[i]})")
+    forced = torch.stack([g.argmax(-1) for g in got[:-1]], dim=1)
+    check(torch.equal(forced, tokens[:, :-1].to(forced.dtype)),
+          f"{arch}: the kernel route's teacher-forced argmax differs from "
+          f"its own greedy tokens")
+    del got, want, ctl
+    if moe:
+        # the plain route's own choices in a prefill, against the kernel
+        # route's (the prefill's calls come first in ``chosen``)
+        free = Routing()
+        plain.prefill(params, prompts, max_len, routing=free)
+        flips, total = routing_flips(chosen, free)
+        out["routing_unpinned"] = {"differs": flips, "of": total,
+                                   "share": flips / total}
+        del free
+    pinned = ", on the kernel route's MoE choices" if moe else ""
+    print(f"  bf16 logits against the plain route (worst row, relative; "
+          f"limit {limit}{pinned}): prefill {rels[0]}, decode steps max "
+          f"{out['bf16_row_rel_decode_max']}; the plain route with its "
+          f"GEMM sums reordered: prefill {control[0]}, decode steps max "
+          f"{max(control[1:])}; "
+          f"at the reference's init, not held: prefill {reference_init}; "
+          f"teacher-forced argmax equal to the greedy tokens"
+          + (f"; unpinned, the plain route's prefill chooses other experts "
+             f"for {out['routing_unpinned']['differs']} of "
+             f"{out['routing_unpinned']['of']} (token, layer) pairs "
+             f"({out['routing_unpinned']['share']})" if moe else ""))
+    del chosen
+
+    # times of the kernel route, where its device time goes, and the
+    # plain route's prefill
+    out["times"] = time_route(prefill, step, params, prompts, gen)
+    batch = {"tokens": prompts}
+    last, cache = prefill(params, batch)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    out["trace"] = {"prefill": profile_step(lambda: prefill(params, batch),
+                                            SERVE_KERNELS),
+                    "decode step": profile_step(
+                        lambda: step(params, cache, tok), SERVE_KERNELS)}
+    del last, cache
+    out["plain_prefill_ms"] = cuda_ms(
+        lambda: plain.prefill(params, prompts, max_len), iters=1, warmup=1)
+    t = out["times"]
+    print(f"  kernels route: prefill {t['prefill_ms']} ms (device "
+          f"{t['prefill_device_ms']} ms, idle {t['prefill_idle']}); decode "
+          f"{t['decode_ms_per_step']} ms a step ({t['tokens_per_s']} "
+          f"tokens/s), device {t['decode_device_ms']} ms, idle "
+          f"{t['decode_idle']}; plain route prefill "
+          f"{out['plain_prefill_ms']} ms  [{card}]")
+    for name, tr in out["trace"].items():
+        print(f"    one {name} in the profiler's trace: device "
+              f"{tr['device_ms']} ms, by part {tr['parts_ms']} ms, records "
+              f"{tr['records']}  [{card}]")
+        for kname, ms, count in tr["top"][:5]:
+            print(f"      {kname[:70]}: {ms} ms, {count} records")
+    del prefill, step, model, plain, rec
+
+    # float32: prefill + decode against one forward of the same tokens
+    cfg32 = cfg.replace(dtype=torch.float32)
+    if moe:
+        cfg32 = cfg32.replace(moe_capacity=MIXER_F32_CAPACITY)
+    p32 = tree_map(lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    m32 = Model(cfg32)
+    total = SERVE_F32_PROMPT + SERVE_F32_STEPS
+    ids = prompts[:, :total]
+    with torch.inference_mode():
+        full, _, _ = m32.forward(p32, ids)
+    got32 = teacher_forced(m32, p32, ids[:, :SERVE_F32_PROMPT],
+                           ids[:, SERVE_F32_PROMPT:], total + 8)
+    errs = [float((g - full[:, SERVE_F32_PROMPT - 1 + i]).abs().max())
+            for i, g in enumerate(got32)]
+    out["f32_prefill_decode_vs_forward_max_abs"] = max(errs)
+    out["f32_logits_max_abs"] = float(full.abs().max())
+    check(max(errs) <= SERVE_F32_ABS, f"{arch}: f32 prefill + decode off "
+          f"the forward by {max(errs)}, above {SERVE_F32_ABS}")
+    del full, got32, p32, m32
+    torch.cuda.empty_cache()
+    print(f"  float32{f' (moe_capacity {MIXER_F32_CAPACITY})' if moe else ''}"
+          f": prefill of {SERVE_F32_PROMPT} + {SERVE_F32_STEPS} decode steps "
+          f"against one forward, max abs err {max(errs)} (limit "
+          f"{SERVE_F32_ABS}; logits reach {out['f32_logits_max_abs']})")
+
+    # the reference's demo at its defaults, full size, float32
+    logs = []
+    loop_want = {name: k + 15 * serve_launches(cfg32, False)[name]
+                 for name, k in serve_launches(cfg32, True).items()}
+    res, loop_launches, _ = counted(
+        f"serve_loop {arch}", lambda: serve.serve_loop(
+            arch, use_reduced=False, device=device, log=logs.append),
+        loop_want, "mma")
+    check(res["generated"].shape == (4, 16) and
+          ((res["generated"] >= 0) & (res["generated"] < cfg.vocab_size))
+          .all(), f"serve_loop {arch} tokens {res['generated'].shape}")
+    out["serve_loop"] = {"elapsed_s": res["elapsed_s"], "log": logs[0],
+                         "launches": loop_launches}
+    torch.cuda.empty_cache()
+    print(f"  serve_loop({arch!r}, use_reduced=False) at its defaults "
+          f"(batch 4, prompt 16, 16 tokens, float32): {logs[0]}; launches "
+          f"{loop_launches}, every GEMM on mma  [{card}]")
+    out["main_path_launches"] = {name: launches[name] + loop_launches[name]
+                                 for name in launches}
+    return out
+
+
+def mixers_slice(device, card, report) -> dict:
+    """Phase 18: ``flash_attention`` at head_dim 256, then granite-moe-1b,
+    mamba2-130m and recurrentgemma-9b served at full width and depth
+    (``serve_mixer``).  Returns the main-path launches by kernel, the
+    kernel checks, and the head_dim 256 attention's times."""
+    held = Held()
+    t0 = time.perf_counter()
+    out = {"attention_256": hold_attention_256(held, device, card)}
+    launches = {}
+    for arch, gen in MIXER_MODELS:
+        out[arch] = serve_mixer(arch, gen, device, card, held)
+        for name, n in out[arch]["main_path_launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    out["seconds"] = time.perf_counter() - t0
+    report["mixers"] = out
+    print(f"mixers phase: {out['seconds']} s; main-path launches "
+          f"{launches}")
+    return {"launches": launches,
+            "held": {name: (len(held.cases[name]), held.max_err(name))
+                     for name in OPS if held.cases[name]},
+            "attention_256": out["attention_256"]["times"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -3316,14 +3761,23 @@ def main(argv=None) -> int:
     bn_back_entry, train_launches = training_slice(device, card, report)
     serving = serving_slice(device, card, report)
     llm_train = training_llm_slice(device, card, report)
+    mixers = mixers_slice(device, card, report)
     for entry in slice_entries:
         name = entry["name"]
         entry["launches"] += train_launches[name] + \
-            serving.get(name, 0) + llm_train["launches"].get(name, 0)
-        if name in llm_train["held"]:
-            checks, err = llm_train["held"][name]
-            entry["checks"] += checks
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            serving.get(name, 0) + llm_train["launches"].get(name, 0) + \
+            mixers["launches"].get(name, 0)
+        for more in (llm_train["held"], mixers["held"]):
+            if name in more:
+                checks, err = more[name]
+                entry["checks"] += checks
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if name == "flash_attention":
+            t = mixers["attention_256"]
+            entry["head_dim_256"] = {
+                key: t[key] for key in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "library_device_ms")}
 
     main_label = "lattice128/training/cycles"
     t = timing[main_label]

@@ -37,11 +37,18 @@
 //   mask touches for the whole block skips the mask: at 64-key tiles the
 //   softmax's ALU work is of the order of the tile's mma.sync time.
 //   Bases must be 16-byte aligned (cp.async moves 16 bytes).
+//   At head_dim 256 (RecurrentGemma's local attention) a warp's output
+//   fragments alone take 128 registers a thread, and Q's 64 more would
+//   spill: there Q stays in shared memory (it does anyway) and each 16-wide
+//   slice of it is read with ldmatrix when S = Q K^T needs it, once a key
+//   tile.  The block's shared memory is 165 KB (Q, two K and two V tiles),
+//   so one block runs on an SM.
 // * float32, `flash_fwd`, on the CUDA cores: TF32 would break the float32
 //   tolerance of 2e-5.  One block of 256 threads for each (b*h, 64-query
 //   tile); Q, K and V tiles in shared memory; thread (ty, tx) owns query
 //   rows 4ty..4ty+3 against keys tx + 16j and output columns tx + 16j, so
 //   the running max, denominator and correction never leave the thread.
+//   At head_dim 256 the tiles take 214 KB of shared memory, one block an SM.
 #include <cstdint>
 #include <initializer_list>
 
@@ -269,6 +276,9 @@ __global__ void __launch_bounds__(TC_THREADS)
                  int n_heads, int n_kv, bool causal, int window,
                  float scale) {
   constexpr int LD = D + 8, KD = D / 16, ND = D / 8, NK = BKV / 8;
+  // Q's fragments in registers for the whole block, or read from shared
+  // memory a key tile (head_dim 256: the registers hold O)
+  constexpr bool kQRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD]
   bf16* Ks = Qs + BQ * LD;                        // [2][BKV][LD]
@@ -294,7 +304,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   load_rows<D>(Vs, vb, t_first * BKV, S);
   cp_async_commit();
 
-  uint32_t qf[KD][4];
+  uint32_t qf[kQRegs ? KD : 1][4];
   float o[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j)
@@ -313,11 +323,14 @@ __global__ void __launch_bounds__(TC_THREADS)
     cp_async_commit();
     cp_async_wait<1>();        // all but the newest group: this tile is in
     __syncthreads();
-    if (t == t_first) {
+    // this lane's row and column offset in the warp's 16 rows of Q
+    const bf16* q_lane =
+        Qs + (warp * 16 + (lane / 8 % 2) * 8 + lane % 8) * LD + lane / 16 * 8;
+    if constexpr (kQRegs) {
+      if (t == t_first) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane / 8 % 2) * 8 + lane % 8) *
-                                     LD + kk * 16 + lane / 16 * 8);
+        for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_lane + kk * 16);
+      }
     }
     const bf16* Kt = Ks + buf * BKV * LD;
     const bf16* Vt = Vs + buf * BKV * LD;
@@ -331,13 +344,20 @@ __global__ void __launch_bounds__(TC_THREADS)
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, q_lane + kk * 16);
+      }
 #pragma unroll
       for (int jp = 0; jp < NK / 2; ++jp) {
         uint32_t b[4];
         ldmatrix_x4(b, Kt + (jp * 16 + lane / 16 * 8 + lane % 8) * LD +
                            kk * 16 + (lane / 8 % 2) * 8);
-        mma_16816(sc[2 * jp], qf[kk], b[0], b[1]);
-        mma_16816(sc[2 * jp + 1], qf[kk], b[2], b[3]);
+        mma_16816(sc[2 * jp], qa, b[0], b[1]);
+        mma_16816(sc[2 * jp + 1], qa, b[2], b[3]);
       }
     }
 
@@ -473,13 +493,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int bh,
     case 32: return LAUNCH<32>(q, k, v, out, bh, S, n_heads, n_kv, c, window, scale, s); \
     case 64: return LAUNCH<64>(q, k, v, out, bh, S, n_heads, n_kv, c, window, scale, s); \
     case 128: return LAUNCH<128>(q, k, v, out, bh, S, n_heads, n_kv, c, window, scale, s); \
+    case 256: return LAUNCH<256>(q, k, v, out, bh, S, n_heads, n_kv, c, window, scale, s); \
     default: return static_cast<int>(cudaErrorInvalidValue);               \
   }
 
 }  // namespace
 
 // out = attention(q, k, v) for bh = B*H query heads of S positions and
-// head_dim d in {16, 32, 64, 128}; S, bh > 0: float32 on the CUDA cores,
+// head_dim d in {16, 32, 64, 128, 256}; S, bh > 0: float32 on the CUDA cores,
 // bf16 on the tensor cores (16-byte aligned bases, else
 // cudaErrorMisalignedAddress).  Returns a cudaError_t code.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,

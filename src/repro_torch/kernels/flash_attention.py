@@ -5,7 +5,8 @@ masks and grouped-query heads: q (B*H, S, D), k and v (B*KV, S, D), out
 On CUDA tensors it launches the hand-written kernel
 ``csrc/flash_attention.cu`` (the port of the JAX package's Pallas
 ``flash_attention_pallas``; the source says how it is laid out and what
-bounds it), for head_dim 16, 32, 64 or 128: bf16 on the tensor cores
+bounds it), for head_dim 16, 32, 64, 128 or 256 (RecurrentGemma's local
+attention; any other head_dim raises): bf16 on the tensor cores
 (``mma.sync``; q, k and v must start on 16-byte boundaries), float32 on
 the CUDA cores (TF32 would break the float32 tolerance).  On CPU tensors
 it runs ``flash_attention_ref``, the plain version.  Both mask keys at or
@@ -41,7 +42,7 @@ SOURCE = "flash_attention.cu"
 _LAUNCH = "flash_attention_launch"
 _ARGTYPES = (ctypes.c_int,) + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (
     ctypes.c_float, ctypes.c_void_p)
-HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)    # the kernel's instantiations
 
 
 def _check_shapes(q, k, v, n_heads: int, n_kv: int, window: int) -> None:

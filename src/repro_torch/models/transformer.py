@@ -1,8 +1,7 @@
-"""Unified model: attention mixers with dense FFNs assembled into layer
-stacks -- the JAX package's ``models/transformer.py`` for its attention
-architectures (qwen3, smollm, stablelm, gemma3, pixtral, whisper):
-serving (``forward``, ``prefill``, ``decode_step``) and training
-(``loss``).
+"""Unified model: assembles attention / Mamba2 / RG-LRU mixers with dense /
+MoE FFNs into layer stacks -- the JAX package's ``models/transformer.py``
+for all ten architectures: serving (``forward``, ``prefill``,
+``decode_step``) and training (``loss``).
 
 Layer stacking follows the JAX package: the layer list is ``cfg.pattern``
 repeated; each *pattern position* ``gi`` is a homogeneous stack whose
@@ -16,30 +15,39 @@ the backward (``launch/train.py`` sets it False, as the JAX trainer
 does).
 
 Caches mirror the parameter structure: ``cache['blk<i>']`` holds the
-stacked per-layer KV buffer and position (``pos``: shape ``(groups,)``),
-``cache['rem<j>']`` the unrolled remainder's, ``cache['blk<i>']['_cross']``
-the encoder KV of enc-dec models.  They are updated in place.
+stacked per-layer state of pattern position i (KV buffer and position
+``pos``, shape ``(groups,)``, for attention; the float32 SSD state and
+conv tail for mamba2; the float32 recurrent state and conv tail for
+RG-LRU), ``cache['rem<j>']`` the unrolled remainder's,
+``cache['blk<i>']['_cross']`` the encoder KV of enc-dec models.  They
+are updated in place.
 
 Kernel routing (``impl``, ``kernels.ops`` by default; ``kernels.forward.
 PLAIN`` gives the same model composed of the plain versions; a model
 that is differentiated on the card takes ``kernels.ops.differentiable()``,
 the same calls through autograd functions): every
-product of activations with a weight goes through ``impl.matmul``, the
-self-attention of a prefill through ``impl.flash_attention``
+product of activations with a weight goes through ``impl.matmul`` (the
+mixers' projections, the MoE router and each expert's products among
+them), the self-attention of a prefill through ``impl.flash_attention``
 (``attention.attention``), and for ``norm_type == "rmsnorm"`` every
 residual add followed by an RMSNorm through ``impl.fused_add_rmsnorm`` --
 each block's norm2, the next block's norm1 and the final norm.  A block
 therefore hands its last residual (``pending``) to the next norm instead
 of adding it itself; the first norm1 adds a zero residual.  LayerNorm
-configs add and normalize in plain PyTorch.
+configs add and normalize in plain PyTorch.  The SSD chunk einsums, the
+RG-LRU scan, the convs and the MoE dispatch are plain PyTorch, as the
+JAX package leaves them to XLA.
+
+``forward``, ``prefill`` and ``decode_step`` take an optional
+``routing`` (``moe.Routing``) that records or replays the MoE layers'
+top-k choices, so that two kernel routes can be compared on the same
+choices.
 
 ``loss`` is the JAX package's next-token cross-entropy over the same
-stack, its LM head built inside the caller's graph; ``ce_chunk > 0``
-rematerializes one chunk of logits at a time (``torch.utils.checkpoint``
-where the JAX package uses ``jax.checkpoint``).
-
-Mamba2 and RG-LRU mixers and MoE FFNs are not ported: a config that uses
-one raises ``NotImplementedError`` (ROADMAP Queue 1 item 5).
+stack plus 0.01 x the summed MoE aux loss, its LM head built inside the
+caller's graph; ``ce_chunk > 0`` rematerializes one chunk of logits at a
+time (``torch.utils.checkpoint`` where the JAX package uses
+``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -52,15 +60,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from . import attention as ATT
+from . import moe as MOE
+from . import rglru as RG
+from . import ssm as SSM
 from .common import (ModelConfig, ParamDef, Rules, TensorSpec,
                      abstract_params, check_rules, init_params, param_count)
 from .layers import (apply_mlp, apply_norm, embed_defs, embed_tokens,
                      linear, lm_logits, mlp_defs, norm_defs)
-
-_UNPORTED = {"mamba2": "the Mamba2 mixer (models/ssm.py)",
-             "rglru": "the RG-LRU mixer (models/rglru.py)",
-             "moe": "the MoE FFN (models/moe.py)"}
-
 
 def _mixer_kind(entry: str) -> str:
     return entry.split("+")[0]
@@ -70,30 +76,35 @@ def _is_moe(entry: str) -> bool:
     return entry.endswith("+moe")
 
 
+_MIXERS = ("attn", "mamba2", "rglru")
+
+
 def _check_entry(entry: str) -> None:
-    """Raise ``NotImplementedError`` for a pattern entry this port cannot
-    run, ``ValueError`` for one the JAX package does not know either."""
+    """Raise ``ValueError`` for a pattern entry whose mixer the JAX
+    package does not know either."""
     kind = _mixer_kind(entry)
-    for part in (kind, "moe" if _is_moe(entry) else None):
-        if part in _UNPORTED:
-            raise NotImplementedError(
-                f"{_UNPORTED[part]} is not ported yet (block entry "
-                f"{entry!r}): ROADMAP Queue 1 item 5")
-    if kind != "attn":
+    if kind not in _MIXERS:
         raise ValueError(kind)
 
 
 def _block_defs(cfg: ModelConfig, entry: str, lead: Tuple[int, ...],
                 cross: bool) -> Dict:
     _check_entry(entry)
-    defs: Dict[str, Any] = {"norm1": norm_defs(cfg, cfg.d_model, lead),
-                            "attn": ATT.attn_defs(cfg, lead)}
+    kind = _mixer_kind(entry)
+    defs: Dict[str, Any] = {"norm1": norm_defs(cfg, cfg.d_model, lead)}
+    if kind == "attn":
+        defs["attn"] = ATT.attn_defs(cfg, lead)
+    elif kind == "mamba2":
+        defs["ssm"] = SSM.ssm_defs(cfg, lead)
+    else:
+        defs["rglru"] = RG.rglru_defs(cfg, lead)
     if cross:
         defs["xnorm"] = norm_defs(cfg, cfg.d_model, lead)
         defs["xattn"] = ATT.attn_defs(cfg, lead, cross=True)
     if cfg.d_ff > 0:
         defs["norm2"] = norm_defs(cfg, cfg.d_model, lead)
-        defs["mlp"] = mlp_defs(cfg, lead)
+        defs["mlp"] = (MOE.moe_defs(cfg, lead) if _is_moe(entry)
+                       else mlp_defs(cfg, lead))
     return defs
 
 
@@ -123,16 +134,28 @@ def _apply_block(cfg: ModelConfig, entry: str, p: Dict, x: torch.Tensor,
                  window=None, cache: Optional[Dict] = None,
                  enc_out: Optional[torch.Tensor] = None,
                  causal: Optional[bool] = None, impl=ops,
-                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+                 routing: Optional[MOE.Routing] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict],
+                            Optional[torch.Tensor]]:
     """One block on the residual stream ``x + pending``.  Returns ``(x,
-    pending, cache)``: the stream is again ``x + pending``, the block's
-    last residual not yet added (``add_norm`` of the next norm adds it)."""
+    pending, cache, aux)``: the stream is again ``x + pending``, the
+    block's last residual not yet added (``add_norm`` of the next norm
+    adds it); ``aux`` is the MoE aux loss, None for a dense FFN."""
     _check_entry(entry)
+    kind = _mixer_kind(entry)
+    aux = None
     # the cached cross-attention KV is read-only; the rest is the mixer's
     cross_kv = None if cache is None else cache.get("_cross")
     h, x = add_norm(cfg, p["norm1"], x, pending, impl)
-    mix, cache = ATT.attention(cfg, p["attn"], h, rules, cache=cache,
-                               window=window, causal=causal, impl=impl)
+    if kind == "attn":
+        mix, cache = ATT.attention(cfg, p["attn"], h, rules, cache=cache,
+                                   window=window, causal=causal, impl=impl)
+    elif kind == "mamba2":
+        mix, cache = SSM.apply_ssm(cfg, p["ssm"], h, rules, state=cache,
+                                   impl=impl)
+    else:
+        mix, cache = RG.apply_rglru(cfg, p["rglru"], h, rules, state=cache,
+                                    impl=impl)
     pending = mix
     if "xattn" in p:
         hx, x = add_norm(cfg, p["xnorm"], x, pending, impl)
@@ -146,8 +169,12 @@ def _apply_block(cfg: ModelConfig, entry: str, p: Dict, x: torch.Tensor,
                                        impl=impl)
     if cfg.d_ff > 0:
         h2, x = add_norm(cfg, p["norm2"], x, pending, impl)
-        pending = apply_mlp(cfg, p["mlp"], h2, rules, impl)
-    return x, pending, cache
+        if _is_moe(entry):
+            pending, aux = MOE.apply_moe(cfg, p["mlp"], h2, rules, impl,
+                                         routing)
+        else:
+            pending = apply_mlp(cfg, p["mlp"], h2, rules, impl)
+    return x, pending, cache, aux
 
 
 def _index(tree, i: int):
@@ -257,41 +284,45 @@ class Model:
         x = x + params["enc"]["pos_emb"][:x.shape[1]].to(cfg.dtype)
         pending = None
         for p in _unbind(params["enc"]["blk"], cfg.encoder_layers):
-            x, pending, _ = _apply_block(cfg, "attn", p, x, rules,
-                                         pending=pending, causal=False,
-                                         impl=self.impl)
+            x, pending, _, _ = _apply_block(cfg, "attn", p, x, rules,
+                                            pending=pending, causal=False,
+                                            impl=self.impl)
         return add_norm(cfg, params["enc"]["norm"], x, pending,
                         self.impl)[0]
 
     # ---- main stacks ---------------------------------------------------------
     def _run_stack(self, params: Dict, x: torch.Tensor,
                    rules: Optional[Rules], cache: Optional[Dict],
-                   enc_out: Optional[torch.Tensor]
+                   enc_out: Optional[torch.Tensor],
+                   routing: Optional[MOE.Routing] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                              Optional[Dict]]:
-        """The layers on ``x``; returns ``(x, pending, cache)`` (the
-        stream is ``x + pending``)."""
+                              Optional[Dict], torch.Tensor]:
+        """The layers on ``x``; returns ``(x, pending, cache, aux)`` (the
+        stream is ``x + pending``; ``aux``: the MoE aux losses summed in
+        layer order, a float32 0 without MoE)."""
         cfg = self.cfg
         wins = self._windows()
         plen = len(self.pat)
         pending = None
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         stacks = [_unbind(params[f"blk{gi}"], self.groups)
                   for gi in range(plen if self.groups else 0)]
-        for g in range(self.groups):
-            for gi, entry in enumerate(self.pat):
-                csl = None if cache is None else _index(cache[f"blk{gi}"], g)
-                x, pending, _ = _apply_block(
-                    cfg, entry, stacks[gi][g], x, rules,
-                    pending=pending, window=wins[g * plen + gi], cache=csl,
-                    enc_out=enc_out, impl=self.impl)
+        layers = [(entry, stacks[gi][g], g * plen + gi,
+                   None if cache is None else _index(cache[f"blk{gi}"], g))
+                  for g in range(self.groups)
+                  for gi, entry in enumerate(self.pat)]
         base = self.groups * plen
-        for j in range(self.remainder):
-            csl = None if cache is None else cache[f"rem{j}"]
-            x, pending, _ = _apply_block(
-                cfg, self.pat[j], params[f"rem{j}"], x, rules,
-                pending=pending, window=wins[base + j], cache=csl,
-                enc_out=enc_out, impl=self.impl)
-        return x, pending, cache
+        layers += [(self.pat[j], params[f"rem{j}"], base + j,
+                    None if cache is None else cache[f"rem{j}"])
+                   for j in range(self.remainder)]
+        for entry, p, i, csl in layers:
+            x, pending, _, aux = _apply_block(
+                cfg, entry, p, x, rules, pending=pending, window=wins[i],
+                cache=csl, enc_out=enc_out, impl=self.impl,
+                routing=routing)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, pending, cache, aux_total
 
     # ---- forward -------------------------------------------------------------
     def _final_hidden(self, params: Dict, tokens: torch.Tensor,
@@ -299,9 +330,10 @@ class Model:
                       frames: Optional[torch.Tensor] = None,
                       patches: Optional[torch.Tensor] = None,
                       cache: Optional[Dict] = None,
+                      routing: Optional[MOE.Routing] = None,
                       ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """The final norm's output (B, S, d), ``cache`` (updated in
-        place) and the MoE aux loss (0: no MoE is ported)."""
+        place) and the MoE aux loss summed over the layers."""
         check_rules(rules)
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, rules, cfg.dtype)
@@ -317,23 +349,25 @@ class Model:
         if cfg.encoder_layers > 0 and frames is not None:
             enc_out = self.encode(params, frames, rules)
 
-        x, pending, cache = self._run_stack(params, x, rules, cache, enc_out)
+        x, pending, cache, aux = self._run_stack(params, x, rules, cache,
+                                                 enc_out, routing)
         if cache is not None and "pos_offset" in cache:
             cache["pos_offset"].add_(x.shape[1])
         x, _ = add_norm(cfg, params["final_norm"], x, pending, self.impl)
-        return x, cache, torch.zeros((), dtype=torch.float32,
-                                     device=x.device)
+        return x, cache, aux
 
     def forward(self, params: Dict, tokens: torch.Tensor,
                 rules: Optional[Rules] = None,
                 frames: Optional[torch.Tensor] = None,
                 patches: Optional[torch.Tensor] = None,
                 cache: Optional[Dict] = None,
+                routing: Optional[MOE.Routing] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """Returns (logits_f32, cache, moe_aux_loss); ``cache`` is
-        updated in place."""
+        updated in place; ``routing`` records or replays the MoE
+        choices (``moe.Routing``)."""
         x, cache, aux = self._final_hidden(params, tokens, rules, frames,
-                                           patches, cache)
+                                           patches, cache, routing)
         logits = lm_logits(params["embed"], x, rules, self.impl,
                            head=self.head(params))
         return logits, cache, aux
@@ -388,16 +422,29 @@ class Model:
                      max_len: int, abstract: bool, device) -> Dict:
         cfg = self.cfg
         _check_entry(entry)
+        kind = _mixer_kind(entry)
         mk = TensorSpec if abstract else (
             lambda s, d: torch.zeros(s, dtype=d, device=device))
         kv, hd = cfg.n_kv_heads, cfg.hd
-        cdt = cfg.cache_dtype or cfg.dtype
-        c = {"k": mk(lead + (batch, max_len, kv, hd), cdt),
-             "v": mk(lead + (batch, max_len, kv, hd), cdt),
-             "pos": mk(lead, torch.int32)}
-        if cdt == torch.int8:
-            c["k_scale"] = mk(lead + (batch, max_len, kv), torch.float32)
-            c["v_scale"] = mk(lead + (batch, max_len, kv), torch.float32)
+        if kind == "attn":
+            cdt = cfg.cache_dtype or cfg.dtype
+            c = {"k": mk(lead + (batch, max_len, kv, hd), cdt),
+                 "v": mk(lead + (batch, max_len, kv, hd), cdt),
+                 "pos": mk(lead, torch.int32)}
+            if cdt == torch.int8:
+                c["k_scale"] = mk(lead + (batch, max_len, kv), torch.float32)
+                c["v_scale"] = mk(lead + (batch, max_len, kv), torch.float32)
+        elif kind == "mamba2":
+            di, h, n = SSM.ssm_dims(cfg)
+            c = {"ssm": mk(lead + (batch, h, cfg.ssm_head_dim, n),
+                           torch.float32),
+                 "conv": mk(lead + (batch, cfg.conv_width - 1, di + 2 * n),
+                            torch.float32)}
+        else:
+            r = cfg.rnn_width or cfg.d_model
+            c = {"h": mk(lead + (batch, r), torch.float32),
+                 "conv": mk(lead + (batch, cfg.conv_width - 1, r),
+                            torch.float32)}
         if cfg.encoder_layers > 0:
             c["_cross"] = {
                 "k": mk(lead + (batch, cfg.encoder_seq, kv, hd), cfg.dtype),
@@ -425,7 +472,8 @@ class Model:
     def prefill(self, params: Dict, tokens: torch.Tensor, max_len: int,
                 rules: Optional[Rules] = None,
                 frames: Optional[torch.Tensor] = None,
-                patches: Optional[torch.Tensor] = None
+                patches: Optional[torch.Tensor] = None,
+                routing: Optional[MOE.Routing] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         cache = self.make_cache(tokens.shape[0], max_len,
                                 device=tokens.device)
@@ -433,10 +481,11 @@ class Model:
             enc_out = self.encode(params, frames, rules)
             cache = self._fill_cross(params, cache, enc_out)
             logits, cache, _ = self.forward(params, tokens, rules,
-                                            cache=cache)
+                                            cache=cache, routing=routing)
         else:
             logits, cache, _ = self.forward(params, tokens, rules,
-                                            patches=patches, cache=cache)
+                                            patches=patches, cache=cache,
+                                            routing=routing)
         # a copy, so that the (B, S, vocab) logits are freed
         return logits[:, -1].clone(memory_format=torch.contiguous_format), \
             cache
@@ -470,9 +519,11 @@ class Model:
 
     @torch.inference_mode()
     def decode_step(self, params: Dict, tokens: torch.Tensor, cache: Dict,
-                    rules: Optional[Rules] = None
+                    rules: Optional[Rules] = None,
+                    routing: Optional[MOE.Routing] = None
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B, 1) -> (logits (B, vocab), cache updated in place)."""
-        logits, cache, _ = self.forward(params, tokens, rules, cache=cache)
+        logits, cache, _ = self.forward(params, tokens, rules, cache=cache,
+                                        routing=routing)
         return logits[:, -1].clone(memory_format=torch.contiguous_format), \
             cache

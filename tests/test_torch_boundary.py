@@ -79,6 +79,12 @@ def test_port_has_the_model_stack_modules():
             "repro_torch.launch.serve"} <= mods
 
 
+def test_port_has_the_mixer_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.rglru"} <= mods
+
+
 def test_port_has_the_training_path_modules():
     mods = set(_port_modules())
     assert {"repro_torch.data", "repro_torch.data.pipeline",
@@ -108,8 +114,10 @@ def test_every_port_module_imports_without_jax_or_repro():
         "    DSEClient(svc).query(wl, 512, 64)\n"
         # the model stack: a reduced Qwen3 served on the CPU
         "from repro_torch.launch.serve import serve_loop\n"
-        "serve_loop('qwen3-0.6b', batch=1, prompt_len=3, gen=2,\n"
-        "           device='cpu', log=lambda msg: None)\n"
+        "for arch in ('qwen3-0.6b', 'mamba2-130m', 'recurrentgemma-9b',\n"
+        "             'granite-moe-1b-a400m'):\n"
+        "    serve_loop(arch, batch=1, prompt_len=3, gen=2,\n"
+        "               device='cpu', log=lambda msg: None)\n"
         # the training path: two steps with a checkpoint, then a resume
         "import tempfile\n"
         "from repro_torch.launch.train import train_loop\n"

@@ -1,25 +1,31 @@
-"""The port's ``models.transformer.Model`` against the JAX package's, on the
-six attention configurations at ``reduced(...)`` size in float32, from the
-same weights (numpy, seeded, carried by ``interop.params_from_numpy``).
+"""The port's ``models.transformer.Model`` against the JAX package's, on
+all ten configurations at ``reduced(...)`` size in float32 (attention,
+Mamba2 and RG-LRU mixers, dense and MoE FFNs), from the same weights
+(numpy, seeded, carried by ``interop.params_from_numpy``).
 
-* ``forward`` logits equal the JAX ``forward``'s within 2e-4;
+* ``forward`` logits equal the JAX ``forward``'s within 2e-4 (llama4:
+  5e-4, below), and its MoE aux loss the JAX aux within 1e-6 relative;
 * prefill + decode equal the port's own full forward within 5e-3, as
-  ``tests/test_decode.py`` holds the JAX model, and the JAX prefill and
-  decode within 2e-4;
-* the KV cache after a prefill equals the JAX cache;
+  ``tests/test_decode.py`` holds the JAX model (at ``moe_capacity=8.0``,
+  its no-drop capacity, as there: at 1.25 a prefill drops tokens a
+  decode step keeps), and the JAX prefill and decode within 2e-4 (llama4:
+  5e-4);
+* the cache after a prefill (KV buffers, SSD and RG-LRU states, conv
+  tails) equals the JAX cache;
 * a staged prefill on the chunked path equals the dense path; a window
   that covers the sequence equals full attention; an int8 cache tracks
   the float32 one;
-* parameter trees and counts equal the JAX ``param_defs``; the four
-  configurations whose mixers are not ported raise
-  ``NotImplementedError``.
+* parameter trees and counts equal the JAX ``param_defs``; a mixer the
+  JAX package does not know raises ``ValueError``.
 
 On the CPU the kernel entry points run their plain versions; the JAX
 model is plain jnp (no Pallas kernel on its path).  The models without
 q/k norm are badly conditioned at the reference's init (``wq`` has std
 1/sqrt(n_heads)): the JAX model against itself with its weights moved by
-1e-7 relative noise reads 1.1e-4 (pixtral) and 3.3e-4 (whisper) in the
-logits, so 2e-4 is about float32's own floor there.
+1e-7 relative noise reads 1.1e-4 (pixtral), 3.3e-4 (whisper) and
+5.4-6.6e-4 (llama4, three draws of ``tests/jax_noise_floor.py``) in
+the logits, so 2e-4 is about float32's own floor there; llama4, which
+reads 2.1e-4 from the JAX model, is held at 5e-4.
 """
 import jax
 import jax.numpy as jnp
@@ -37,12 +43,17 @@ from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.models.common import TensorSpec  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 
-ATTN_ARCHS = ["qwen3-0.6b", "smollm-360m", "stablelm-1.6b", "gemma3-27b",
-              "pixtral-12b", "whisper-tiny"]
-UNPORTED = ["mamba2-130m", "recurrentgemma-9b", "granite-moe-1b-a400m",
-            "llama4-maverick-400b-a17b"]
+ARCHS = ["qwen3-0.6b", "smollm-360m", "stablelm-1.6b", "gemma3-27b",
+              "pixtral-12b", "whisper-tiny", "mamba2-130m",
+              "recurrentgemma-9b", "granite-moe-1b-a400m",
+              "llama4-maverick-400b-a17b"]
 B, S, PRE = 2, 24, 16
 F32 = torch.float32
+# the logit limit against the JAX model: float32's floor at this init
+# (module docstring)
+LOGITS_ABS = {"llama4-maverick-400b-a17b": 5e-4}
+# decode equality needs a capacity that drops nothing (tests/test_decode.py)
+NO_DROP = dict(moe_capacity=8.0)
 
 
 def configs(arch, **kw):
@@ -94,6 +105,30 @@ def both(arch, **kw):
                                                                     "cpu"))
 
 
+def kernel_calls(cfg, prefill: bool) -> dict:
+    """Kernel calls of one prefill (``prefill``) or decode step of
+    ``Model(cfg)``, by kernel, reckoned from the configuration: per
+    layer, attention 4 GEMMs (q, k, v, o) and in a prefill one flash
+    attention; mamba2 2 (in, out); RG-LRU 5 (x, gate, r, i, out); a
+    dense FFN 3; a MoE FFN the router and 3 an expert (and 3 for a
+    shared expert); then the LM head.  RMSNorm configs: norm1, norm2
+    (with an FFN) a layer and the final norm, each one fused add+norm."""
+    gemms = {"attn": 4, "mamba2": 2, "rglru": 5}
+    matmul = flash = norms = 0
+    for entry in cfg.layer_kinds():
+        kind = entry.split("+")[0]
+        matmul += gemms[kind]
+        flash += kind == "attn" and prefill
+        norms += 1
+        if cfg.d_ff > 0:
+            norms += 1
+            matmul += 1 + 3 * cfg.n_experts + 3 * cfg.shared_expert \
+                if entry.endswith("+moe") else 3
+    return {"matmul": matmul + 1, "flash_attention": flash,
+            "fused_add_rmsnorm": norms + 1
+            if cfg.norm_type == "rmsnorm" else 0}
+
+
 def jx(arrs):
     return {k: jnp.asarray(v) for k, v in arrs.items()}
 
@@ -107,24 +142,26 @@ def maxdiff(a, b) -> float:
                         - np.asarray(b, np.float64)).max())
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_jax(arch):
     (jm, jp), (tm, tp) = both(arch)
     data = inputs(jm.cfg)
     j = jx(data)
-    want, _, _ = jm.forward(jp, j["tokens"], frames=j.get("frames"),
-                            patches=j.get("patches"))
+    want, _, jaux = jm.forward(jp, j["tokens"], frames=j.get("frames"),
+                               patches=j.get("patches"))
     t = tx(data)
     got, cache, aux = tm.forward(tp, t["tokens"], frames=t.get("frames"),
                                  patches=t.get("patches"))
-    assert cache is None and float(aux) == 0.0
+    assert cache is None and aux.dtype == F32 and aux.shape == ()
+    assert abs(float(aux) - float(jaux)) <= 1e-6 * abs(float(jaux))
+    assert (float(aux) > 0) == (tm.cfg.n_experts > 0)
     assert got.dtype == F32 and tuple(got.shape) == tuple(want.shape)
-    assert maxdiff(got, want) < 2e-4
+    assert maxdiff(got, want) < LOGITS_ABS.get(arch, 2e-4)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_matches_forward_and_jax(arch):
-    (jm, jp), (tm, tp) = both(arch)
+    (jm, jp), (tm, tp) = both(arch, **NO_DROP)
     data = inputs(jm.cfg)
     t, j = tx(data), jx(data)
     fr = {k: t[k] for k in ("frames", "patches") if k in t}
@@ -145,7 +182,8 @@ def test_prefill_decode_matches_forward_and_jax(arch):
         errs.append(maxdiff(lg, logits[:, i]))
         jerrs.append(maxdiff(lg, jlg))
     assert max(errs) < 5e-3, f"{arch}: max err {max(errs)}"
-    assert max(jerrs) < 2e-4, f"{arch}: max err against JAX {max(jerrs)}"
+    assert max(jerrs) < LOGITS_ABS.get(arch, 2e-4), \
+        f"{arch}: max err against JAX {max(jerrs)}"
 
 
 def _leaves(tree, prefix=""):
@@ -156,9 +194,9 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_kv_cache_after_prefill_matches_jax(arch):
-    (jm, jp), (tm, tp) = both(arch)
+    (jm, jp), (tm, tp) = both(arch, **NO_DROP)
     data = inputs(jm.cfg, seq=PRE)
     t, j = tx(data), jx(data)
     _, cache = tm.prefill(tp, t["tokens"], max_len=S + 8,
@@ -256,7 +294,7 @@ def test_int8_kv_cache_close_to_f32():
     assert sum(agree) >= int(0.8 * B * len(agree))
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_and_count_match_jax(arch):
     jcfg, tcfg = configs(arch)
     jdefs = JModel(jcfg).param_defs()
@@ -285,10 +323,40 @@ def test_full_size_qwen3_param_count():
     assert Model(get_config("qwen3-0.6b")).n_params() == want == 596049920
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_mixers_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        Model(reduced(get_config(arch)))
+def test_unknown_mixer_raises():
+    cfg = reduced(get_config("qwen3-0.6b"))
+    for pattern in (("lstm",), ("attn", "mamba3+moe")):
+        with pytest.raises(ValueError):
+            Model(cfg.replace(block_pattern=pattern))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "llama4-maverick-400b-a17b"])
+def test_own_routing_changes_nothing(arch):
+    """A model fed the MoE choices it recorded (``moe.Routing``) gives
+    the same bits, through a forward and through prefill + decode."""
+    from repro_torch.models.moe import Routing
+    _, (tm, tp) = both(arch)
+    tokens = torch.from_numpy(inputs(tm.cfg)["tokens"])
+    rec = Routing()
+    want, _, aux = tm.forward(tp, tokens, routing=rec)
+    got, _, aux2 = tm.forward(tp, tokens, routing=rec.pinned())
+    assert torch.equal(got, want) and torch.equal(aux, aux2)
+    rec = Routing()
+    last, cache = tm.prefill(tp, tokens[:, :PRE], max_len=S + 8,
+                             routing=rec)
+    steps = [tm.decode_step(tp, tokens[:, i:i + 1], cache, routing=rec)[0]
+             for i in range(PRE, S)]
+    pinned = rec.pinned()
+    plast, pcache = tm.prefill(tp, tokens[:, :PRE], max_len=S + 8,
+                               routing=pinned)
+    assert torch.equal(plast, last)
+    for i, want in zip(range(PRE, S), steps):
+        got, pcache = tm.decode_step(tp, tokens[:, i:i + 1], pcache,
+                                     routing=pinned)
+        assert torch.equal(got, want)
+    assert pinned.calls == len(rec.choices) == \
+        (S - PRE + 1) * sum(e.endswith("+moe") for e in tm.cfg.layer_kinds())
 
 
 def test_rules_other_than_none_raise():

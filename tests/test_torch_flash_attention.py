@@ -10,6 +10,9 @@ key block) the port is held to the oracle, ``repro.kernels.ref``.  The
 CUDA kernel is held to ``flash_attention_ref`` on the card by
 ``chip_smoke.py``.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +23,10 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
+    "kernels" / "csrc"
 
 
 def _tol(dtype):
@@ -94,6 +101,38 @@ def test_ragged_causal_matches_pallas(window):
     np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 0)])
+def test_each_head_dim_matches_the_oracle(d, causal, window):
+    """The plain version at every compiled head_dim (256: RecurrentGemma's
+    MQA local attention, 16 query heads over 1 KV head) against the JAX
+    oracle, float32."""
+    h, kv = (16, 1) if d == 256 else (4, 2)
+    q, k, v = _qkv(d + window, 1, h, kv, 80, d)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), h, kv, causal=causal,
+                                    window=window)
+    got = _port(q, k, v, h, kv, causal=causal, window=window)
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+def test_compiled_head_dims_match_the_source():
+    """``HEAD_DIMS`` lists exactly the head dims flash_attention.cu
+    dispatches (each on both routes); the wrapper raises for any other
+    on the card, 96 among them."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    body = src[src.index("#define FLASH_DISPATCH_D(LAUNCH)"):]
+    body = body[:body.index("\n\n")]
+    dims = tuple(int(d) for d in
+                 re.findall(r"case (\d+): return LAUNCH<\1>", body))
+    assert dims == HEAD_DIMS == (16, 32, 64, 128, 256)
+    assert 96 not in HEAD_DIMS
+    wrapper = (CSRC.parent / "flash_attention.py").read_text()
+    assert "if d not in HEAD_DIMS:" in wrapper and "is not compiled" in \
+        wrapper
+
+
 @pytest.mark.parametrize("bq,bk", [(512, 512), (32, 32), (1, 7)])
 def test_blocks_do_not_change_the_result(bq, bk):
     q, k, v = _qkv(3, 1, 4, 2, 48, 16)
@@ -148,7 +187,7 @@ def _tiled(q, k, v, heads, kv, causal, window, bkv=64):
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("causal,window,s", [(True, 0, 160), (False, 16, 100),
                                              (False, 0, 70)])
 def test_tiled_bf16_arithmetic_matches_the_oracle(d, causal, window, s):

@@ -10,15 +10,27 @@ package's, and the kernel routing of ``Model``.
   otherwise.
 * A counting ``impl`` sees ``7 n_layers + 1`` GEMMs, ``2 n_layers + 1``
   fused add+RMSNorms and ``n_layers`` flash attentions in a prefill, and
-  the same less the attentions in a decode step; the kernels' own launch
-  counters stay at 0 on the CPU.
+  the same less the attentions in a decode step, for the attention
+  models; for mamba2 (2 GEMMs a layer, no FFN), recurrentgemma (5 a
+  RG-LRU layer) and granite (the router and 3 GEMMs for each of its
+  experts a layer) the counts ``test_torch_decode.kernel_calls`` reckons
+  from the configuration; the kernels' own launch counters stay at 0 on
+  the CPU.  Greedy tokens of mamba2 and recurrentgemma equal the JAX
+  steps' too.
+* ``chip_smoke.py``'s launch reckoning (``serve_launches``) and its
+  controls (``reordered_plain``, ``routing_flips``) hold on the CPU.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from test_torch_decode import kernel_calls  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced as jreduced  # noqa: E402
@@ -55,7 +67,8 @@ def _setup(arch, seed=0):
         (Model(tcfg), params_from_numpy(p, "cpu")), prompts
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-27b", "mamba2-130m",
+                                  "recurrentgemma-9b"])
 def test_greedy_generation_matches_jax(arch):
     (jm, jp), (tm, tp), prompts = _setup(arch)
     max_len = PROMPT + GEN + 8
@@ -81,7 +94,10 @@ def test_greedy_generation_matches_jax(arch):
     want = np.asarray(jnp.concatenate(jout, axis=1))
     got = torch.cat(out, dim=1).numpy()
     np.testing.assert_array_equal(got, want)
-    assert int(cache["blk0"]["pos"][0]) == PROMPT + GEN - 1
+    attn = [f"blk{gi}" for gi, e in enumerate(tm.cfg.pattern)
+            if e.startswith("attn")]
+    for key in attn:
+        assert int(cache[key]["pos"][0]) == PROMPT + GEN - 1
 
 
 def test_serve_loop_on_cpu():
@@ -135,7 +151,9 @@ class Counting:
         return call
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-27b", "smollm-360m"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-27b", "smollm-360m",
+                                  "mamba2-130m", "recurrentgemma-9b",
+                                  "granite-moe-1b-a400m"])
 def test_kernel_calls_of_prefill_and_decode(arch):
     cfg = reduced(get_config(arch)).replace(dtype=torch.float32)
     counting = Counting()
@@ -147,16 +165,17 @@ def test_kernel_calls_of_prefill_and_decode(arch):
     before = {k: c.launches for k, c in ops.launch_counters().items()}
     n = cfg.n_layers
     last, cache = model.prefill(params, tokens[:, :8], max_len=16)
-    assert counting.n == {"matmul": 7 * n + 1, "fused_add_rmsnorm": 2 * n + 1,
-                          "flash_attention": n}
+    assert counting.n == kernel_calls(cfg, prefill=True)
+    if cfg.pattern == ("attn",):
+        assert counting.n == {"matmul": 7 * n + 1,
+                              "fused_add_rmsnorm": 2 * n + 1,
+                              "flash_attention": n}
     plast, pcache = plain.prefill(params, tokens[:, :8], max_len=16)
     assert torch.equal(last, plast)
     for i in (8, 9):
         counting.n = dict.fromkeys(counting.n, 0)
         lg, cache = model.decode_step(params, tokens[:, i:i + 1], cache)
-        assert counting.n == {"matmul": 7 * n + 1,
-                              "fused_add_rmsnorm": 2 * n + 1,
-                              "flash_attention": 0}
+        assert counting.n == kernel_calls(cfg, prefill=False)
         plg, pcache = plain.decode_step(params, tokens[:, i:i + 1], pcache)
         assert torch.equal(lg, plg)
     # the kernels' counters count launches on the card only
@@ -193,3 +212,54 @@ def test_tied_head_copied_once_a_model():
     again = model.head(params)
     assert again is not head
     assert torch.equal(again, params["embed"]["embedding"].t())
+
+
+def _smoke():
+    """``chip_smoke.py`` as a module (its ``main`` is not run)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_launch_reckoning_matches_the_configs():
+    """``chip_smoke.serve_launches`` (the launches phases 16 and 18 hold
+    on the card) equals this file's reckoning for all ten full-size
+    configs, and the counts the phases print."""
+    from repro_torch.configs import ARCHS
+    smoke = _smoke()
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        if cfg.norm_type != "rmsnorm":
+            continue
+        for prefill in (True, False):
+            assert smoke.serve_launches(cfg, prefill) == \
+                kernel_calls(cfg, prefill), (arch, prefill)
+    want = {"qwen3-0.6b": (197, 57, 28), "granite-moe-1b-a400m":
+            (2425, 49, 24), "mamba2-130m": (49, 25, 0),
+            "recurrentgemma-9b": (293, 77, 12)}
+    for arch, (mm, norms, attn) in want.items():
+        assert smoke.serve_launches(get_config(arch), True) == {
+            "matmul": mm, "fused_add_rmsnorm": norms,
+            "flash_attention": attn}
+
+
+def test_chip_smoke_controls():
+    """The reordered control computes the plain GEMM's function (float32
+    sums in another order); ``routing_flips`` counts the (token, layer)
+    pairs whose sets of experts differ, over the calls both runs made."""
+    from repro_torch.models.moe import Routing
+    smoke = _smoke()
+    gen = torch.Generator().manual_seed(0)
+    a, b = torch.randn(33, 70, generator=gen), torch.randn(70, 9,
+                                                           generator=gen)
+    got = smoke.reordered_plain().matmul(a, b)
+    np.testing.assert_allclose(got.numpy(), F.PLAIN.matmul(a, b).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    one, two = Routing(), Routing()
+    one(torch.tensor([[[0, 1], [2, 3]]]))
+    one(torch.tensor([[[4, 5]]]))
+    two(torch.tensor([[[1, 0], [2, 1]]]))       # the same set, then not
+    assert smoke.routing_flips(one, two) == (1, 2)
+
