@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py [--out FILE] [--phases all|3-9,19,...]
 
-From the repository root, on a machine with one CUDA card:
+From the repository root, on a machine with one CUDA card (``--phases``
+runs the named phases' groups only, ``PHASE_GROUPS``; phases 1-2 always
+run, and the kernels line then lists only the launches and checks of
+what ran):
 
 1. prints the card, its power limit and the software versions;
 2. builds every CUDA kernel of the port from this checkout's sources
@@ -135,15 +138,15 @@ From the repository root, on a machine with one CUDA card:
     on `mma`, its launches held);
 17. trains SmolLM-360M at full width and depth through the port's
     trainer (``launch/train.py::train_loop``: float32, batch 8 x 1024,
-    20 AdamW steps at lr 3e-3, seeded, a checkpoint every 10 steps in a
+    10 AdamW steps at lr 3e-3, seeded, a checkpoint every 5 steps in a
     temporary directory) on ``Model(cfg, impl=ops.differentiable())``,
     every launch counter set to 0 before each run and held after it
-    (``llm_step_launches``: 675 ``matmul`` -- forward, dX, dW -- all on
+    (``train_launches``: 675 ``matmul`` -- forward, dX, dW -- all on
     `mma`, 65 ``fused_add_rmsnorm`` and 32 ``flash_attention`` a step);
     holds every loss finite and prints whether the last 3 average below
-    the first 3; reads the step-20 checkpoint back bit for bit; stops a
-    second run after 10 steps, resumes it from its checkpoint and holds
-    steps 11-20 against the uninterrupted run (``LLM_RESUME_TOL``);
+    the first 3; reads the step-10 checkpoint back bit for bit; stops a
+    second run after 5 steps, resumes it from its checkpoint and holds
+    steps 6-10 against the uninterrupted run (``LLM_RESUME_TOL``);
     holds one step (its launches exactly) against the plain route from
     the same weights, with the attention projections rescaled
     (``conditioned``), by the loss, gradient norm, every gradient and
@@ -159,8 +162,8 @@ From the repository root, on a machine with one CUDA card:
     types against its plain version, finds tensor-core instructions in
     its bf16 instantiation's SASS, prints ptxas's registers and spills,
     holds head_dim 96 to raise, and times it beside its bound and SDPA;
-    then serves granite-moe-1b-a400m (32 greedy steps), mamba2-130m (32)
-    and recurrentgemma-9b (16) at full width and depth through
+    then serves granite-moe-1b-a400m (16 greedy steps), mamba2-130m (16)
+    and recurrentgemma-9b (8) at full width and depth through
     ``Model`` and ``make_prefill_step``/``make_serve_step``: seeded bf16
     weights, batch 4, prompts of 2048 tokens, every launch counter set
     to 0 before the prefill and before each step and read after it
@@ -175,14 +178,49 @@ From the repository root, on a machine with one CUDA card:
     it; granite's plain route on the kernel route's MoE choices,
     ``models.moe.Routing``, printing how many choices differ unpinned),
     each kernel on the inputs the model gave it, a float32 prefill plus
-    decode against a forward
-    (``SERVE_F32_ABS``; granite at ``moe_capacity`` 8.0); times the
-    kernel route (prefill, decode a step, tokens/s, device time by part
-    and idle share, peak memory) and the plain prefill; and runs
-    ``serve_loop(arch, use_reduced=False)`` on each (float32, every GEMM
-    on `mma`, launches held).
+    decode against a forward and a float32 prefill of 1 x 2048 tokens
+    against the plain route's on the same weights (both
+    ``SERVE_F32_ABS``; granite at ``moe_capacity`` 8.0, on the kernel
+    route's MoE choices; the plain route with its GEMM sums reordered
+    printed beside); times the kernel route (prefill, decode a step,
+    tokens/s, device time by part and idle share, peak memory) and the
+    plain prefill; and runs ``serve_loop(arch, use_reduced=False)`` on
+    each (float32, every GEMM on `mma`, launches held);
+19. trains granite-moe-1b-a400m (24 layers, batch 4 x 1024) and
+    mamba2-130m (24 layers, 8 x 1024) through ``train_loop`` and
+    recurrentgemma-9b at one period of its pattern (3 layers, 4 x 2048)
+    through ``make_train_step``, float32, 4 AdamW steps each, on
+    ``Model(cfg, impl=ops.differentiable())``: every counter set to 0
+    before each run or step and held after it (``train_launches``:
+    7,275 / 49 / 24, 147 / 25 / 0 and 72 / 7 / 1 a step, every GEMM on
+    `mma`), finite losses; mamba2 stopped after 2 steps and resumed from
+    its checkpoint against the uninterrupted run, the checkpoint read
+    back bit for bit; one step of each against the plain route from
+    ``conditioned`` weights (``LLM_STEP_REL``, granite on the kernel
+    route's MoE choices through ``Model.loss(routing=...)``, printing
+    how many choices differ unpinned) with a bf16-GEMM control failing
+    each limit; each kernel on the step's inputs against its plain
+    version; and both routes' warm steps timed (events, the slower of 2
+    after one, tokens/s, device time by phase, idle share, peak memory);
+20. serves gemma3-27b (batch 2 x 2048, 8 steps: the 5:1 local:global
+    schedule with window 1024), pixtral-12b (4 x 2048 after 64 stub
+    patches, 8 steps), stablelm-1.6b (4 x 2048, 16 steps: LayerNorm, no
+    fused norm) and whisper-tiny (4 x 384 decoder tokens after 1500
+    encoder frames, 16 steps) at full width and depth, as phase 18 serves
+    the mixers (``serve_model``, from ``conditioned`` weights):
+    launches a prefill and a step held (``serve_launches``: 435/125/62,
+    281/81/40, 169/0/24 and 73/0/8 a prefill), bf16 logits against the
+    plain route with the control printed, each kernel on the model's
+    inputs (gemma3's windowed and global attention, whisper's
+    non-causal encoder attention at S 1500, also against float64
+    attention over its real keys, with the reference kernel's
+    zero-padded keys as a control that must fail), the float32 holds
+    (gemma3 at one period, 6 layers: its float32 weights do not fit the
+    card) and ``serve_loop(arch, use_reduced=False)`` for all but
+    gemma3.
 
-Any failed phase raises and the script exits non-zero.  Without CUDA, or
+Each phase group's seconds are printed.  Any failed phase raises and the
+script exits non-zero.  Without CUDA, or
 without the repository's ``src/`` beside it, it exits non-zero and prints
 no result.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels as JSON.
@@ -191,17 +229,21 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# the device every phase runs on; kept inputs come back to it from the host
+CARD = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
 # bandwidth, and the scalar (non-tensor-core) float32 rate.
@@ -1271,29 +1313,54 @@ def check_routes(what: str, routes: dict, gemms: int, mma: int) -> None:
 class RecordingOps:
     """The ``impl`` a model forward is driven with: every call goes on to
     ``kernels.ops``, and the inputs of the first call of each kernel at
-    each shape are kept, by ``(kernel, shapes)``, with the model that made
-    it."""
+    each shape (and flash attention's each non-default ``causal`` and
+    ``window``) are kept, by ``(kernel, shapes)``, with the model that
+    made it; on the host with ``host=True``, which keeps a training
+    step's largest operands off the card."""
 
-    def __init__(self):
+    def __init__(self, host: bool = False):
         from repro_torch.kernels import ops
         self.model = None
         self.inputs = {}
+        self.host = host
         for name in OPS:
             setattr(self, name, self._recorded(name, getattr(ops, name)))
 
     def _recorded(self, name, fn):
+        def keep(a):
+            if not isinstance(a, torch.Tensor):
+                return a
+            if self.host:
+                return a.detach().to("cpu")
+            # a parameter is updated in place by later steps: keep the
+            # values this call saw
+            return a.detach().clone() if isinstance(
+                a, torch.nn.Parameter) else a.detach()
+
         def call(*args, **kwargs):
             key = (name, tuple(tuple(a.shape) for a in args
-                               if isinstance(a, torch.Tensor)))
+                               if isinstance(a, torch.Tensor))
+                   + tuple(kw for kw in sorted(kwargs.items()) if kw not in
+                           (("causal", True), ("window", 0))))
             if self.model is not None and key not in self.inputs:
-                # a parameter is updated in place by later steps: keep
-                # the values this call saw
-                kept = tuple(a.detach().clone() if isinstance(
-                    a, torch.nn.Parameter) else a.detach() if isinstance(
-                        a, torch.Tensor) else a for a in args)
-                self.inputs[key] = (self.model, kept, kwargs)
+                self.inputs[key] = (self.model, tuple(map(keep, args)),
+                                    kwargs)
             return fn(*args, **kwargs)
         return call
+
+
+def hold_recorded(held, rec, label: str) -> dict:
+    """Each kernel on the inputs ``rec`` kept (``RecordingOps``: one call
+    a kernel and shape) against its plain version, on the card; ``rec``
+    is emptied.  Returns the shapes held by kernel."""
+    before = {name: len(held.cases[name]) for name in OPS}
+    for (name, shapes), (_, args, kwargs) in rec.inputs.items():
+        args = tuple(a.to(CARD) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        hold_call(held, name, f"{label} {shapes}", args, kwargs, main=True)
+    rec.inputs.clear()
+    return {name: len(held.cases[name]) - before[name]
+            for name in OPS if len(held.cases[name]) > before[name]}
 
 
 def qwen_inputs(device):
@@ -2021,13 +2088,21 @@ def control_plain(matmul, base=None):
 def reordered_plain():
     """The serving path's plain versions (``kernels.forward.PLAIN``) with
     each GEMM's float32 sum taken over the two halves of K and added:
-    the same function, its sums in another order."""
+    the same function, its sums in another order.  B is taken a block of
+    columns at a time (about 2**26 entries), so that gemma3-27b's (5376,
+    262144) head is never whole in float32."""
     from repro_torch.kernels import forward as F
 
     def matmul(a, b):
         k = a.shape[1] // 2
-        return (a[:, :k].float() @ b[:k].float()
-                + a[:, k:].float() @ b[k:].float()).to(a.dtype)
+        out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype,
+                          device=a.device)
+        a0, a1 = a[:, :k].float(), a[:, k:].float()
+        cols = max(1, (1 << 26) // max(a.shape[0], b.shape[0]))
+        for j in range(0, b.shape[1], cols):
+            out[:, j:j + cols] = (a0 @ b[:k, j:j + cols].float()
+                                  + a1 @ b[k:, j:j + cols].float())
+        return out
     return control_plain(matmul, F.PLAIN)
 
 
@@ -2530,25 +2605,52 @@ SERVE_KERNELS = STEP_KERNELS[:1] + (("attention", ("flash_fwd",)),
 
 
 def serve_launches(cfg, prefill: bool) -> dict:
-    """Kernel launches of one prefill or decode step of ``Model(cfg)``
-    for an RMSNorm config: per layer its mixer's GEMMs (attention: q, k,
-    v, o and, in a prefill, one flash attention; mamba2: in and out;
-    RG-LRU: x, gate, r, i, out), its FFN's (dense: 3; MoE: the router
-    and 3 for each expert and for a shared expert), an add+norm before
-    the mixer and one before the FFN; then the final add+norm and the
-    LM head."""
+    """Kernel launches of one prefill or decode step of ``Model(cfg)``,
+    for any of the ten configs (an encoder-decoder's prefill given its
+    frames): per layer its mixer's GEMMs (attention: q, k, v, o and, in a
+    prefill, one flash attention; mamba2: in and out; RG-LRU: x, gate, r,
+    i, out), its cross-attention's (q and o; in a prefill also k and v
+    of the encoder's output), its FFN's (dense: 3; MoE: the router and 3
+    for each expert and for a shared expert), then the LM head; an
+    encoder-decoder's prefill first runs its encoder (a layer: 4
+    attention GEMMs, one non-causal flash attention and the FFN's 3).
+    An RMSNorm config fuses each residual add with the norm after it:
+    one ``fused_add_rmsnorm`` before each mixer, cross-attention and FFN,
+    and a final one (the encoder's likewise); LayerNorm runs in plain
+    PyTorch."""
     mixer = {"attn": 4, "mamba2": 2, "rglru": 5}
-    out = {"matmul": 1, "fused_add_rmsnorm": 1, "flash_attention": 0}
+    rms = int(cfg.norm_type == "rmsnorm")
+    cross = cfg.encoder_layers > 0
+    out = {"matmul": 1, "fused_add_rmsnorm": rms, "flash_attention": 0}
+
+    def add(gemms, norms, flash=0):
+        out["matmul"] += gemms
+        out["fused_add_rmsnorm"] += rms * norms
+        out["flash_attention"] += flash
     for entry in cfg.layer_kinds():
         kind = entry.split("+")[0]
-        out["matmul"] += mixer[kind]
-        out["flash_attention"] += int(prefill and kind == "attn")
-        out["fused_add_rmsnorm"] += 1
+        add(mixer[kind], 1, int(prefill and kind == "attn"))
+        if cross:
+            add(2 + 2 * prefill, 1)
         if cfg.d_ff:
-            out["fused_add_rmsnorm"] += 1
-            out["matmul"] += (1 + 3 * cfg.n_experts + 3 * cfg.shared_expert
-                              if entry.endswith("+moe") else 3)
+            add(1 + 3 * cfg.n_experts + 3 * cfg.shared_expert
+                if entry.endswith("+moe") else 3, 1)
+    if cross and prefill:
+        n = cfg.encoder_layers
+        ffn = bool(cfg.d_ff)
+        add(n * (4 + 3 * ffn), n * (1 + ffn) + 1, n)
     return out
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches of one training step of ``Model(cfg,
+    impl=ops.differentiable())`` without ``ce_chunk``, on the frontend
+    inputs ``train_loop`` gives: each of a prefill's GEMMs forward, and
+    its dX and dW in the backward (every GEMM input needs a gradient: the
+    first layer's through the embedding); a prefill's add+norms and flash
+    attentions forward only, their backwards being plain PyTorch."""
+    out = serve_launches(cfg, True)
+    return {**out, "matmul": 3 * out["matmul"]}
 
 
 def counted(what: str, fn, want: dict, route):
@@ -2577,13 +2679,14 @@ def row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def greedy(prefill, step, params, prompts, steps: int, count=None,
-           routes=None):
-    """Tokens (B, 1 + steps) of a prefill and ``steps`` serve steps, and
-    the launches of the prefill and of each step when ``count`` gives
+           routes=None, extras=None):
+    """Tokens (B, 1 + steps) of a prefill of ``prompts`` (and the
+    frontend inputs ``extras``) and ``steps`` serve steps, and the
+    launches of the prefill and of each step when ``count`` gives
     ``(label, launches a prefill, launches a step, route)``; the GEMM
     launches by route are added into ``routes`` if given."""
     def run_prefill():
-        return prefill(params, {"tokens": prompts})
+        return prefill(params, {"tokens": prompts, **(extras or {})})
 
     def add(by_route):
         for key, n in by_route.items():
@@ -2617,11 +2720,14 @@ def greedy(prefill, step, params, prompts, steps: int, count=None,
     return torch.cat(out, dim=1), launches
 
 
-def teacher_forced(model, params, prompts, tokens, max_len, routing=None):
-    """Last-position logits of a prefill of ``prompts``, then of a decode
-    step on each of ``tokens`` (B, T) in turn; ``routing`` records or
-    replays the MoE choices (``models.moe.Routing``)."""
-    last, cache = model.prefill(params, prompts, max_len, routing=routing)
+def teacher_forced(model, params, prompts, tokens, max_len, routing=None,
+                   extras=None):
+    """Last-position logits of a prefill of ``prompts`` (and the frontend
+    inputs ``extras``), then of a decode step on each of ``tokens`` (B,
+    T) in turn; ``routing`` records or replays the MoE choices
+    (``models.moe.Routing``)."""
+    last, cache = model.prefill(params, prompts, max_len, routing=routing,
+                                **(extras or {}))
     logits = [last]
     for i in range(tokens.shape[1]):
         lg, cache = model.decode_step(params, tokens[:, i:i + 1], cache,
@@ -2630,13 +2736,14 @@ def teacher_forced(model, params, prompts, tokens, max_len, routing=None):
     return logits
 
 
-def time_route(prefill, step, params, prompts, steps: int) -> dict:
+def time_route(prefill, step, params, prompts, steps: int,
+               extras=None) -> dict:
     """Warm times of one route: prefill ms (events, a fresh cache each),
     decode ms a step and tokens/s over ``steps`` greedy steps (events
     around the host loop), and the device time of a prefill and of a
     decode step from the profiler's trace, hence their busy and idle
     shares."""
-    batch = {"tokens": prompts}
+    batch = {"tokens": prompts, **(extras or {})}
     prefill_ms = cuda_ms(lambda: prefill(params, batch), iters=3,
                          warmup=1)
     pprof = profile_device_ms(lambda: prefill(params, batch), iters=2)
@@ -2828,8 +2935,8 @@ def serving_slice(device, card, report) -> dict:
 # ---------------------------------------------------------------------------
 
 LLM_ARCH = "smollm-360m"
-LLM_STEPS, LLM_BATCH, LLM_SEQ = 20, 8, 1024
-LLM_CKPT_EVERY, LLM_STOP_AFTER = 10, 10
+LLM_STEPS, LLM_BATCH, LLM_SEQ = 10, 8, 1024
+LLM_CKPT_EVERY, LLM_STOP_AFTER = 5, 5
 LLM_LR = 3e-3                     # the trainer's command line default
 LLM_SEED = 2026
 # One step of the kernel route against the plain route (Model(cfg,
@@ -2850,34 +2957,22 @@ LLM_KERNELS = STEP_KERNELS[:1] + (("attention", ("flash_fwd",)),
                                   ("add+norm", ("addnorm<",)))
 
 
-def llm_step_launches(n_layers: int) -> dict:
-    """Kernel launches of one training step of an RMSNorm attention model
-    through ``Model(cfg, impl=ops.differentiable())`` without ``ce_chunk``:
-    each of the 7n + 1 GEMMs forward, and its dX and dW in the backward
-    (every GEMM input needs a gradient: the first layer's through the
-    embedding); 2n + 1 add+norms and n attentions forward only, their
-    backwards being plain PyTorch."""
-    return {"matmul": 3 * (7 * n_layers + 1),
-            "fused_add_rmsnorm": 2 * n_layers + 1,
-            "flash_attention": n_layers}
-
-
 def conditioned(params: dict) -> dict:
-    """``params`` with the attention projections rescaled to a standard
-    deviation of 1/sqrt(their whole fan-in): wq, wk, wv (d, heads, hd)
-    by sqrt(heads / d), wo (heads, hd, d) by 1/sqrt(heads).  The
-    reference's init takes the fan-in from the heads axis (shape[-2]),
-    which saturates SmolLM's softmax and makes its step chaotic."""
+    """``params`` with every attention's projections (self-, cross- and
+    an encoder's) rescaled to a standard deviation of 1/sqrt(their whole
+    fan-in): wq, wk, wv (d, heads, hd) by sqrt(heads / d), wo (heads,
+    hd, d) by 1/sqrt(heads).  The reference's init takes the fan-in from
+    the heads axis (shape[-2]), which saturates the softmax (SmolLM's
+    step turns chaotic, whisper's attention logits reach hundreds)."""
     import math
-    out = {k: v for k, v in params.items()}
-    for key in [k for k in params if k.startswith(("blk", "rem"))
-                and "attn" in params[k]]:
-        attn = dict(params[key]["attn"])
+    if not isinstance(params, dict):
+        return params
+    out = {k: conditioned(v) for k, v in params.items()}
+    if {"wq", "wk", "wv", "wo"} <= set(params):
         for w in ("wq", "wk", "wv"):
-            attn[w] = attn[w] * math.sqrt(attn[w].shape[-2]
-                                          / attn[w].shape[-3])
-        attn["wo"] = attn["wo"] / math.sqrt(attn["wo"].shape[-3])
-        out[key] = {**params[key], "attn": attn}
+            out[w] = params[w] * math.sqrt(params[w].shape[-2]
+                                           / params[w].shape[-3])
+        out["wo"] = params["wo"] / math.sqrt(params["wo"].shape[-3])
     return out
 
 
@@ -2910,46 +3005,130 @@ def llm_adamw():
         LLM_LR, warmup=max(2, LLM_STEPS // 10), total=LLM_STEPS))
 
 
-def held_step(cfg, impl, params, batch, count=False):
+def held_step(cfg, impl, params, batch, count=False, routing=None):
     """One ``make_train_step`` step of ``Model(cfg, impl=impl)`` from
     ``params`` (``llm_adamw``): the loss, gradient norm, gradients and
-    updated parameters, and with ``count`` the launches of the step,
-    every counter set to 0 just before it."""
+    updated parameters; with ``count`` the launches and GEMM routes of
+    the step, every counter set to 0 just before it.  ``routing``
+    records or replays the MoE choices (``Model.loss``)."""
+    from functools import partial
     from repro_torch.launch import train
     from repro_torch.models.transformer import Model
+    model = Model(cfg, impl=impl)
+    if routing is not None:
+        model = SimpleNamespace(loss=partial(model.loss, routing=routing))
     opt = KeepGrads(llm_adamw())
     p = train.trainable(params)
     state = {"params": p, "opt": opt.init(p)}
-    step = train.make_train_step(Model(cfg, impl=impl), opt, None)
+    step = train.make_train_step(model, opt, None)
     if count:
         zero_counters()
     new, metrics = step(state, batch)
     torch.cuda.synchronize()
     out = {"loss": float(metrics["loss"]),
-           "grad_norm": float(metrics["grad_norm"]),
-           "grads": dict(leaf_items(opt.grads)),
-           "params": {k: v.detach() for k, v in
-                      leaf_items(new["params"])}}
+           "grad_norm": float(metrics["grad_norm"])}
     if count:
         out["launches"] = {n: c.launches for n, c in _counters().items()}
         out["routes"] = dict(_routes())
+    out["grads"] = dict(leaf_items(opt.grads))
+    out["params"] = {k: v.detach() for k, v in leaf_items(new["params"])}
     return out
+
+
+def on_host(step: dict) -> dict:
+    """``held_step``'s gradients and updated parameters moved to the
+    host, so that the next route's step has the card to itself
+    (recurrentgemma's step peaks at 78 GB)."""
+    for part in ("grads", "params"):
+        step[part] = {k: v.to("cpu") for k, v in step[part].items()}
+    return step
+
+
+def rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want| / |want| (Frobenius), in float64 on the card a block
+    of rows at a time (a float64 copy of recurrentgemma's 1.05 B-entry
+    embedding would take 8.4 GB), each block moved there as it is."""
+    g = got.reshape(got.shape[0] if got.dim() else 1, -1)
+    w = want.reshape(g.shape)
+    rows = max(1, (1 << 25) // max(1, g.shape[1]))
+    num = den = 0.0
+    for i in range(0, g.shape[0], rows):
+        gi = g[i:i + rows].to(CARD).double()
+        wi = w[i:i + rows].to(CARD).double()
+        num += float(((gi - wi) ** 2).sum())
+        den += float((wi ** 2).sum())
+    if den == 0.0:
+        return 0.0 if num == 0.0 else float("inf")
+    return (num / den) ** 0.5
 
 
 def step_errors(got: dict, want: dict) -> dict:
     """Relative errors of ``got``'s step against ``want``'s: loss, norm,
     and the worst leaf of the gradients and of the updated parameters."""
-    def fro(a, b):
-        return float((a.double() - b.double()).norm() / b.double().norm())
     out = {k: abs(got[k] - want[k]) / abs(want[k])
            for k in ("loss", "grad_norm")}
     for part, key in (("grads", "grad"), ("params", "param")):
-        errs = {name: fro(got[part][name], want[part][name])
+        errs = {name: rel_fro(got[part][name], want[part][name])
                 for name in want[part]}
         worst = max(errs, key=errs.get)
         out[key], out[f"{key}_worst"] = errs[worst], worst
         out[f"{key}_median"] = sorted(errs.values())[len(errs) // 2]
     return out
+
+
+def hold_step(cfg, params, batch, per_step: dict, label: str) -> tuple:
+    """One step of the kernel route (``ops.differentiable``, its launches
+    held to ``per_step`` and every GEMM on `mma`) against the plain route
+    from the same weights and batch, by the loss, gradient norm, every
+    gradient and every updated parameter (``LLM_STEP_REL``), and a
+    control whose GEMMs are rounded to bfloat16 held to fail each limit;
+    a MoE model's plain route and control on the kernel route's expert
+    choices (``models.moe.Routing``), with the share of (token, layer)
+    choices the plain route's own forward makes otherwise.  Returns the
+    numbers and the kernel inputs of the step (``RecordingOps``, kept on
+    the host)."""
+    from repro_torch.kernels import forward as F
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import Routing
+    from repro_torch.models.transformer import Model
+    moe = cfg.n_experts > 0
+    chosen = Routing() if moe else None
+    rec = RecordingOps(host=True)
+    rec.model = label
+    kern = on_host(held_step(cfg, ops.differentiable(rec), params, batch,
+                             count=True, routing=chosen))
+    rec.model = None
+    for name, c in kern["launches"].items():
+        check(c == per_step.get(name, 0), f"{label}: {name} launched {c} "
+              f"times, expected {per_step.get(name, 0)}")
+    check(kern["routes"]["mma"] == per_step["matmul"], f"{label}: matmul "
+          f"routes {kern['routes']}, expected every GEMM on mma")
+    out = {"launches": kern["launches"]}
+    pinned = chosen.pinned if moe else (lambda: None)
+    plain = held_step(cfg, F.PLAIN, params, batch, routing=pinned())
+    out["step_vs_plain"] = e = step_errors(kern, plain)
+    del kern
+    plain = on_host(plain)
+    control = held_step(cfg, ops.differentiable(control_plain(
+        rounded_plain(LLM_CONTROL_BITS).matmul, F.PLAIN)), params, batch,
+        routing=pinned())
+    out["control_vs_plain"] = c = step_errors(control, plain)
+    del control, plain
+    for key, limit in LLM_STEP_REL.items():
+        check(e[key] <= limit, f"{label} off the plain route: {key} "
+              f"{e[key]} (relative; {e.get(key + '_worst', '')}), limit "
+              f"{limit}")
+        check(c[key] > limit, f"{label}: bf16 control within the {key} "
+              f"limit {limit}: {c[key]}")
+    if moe:
+        free = Routing()
+        with torch.no_grad():
+            Model(cfg, impl=F.PLAIN).loss(params, batch, routing=free)
+        flips, total = routing_flips(chosen, free)
+        out["routing_unpinned"] = {"differs": flips, "of": total,
+                                   "share": flips / total}
+        del free
+    return out, rec
 
 
 def phased_step(model, opt, state, batch):
@@ -3065,11 +3244,11 @@ def time_plain_backwards(cfg, device) -> dict:
             "add+norm": (2 * n + 1) * queued_ms(addnorm, iters=5, warmup=1)}
 
 
-def time_llm_route(cfg, impl, params, batch) -> dict:
+def time_llm_route(cfg, impl, params, batch, timed: int = 3) -> dict:
     """Warm steps of one route from ``params``: each step's ms by CUDA
-    events (median of 3 after one), tokens/s, the peak memory of those
-    steps, and one phased step's device time from the profiler's trace,
-    hence the idle share."""
+    events (the median of ``timed`` after one; of 2, the slower),
+    tokens/s, the peak memory of those steps, and one phased step's
+    device time from the profiler's trace, hence the idle share."""
     from repro_torch.launch import train
     from repro_torch.models.transformer import Model
     model = Model(cfg, impl=impl)
@@ -3079,7 +3258,7 @@ def time_llm_route(cfg, impl, params, batch) -> dict:
     state = {"params": p, "opt": opt.init(p)}
     torch.cuda.reset_peak_memory_stats()
     ms = []
-    for i in range(4):
+    for i in range(timed + 1):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3088,8 +3267,9 @@ def time_llm_route(cfg, impl, params, batch) -> dict:
         torch.cuda.synchronize()
         if i:
             ms.append(start.elapsed_time(stop))
-    out = {"step_ms": sorted(ms)[1], "steps_ms": ms,
-           "tokens_per_s": LLM_BATCH * LLM_SEQ * 1e3 / sorted(ms)[1],
+    step_ms = sorted(ms)[len(ms) // 2]
+    out = {"step_ms": step_ms, "steps_ms": ms,
+           "tokens_per_s": batch["tokens"].numel() * 1e3 / step_ms,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     trace = profile_phases(lambda: phased_step(model, opt, state, batch))
     out.update(trace)
@@ -3098,166 +3278,202 @@ def time_llm_route(cfg, impl, params, batch) -> dict:
     return out
 
 
-def training_llm_slice(device, card, report) -> dict:
-    """Phase 17: train SmolLM-360M at full width and depth through
-    ``train_loop`` on the kernels (launches held), resume it from a
-    checkpoint against the uninterrupted run, hold one step against the
-    plain route with a control, hold each kernel on the step's inputs,
-    and time the step.  Returns the main-path launches by kernel."""
+def train_run(what: str, arch: str, steps: int, per_step: dict, kw: dict,
+              **extra) -> tuple:
+    """``train_loop(arch, **kw, **extra)`` for ``steps`` steps with every
+    counter set to 0 just before it and read just after: ``steps`` x
+    ``per_step`` launches, every GEMM on `mma`, ``steps`` finite losses.
+    Returns the result (with the gradient norms its log printed), the
+    wall seconds, the launches and the GEMM routes."""
+    from repro_torch.launch import train
+    zero_counters()
+    logs = []
+    t0 = time.perf_counter()
+    res = train.train_loop(arch, log=logs.append, **kw, **extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res["grad_norms"] = [float(ln.split(" gnorm ")[1].split()[0])
+                         for ln in logs if " gnorm " in ln]
+    got = {name: c.launches for name, c in _counters().items()}
+    for name, c in got.items():
+        want = steps * per_step.get(name, 0)
+        check(c == want, f"{what}: {name} launched {c} times, expected "
+              f"{want} ({steps} steps)")
+    routes = dict(_routes())
+    check(routes["mma"] == got["matmul"] and routes["wgmma"] == 0,
+          f"{what}: matmul routes {routes}, expected every GEMM on mma")
+    check(len(res["losses"]) == steps and all(np.isfinite(res["losses"])),
+          f"{what}: losses {res['losses']} not {steps} finite values")
+    return res, wall, got, routes
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for name, n in more.items():
+        total[name] = total.get(name, 0) + n
+
+
+def report_losses(out: dict, res: dict) -> None:
+    """The run's losses and gradient norms into ``out``, and whether the
+    mean of the last 3 losses is below the first 3's."""
+    losses = res["losses"]
+    out.update(losses=losses, grad_norms=res["grad_norms"],
+               first3=float(np.mean(losses[:3])),
+               last3=float(np.mean(losses[-3:])))
+    out["lowered"] = out["last3"] < out["first3"]
+    print(f"  losses {losses}")
+    print(f"  gradient norms before clipping {res['grad_norms']}")
+    print(f"  mean of the last 3 {out['last3']} below the first 3 "
+          f"{out['first3']}: {out['lowered']}")
+
+
+def train_and_resume(arch: str, per_step: dict, kw: dict, every: int,
+                     stop_after: int, card: str, out: dict) -> dict:
+    """``train_loop`` of ``kw["steps"]`` steps with a checkpoint every
+    ``every`` steps in a temporary directory (launches held, every GEMM
+    on `mma`), the last checkpoint read back bit for bit; then a run
+    stopped after ``stop_after`` steps and resumed from its checkpoint,
+    its losses held against the uninterrupted run's (``LLM_RESUME_TOL``).
+    Fills ``out``; returns the launches of the three runs."""
     import shutil
     import tempfile
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.kernels import forward as F
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train
-    from repro_torch.models.transformer import Model
-    cfg = get_config(LLM_ARCH).replace(dtype=torch.float32, remat=False)
-    n = cfg.n_layers
-    per_step = llm_step_launches(n)
-    out = {"config": f"{LLM_ARCH}, {n} layers, d {cfg.d_model}, float32, "
-                     f"batch {LLM_BATCH} x {LLM_SEQ}, {LLM_STEPS} AdamW "
-                     f"steps at lr {LLM_LR}",
-           "params": Model(cfg).n_params(), "launches_per_step": per_step}
-    kw = dict(use_reduced=False, steps=LLM_STEPS, batch=LLM_BATCH,
-              seq=LLM_SEQ, ckpt_every=LLM_CKPT_EVERY, lr=LLM_LR,
-              seed=LLM_SEED, device=device)
+    steps = kw["steps"]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    launches = dict.fromkeys(per_step, 0)
-
-    def run(what, steps, **extra):
-        """``train_loop`` with every counter set to 0 just before it and
-        read just after: ``steps`` steps' launches, every GEMM on `mma`."""
-        zero_counters()
-        logs = []
-        t0 = time.perf_counter()
-        res = train.train_loop(LLM_ARCH, log=logs.append, **kw, **extra)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        res["grad_norms"] = [float(ln.split(" gnorm ")[1].split()[0])
-                             for ln in logs if " gnorm " in ln]
-        got = {name: c.launches for name, c in _counters().items()}
-        for name, c in got.items():
-            want = steps * per_step.get(name, 0)
-            check(c == want, f"{what}: {name} launched {c} times, expected "
-                  f"{want} ({steps} steps)")
-            launches[name] = launches.get(name, 0) + c
-        routes = dict(_routes())
-        check(routes["mma"] == got["matmul"] and routes["wgmma"] == 0,
-              f"{what}: matmul routes {routes}, expected every GEMM on mma")
-        check(len(res["losses"]) == steps and
-              all(np.isfinite(res["losses"])), f"{what}: losses "
-              f"{res['losses']} not {steps} finite values")
-        return res, wall, routes
-
+    launches = {}
     try:
         torch.cuda.reset_peak_memory_stats()
-        full, wall, routes = run("train_loop", LLM_STEPS,
-                                 ckpt_dir=str(tmp / "full"))
-        losses = full["losses"]
-        out.update(losses=losses, grad_norms=full["grad_norms"],
-                   train_loop_s=wall, routes=routes,
-                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   first3=float(np.mean(losses[:3])),
-                   last3=float(np.mean(losses[-3:])))
-        out["lowered"] = out["last3"] < out["first3"]
-        print(f"training SmolLM-360M ({out['params']} parameters, {n} "
-              f"layers, float32, batch {LLM_BATCH} x {LLM_SEQ}, "
-              f"{LLM_STEPS} AdamW steps, lr {LLM_LR}) through train_loop "
-              f"on the kernels: {wall} s, peak memory "
+        full, wall, got, routes = train_run(
+            f"{arch} train_loop", arch, steps, per_step, kw,
+            ckpt_dir=str(tmp / "full"), ckpt_every=every)
+        add_launches(launches, got)
+        out.update(train_loop_s=wall, routes=routes,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"training {out['config']} ({out['params']} parameters) "
+              f"through train_loop on the kernels: {wall} s, peak memory "
               f"{out['peak_memory_gb']} GB; launches a step {per_step} "
               f"held over the run, every GEMM on mma  [{card}]")
-        print(f"  losses {losses}")
-        print(f"  gradient norms before clipping {full['grad_norms']}")
-        print(f"  mean of the last 3 {out['last3']} below the first 3 "
-              f"{out['first3']}: {out['lowered']}")
+        report_losses(out, full)
+        losses = full["losses"]
         # the saved checkpoint, read back by the port's loader
         mgr = CheckpointManager(str(tmp / "full"))
-        check(mgr.all_steps() == [LLM_CKPT_EVERY, LLM_STEPS],
+        check(mgr.all_steps() == list(range(every, steps + 1, every)),
               f"checkpoints {mgr.all_steps()}")
-        saved, extra = mgr.restore(LLM_STEPS, full["state"])
+        saved, extra = mgr.restore(steps, full["state"])
         same = [torch.equal(a, b.detach()) for (_, a), (_, b) in zip(
             leaf_items(saved), leaf_items(full["state"]))]
-        check(all(same) and extra["train_step"] == LLM_STEPS,
-              f"checkpoint {LLM_STEPS} restored other bits in "
+        check(all(same) and extra["train_step"] == steps,
+              f"checkpoint {steps} restored other bits in "
               f"{same.count(False)} of {len(same)} leaves")
         out["checkpoint_leaves_equal"] = len(same)
         final = full["state"]
         del full, saved
         shutil.rmtree(tmp / "full")
 
-        # preempted after LLM_STOP_AFTER steps, then resumed
-        part1, wall1, _ = run("train_loop, stopped", LLM_STOP_AFTER,
-                              ckpt_dir=str(tmp / "resumed"),
-                              stop_after=LLM_STOP_AFTER)
-        part2, wall2, _ = run("train_loop, resumed",
-                              LLM_STEPS - LLM_STOP_AFTER,
-                              ckpt_dir=str(tmp / "resumed"))
-        got, want = np.array(part2["losses"]), np.array(
-            losses[LLM_STOP_AFTER:])
+        # preempted after stop_after steps, then resumed
+        part1, wall1, got, _ = train_run(
+            f"{arch} train_loop, stopped", arch, stop_after, per_step, kw,
+            ckpt_dir=str(tmp / "resumed"), ckpt_every=every,
+            stop_after=stop_after)
+        add_launches(launches, got)
+        part2, wall2, got, _ = train_run(
+            f"{arch} train_loop, resumed", arch, steps - stop_after,
+            per_step, kw, ckpt_dir=str(tmp / "resumed"), ckpt_every=every)
+        add_launches(launches, got)
+        got, want = np.array(part2["losses"]), np.array(losses[stop_after:])
         out["resume_max_abs"] = float(np.abs(got - want).max())
         out["resume_losses_equal"] = bool((got == want).all())
         out["resume_state_equal"] = all(
             torch.equal(a.detach(), b.detach()) for (_, a), (_, b) in zip(
                 leaf_items(part2["state"]), leaf_items(final)))
-        check(part1["losses"] == losses[:LLM_STOP_AFTER],
+        check(part1["losses"] == losses[:stop_after],
               "the stopped run's losses differ from the first steps")
         check(np.allclose(got, want, rtol=LLM_RESUME_TOL,
                           atol=LLM_RESUME_TOL),
               f"resumed losses {got.tolist()} off the uninterrupted run's "
               f"{want.tolist()}")
-        print(f"  stopped after {LLM_STOP_AFTER} steps ({wall1} s) and "
-              f"resumed from the checkpoint ({wall2} s): steps "
-              f"{LLM_STOP_AFTER + 1}-{LLM_STEPS} max abs difference "
-              f"{out['resume_max_abs']} (limit {LLM_RESUME_TOL}), losses "
-              f"equal {out['resume_losses_equal']}, final state equal "
-              f"{out['resume_state_equal']}; checkpoint {LLM_STEPS} read "
-              f"back bit for bit ({len(same)} leaves)")
+        print(f"  stopped after {stop_after} steps ({wall1} s) and resumed "
+              f"from the checkpoint ({wall2} s): steps {stop_after + 1}-"
+              f"{steps} max abs difference {out['resume_max_abs']} (limit "
+              f"{LLM_RESUME_TOL}), losses equal "
+              f"{out['resume_losses_equal']}, final state equal "
+              f"{out['resume_state_equal']}; checkpoint {steps} read back "
+              f"bit for bit ({len(same)} leaves)")
         del part1, part2, final
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
-    # one step against the plain route, from conditioned weights
-    params = conditioned(Model(cfg).init(
-        torch.Generator(device=device).manual_seed(LLM_SEED)))
-    tokens = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=LLM_SEQ,
-                           global_batch=LLM_BATCH, seed=LLM_SEED
-                           ).batch_at(0)["tokens"]
-    batch = {"tokens": torch.from_numpy(tokens).to(device)}
-    rec = RecordingOps()
-    rec.model = "smollm-360m training step f32"
-    kern = held_step(cfg, ops.differentiable(rec), params, batch,
-                     count=True)
-    rec.model = None
-    for name, c in kern["launches"].items():
-        check(c == per_step.get(name, 0), f"held step: {name} launched "
-              f"{c} times, expected {per_step.get(name, 0)}")
-    for name in per_step:
-        launches[name] += kern["launches"][name]
-    plain = held_step(cfg, F.PLAIN, params, batch)
-    control = held_step(cfg, ops.differentiable(control_plain(
-        rounded_plain(LLM_CONTROL_BITS).matmul, F.PLAIN)), params, batch)
-    out["step_vs_plain"] = step_errors(kern, plain)
-    out["control_vs_plain"] = step_errors(control, plain)
-    del kern, plain, control
-    e, c = out["step_vs_plain"], out["control_vs_plain"]
-    for key, limit in LLM_STEP_REL.items():
-        check(e[key] <= limit, f"training step off the plain route: {key} "
-              f"{e[key]} (relative; {e.get(key + '_worst', '')}), limit "
-              f"{limit}")
-        check(c[key] > limit, f"bf16 control within the {key} limit "
-              f"{limit}: {c[key]}")
+
+def print_step_hold(step: dict, per_step: dict) -> None:
     def brief(errs):
         return {k: v for k, v in errs.items() if not k.endswith("median")}
     print(f"  one step (launches {per_step}, held) against the plain route "
           f"from the same conditioned weights (limits {LLM_STEP_REL}): "
-          f"{brief(e)}; the control (GEMMs rounded to {LLM_CONTROL_BITS} "
-          f"mantissa bits): {brief(c)}")
+          f"{brief(step['step_vs_plain'])}; the control (GEMMs rounded to "
+          f"{LLM_CONTROL_BITS} mantissa bits): "
+          f"{brief(step['control_vs_plain'])}"
+          + (f"; unpinned, the plain route's forward chooses other experts "
+             f"for {step['routing_unpinned']['differs']} of "
+             f"{step['routing_unpinned']['of']} (token, layer) pairs "
+             f"({step['routing_unpinned']['share']})"
+             if "routing_unpinned" in step else ""))
+
+
+def print_route_times(times: dict, card: str) -> None:
+    for name, t in times.items():
+        print(f"  {name} route: step {t['step_ms']} ms (median of "
+              f"{t['steps_ms']}), {t['tokens_per_s']} tokens/s"
+              + (f", model FLOPs {t['flop_share_of_f32_peak']} of the "
+                 f"float32 peak" if "flop_share_of_f32_peak" in t else "")
+              + f"; one step's device time {t['device_ms']} ms, idle "
+              f"{t['idle_share']}; peak memory {t['peak_memory_gb']} GB  "
+              f"[{card}]")
+        print(f"    by phase (ms): {t['phases']}; records {t['records']}")
+
+
+def step_batch(cfg, batch: int, seq: int, device) -> dict:
+    """The token pipeline's first batch (seed ``LLM_SEED``) on the card."""
+    from repro_torch.data.pipeline import TokenPipeline
+    tokens = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
+                           global_batch=batch, seed=LLM_SEED
+                           ).batch_at(0)["tokens"]
+    return {"tokens": torch.from_numpy(tokens).to(device)}
+
+
+def training_llm_slice(device, card, report) -> dict:
+    """Phase 17: train SmolLM-360M at full width and depth through
+    ``train_loop`` on the kernels (launches held), resume it from a
+    checkpoint against the uninterrupted run, hold one step against the
+    plain route with a control, hold each kernel on the step's inputs,
+    and time the step.  Returns the main-path launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import forward as F
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    cfg = get_config(LLM_ARCH).replace(dtype=torch.float32, remat=False)
+    n = cfg.n_layers
+    per_step = train_launches(cfg)
+    out = {"config": f"{LLM_ARCH}, {n} layers, d {cfg.d_model}, float32, "
+                     f"batch {LLM_BATCH} x {LLM_SEQ}, {LLM_STEPS} AdamW "
+                     f"steps at lr {LLM_LR}",
+           "params": Model(cfg).n_params(), "launches_per_step": per_step}
+    kw = dict(use_reduced=False, steps=LLM_STEPS, batch=LLM_BATCH,
+              seq=LLM_SEQ, lr=LLM_LR, seed=LLM_SEED, device=device)
+    launches = train_and_resume(LLM_ARCH, per_step, kw, LLM_CKPT_EVERY,
+                                LLM_STOP_AFTER, card, out)
+
+    # one step against the plain route, from conditioned weights
+    params = conditioned(Model(cfg).init(
+        torch.Generator(device=device).manual_seed(LLM_SEED)))
+    batch = step_batch(cfg, LLM_BATCH, LLM_SEQ, device)
+    step, rec = hold_step(cfg, params, batch, per_step,
+                          "smollm-360m training step f32")
+    add_launches(launches, step["launches"])
+    out.update(step_vs_plain=step["step_vs_plain"],
+               control_vs_plain=step["control_vs_plain"])
+    print_step_hold(step, per_step)
     held = Held()
-    for (name, shapes), (model, args, kwargs) in rec.inputs.items():
-        hold_call(held, name, f"{model} {shapes}", args, kwargs, main=True)
-    del rec
+    hold_recorded(held, rec, "smollm-360m training step f32")
     out["kernel_checks"] = {name: held.cases[name] for name in per_step}
     print(f"  each kernel on the step's inputs against its plain version: "
           + ", ".join(f"{name} {len(held.cases[name])} shapes, max abs err "
@@ -3274,16 +3490,10 @@ def training_llm_slice(device, card, report) -> dict:
     tokens_n = LLM_BATCH * LLM_SEQ
     attn = 6 * LLM_BATCH * cfg.n_heads * LLM_SEQ ** 2 * cfg.hd * n
     out["model_flop"] = 6 * out["params"] * tokens_n + attn
-    for name, t in out["times"].items():
+    for t in out["times"].values():
         t["flop_share_of_f32_peak"] = out["model_flop"] / (
             t["step_ms"] / 1e3) / SCALAR_OPS_PER_S
-        print(f"  {name} route: step {t['step_ms']} ms (median of "
-              f"{t['steps_ms']}), {t['tokens_per_s']} tokens/s, model "
-              f"FLOPs {t['flop_share_of_f32_peak']} of the float32 peak; "
-              f"one step's device time {t['device_ms']} ms, idle "
-              f"{t['idle_share']}; peak memory {t['peak_memory_gb']} GB  "
-              f"[{card}]")
-        print(f"    by phase (ms): {t['phases']}; records {t['records']}")
+    print_route_times(out["times"], card)
     print(f"  the step's GEMMs, each shape alone (queued ms): "
           f"{out['gemm_alone_ms']}; plain backwards alone: "
           f"{out['plain_backward_alone_ms']}  [{card}]")
@@ -3295,14 +3505,201 @@ def training_llm_slice(device, card, report) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the mixers' training step: granite-moe-1b, mamba2-130m and
+# recurrentgemma-9b through launch/train.py on the card
+# ---------------------------------------------------------------------------
+
+# (arch, layers (None: all), batch, seq), each in float32 for
+# MIXER_TRAIN_STEPS AdamW steps at LLM_LR from seed LLM_SEED.  granite at
+# 4 x 1024: at 8 x 1024 its step keeps 65 GB of activations for the
+# backward (2.7 GB a layer: the expert products and the one-hot dispatch
+# and combine; scripts/saved_activations.py) beside 21 GB of parameters,
+# gradients and moments, past the card.  recurrentgemma at one period of
+# its pattern, (rglru, rglru, attn): 1.705 B parameters, 27 GB of AdamW
+# state (the 38 layers' 9.396 B would take 150 GB), at 4 x 2048, so that a
+# sequence spans its whole window.
+MIXER_TRAIN = (("granite-moe-1b-a400m", None, 4, 1024),
+               ("mamba2-130m", None, 8, 1024),
+               ("recurrentgemma-9b", 3, 4, 2048))
+MIXER_TRAIN_STEPS = 4
+# mamba2's run is stopped after MIXER_STOP_AFTER steps and resumed from
+# its checkpoint (1.5 GB a save; granite's would be 16 GB, and
+# recurrentgemma runs make_train_step directly: train_loop takes no depth)
+MIXER_RESUMED, MIXER_STOP_AFTER = "mamba2-130m", 2
+# warm steps each route is timed over (after one), where phase 17 takes 3
+MIXER_TIMED_STEPS = 2
+
+
+def train_steps(cfg, batch: int, seq: int, steps: int, per_step: dict,
+                device) -> tuple:
+    """``steps`` steps of ``make_train_step`` on ``Model(cfg,
+    impl=ops.differentiable())`` (AdamW at ``train_loop``'s schedule, the
+    token pipeline's batches), each step's launches held to ``per_step``
+    with every GEMM on `mma`.  Returns the losses, gradient norms and
+    wall seconds."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamW, cosine_schedule
+    model = Model(cfg, impl=ops.differentiable())
+    opt = AdamW(schedule=cosine_schedule(LLM_LR, warmup=max(2, steps // 10),
+                                         total=steps))
+    params = train.trainable(model.init(
+        torch.Generator(device=device).manual_seed(LLM_SEED)))
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    step = train.make_train_step(model, opt, None)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
+                         global_batch=batch, seed=LLM_SEED)
+    losses, norms = [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tokens = {"tokens": torch.from_numpy(pipe.batch_at(i)["tokens"])
+                  .to(device)}
+        (state, metrics), _, _ = counted(
+            f"{cfg.name} step {i}", lambda: step(state, tokens), per_step,
+            "mma")
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    wall = time.perf_counter() - t0
+    check(all(np.isfinite(losses)), f"{cfg.name}: losses {losses}")
+    return {"losses": losses, "grad_norms": norms}, wall
+
+
+def train_mixer(arch, layers, batch, seq, device, card, held) -> dict:
+    """Phase 19 for one model: ``MIXER_TRAIN_STEPS`` steps (``train_loop``
+    at full depth, with a resumed run for ``MIXER_RESUMED``; else
+    ``make_train_step``), one step held against the plain route with a
+    control, each kernel on the step's inputs, and both routes timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import forward as F
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch).replace(dtype=torch.float32, remat=False)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    per_step = train_launches(cfg)
+    steps = MIXER_TRAIN_STEPS
+    out = {"config": f"{arch}, {cfg.n_layers} layers, d {cfg.d_model}, "
+                     f"float32, batch {batch} x {seq}, {steps} AdamW steps "
+                     f"at lr {LLM_LR}",
+           "params": Model(cfg).n_params(), "launches_per_step": per_step}
+    kw = dict(use_reduced=False, steps=steps, batch=batch, seq=seq,
+              lr=LLM_LR, seed=LLM_SEED, device=device)
+    launches = {}
+    out["seconds"] = {}
+    t0 = time.perf_counter()
+    if arch == MIXER_RESUMED:
+        add_launches(launches, train_and_resume(
+            arch, per_step, kw, MIXER_STOP_AFTER, MIXER_STOP_AFTER, card,
+            out))
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        if layers is None:
+            res, wall, got, _ = train_run(f"{arch} train_loop", arch, steps,
+                                          per_step, kw)
+            del res["state"]
+            add_launches(launches, got)
+            how = "train_loop"
+        else:
+            res, wall = train_steps(cfg, batch, seq, steps, per_step, device)
+            add_launches(launches, {k: steps * n
+                                    for k, n in per_step.items()})
+            how = "make_train_step"
+        out.update(train_s=wall,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"training {out['config']} ({out['params']} parameters) "
+              f"through {how} on the kernels: {wall} s, peak memory "
+              f"{out['peak_memory_gb']} GB; launches a step {per_step} held "
+              f"on every step, every GEMM on mma  [{card}]")
+        report_losses(out, res)
+        del res
+    torch.cuda.empty_cache()
+    out["seconds"]["training"] = time.perf_counter() - t0
+
+    # one step against the plain route, from conditioned weights
+    t0 = time.perf_counter()
+    params = conditioned(Model(cfg).init(
+        torch.Generator(device=device).manual_seed(LLM_SEED)))
+    tokens = step_batch(cfg, batch, seq, device)
+    step, rec = hold_step(cfg, params, tokens, per_step,
+                          f"{arch} training step f32")
+    out["seconds"]["held_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add_launches(launches, step["launches"])
+    for key in ("step_vs_plain", "control_vs_plain", "routing_unpinned"):
+        if key in step:
+            out[key] = step[key]
+    print_step_hold(step, per_step)
+    out["held"] = hold_recorded(held, rec, f"main path {arch} training "
+                                           f"step f32")
+    print(f"  each kernel on the step's inputs (one call a shape) against "
+          f"its plain version: {out['held']} shapes held")
+    torch.cuda.empty_cache()
+    out["seconds"]["kernel_holds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["times"] = {
+        "kernels": time_llm_route(cfg, ops.differentiable(), params, tokens,
+                                  MIXER_TIMED_STEPS),
+        "plain": time_llm_route(cfg, F.PLAIN, params, tokens,
+                                MIXER_TIMED_STEPS)}
+    out["seconds"]["timing"] = time.perf_counter() - t0
+    print_route_times(out["times"], card)
+    print(f"  seconds by part: {out['seconds']}")
+    out["launches"] = launches
+    del params, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def training_mixers_slice(device, card, report) -> dict:
+    """Phase 19: granite-moe-1b, mamba2-130m and recurrentgemma-9b (one
+    period) trained on the card (``train_mixer``).  Returns the
+    main-path launches and the kernel checks by kernel."""
+    held = Held()
+    out, launches = {}, {}
+    for arch, layers, batch, seq in MIXER_TRAIN:
+        out[arch] = train_mixer(arch, layers, batch, seq, device, card, held)
+        add_launches(launches, out[arch]["launches"])
+    report["training_mixers"] = out
+    print(f"mixers' training: main-path launches {launches}")
+    return {"launches": launches,
+            "held": {name: (len(held.cases[name]), held.max_err(name))
+                     for name in OPS if held.cases[name]}}
+
+
+# ---------------------------------------------------------------------------
 # the mixers: granite-moe-1b, mamba2-130m and recurrentgemma-9b served
 # through Model and launch/serve.py at full width and depth
 # ---------------------------------------------------------------------------
 
-# (arch, greedy decode steps); each in bf16 at batch SERVE_BATCH x
-# SERVE_PROMPT from weights seeded with SERVE_SEED
-MIXER_MODELS = (("granite-moe-1b-a400m", 32), ("mamba2-130m", 32),
-                ("recurrentgemma-9b", 16))
+class Served(NamedTuple):
+    """A model ``serve_model`` serves in bf16 from weights seeded with
+    ``SERVE_SEED``: ``batch`` prompts of ``prompt`` tokens, ``gen``
+    greedy steps; its float32 holds at ``f32_layers`` layers (0: all of
+    them; whole periods of the pattern), and ``serve_loop`` at full size
+    where ``loop``."""
+    arch: str
+    gen: int
+    batch: int = SERVE_BATCH
+    prompt: int = SERVE_PROMPT
+    f32_layers: int = 0
+    loop: bool = True
+
+
+MIXER_MODELS = (Served("granite-moe-1b-a400m", 16), Served("mamba2-130m", 16),
+                Served("recurrentgemma-9b", 8))
+# gemma3-27b's bf16 weights take 54.0 GB: batch 2, and its float32 holds
+# at one period of its 5:1 local:global pattern (6 layers, 3.887 B
+# parameters; the 62 layers' 108 GB do not fit the card, so neither
+# does its serve_loop); whisper's decoder positions stop at its
+# learned_pos, 448: 384 prompt tokens + 16 steps + 8 (at most 32 steps)
+ATTENTION_MODELS = (Served("gemma3-27b", 8, batch=2, f32_layers=6,
+                           loop=False),
+                    Served("pixtral-12b", 8), Served("stablelm-1.6b", 16),
+                    Served("whisper-tiny", 16, prompt=384))
 # the float32 hold's MoE capacity: tests/test_decode.py's no-drop 8.0 (at
 # the config's 1.25 a prefill drops tokens that a 4-token decode step
 # keeps, a property of the reference)
@@ -3317,6 +3714,13 @@ MIXER_F32_CAPACITY = 8.0
 # or wiring moves rows by O(1), and each kernel is held on the model's
 # inputs beside.
 MIXER_CONTROL_FACTOR = 2.0
+# An encoder's non-causal bf16 attention against float64 attention over
+# its real keys, worst query row's relative error: between bf16's own
+# rounding (whisper's encoder reads 0.0028 on an H100, phase 20) and what
+# 36 zero-padded, unmasked keys do to the same float64 attention (0.020
+# there: the reference Pallas kernel's 512-key block, PALLAS_BLOCK_K).
+ENCODER_ROW_REL = 1e-2
+PALLAS_BLOCK_K = 512
 # recurrentgemma's local attention in a prefill of 4 x 2048 tokens: 16
 # query heads over 1 KV head, head_dim 256, window 2048
 RG_ATTN = dict(batch=4, heads=16, kv=1, seq=2048, d=256, window=2048)
@@ -3409,14 +3813,80 @@ def hold_attention_256(held, device, card) -> dict:
     return out
 
 
-def serve_mixer(arch, gen, device, card, held) -> dict:
-    """Serve ``arch`` at full width and depth in bf16 through
+def to_float(tree: dict) -> dict:
+    """``tree`` with every leaf made float32 in place, one leaf at a time:
+    a whole float32 copy beside the bf16 weights would not fit the card
+    for pixtral-12b (24.5 + 49 GB)."""
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            to_float(leaf)
+        else:
+            tree[key] = leaf.float()
+    return tree
+
+
+def first_layers(params: dict, cfg, n: int) -> dict:
+    """``params`` of ``Model(cfg)`` cut in place to its first ``n``
+    layers, whole periods of its pattern."""
+    from repro_torch.models.common import tree_map
+    plen = len(cfg.pattern)
+    check(n % plen == 0 and n < cfg.n_layers, f"{cfg.name}: {n} layers "
+          f"are not whole periods of {cfg.pattern} below {cfg.n_layers}")
+    for key in [k for k in params if k.startswith("rem")]:
+        del params[key]
+    for key in [k for k in params if k.startswith("blk")]:
+        params[key] = tree_map(lambda t: t[:n // plen].clone(), params[key])
+    return params
+
+
+def hold_encoder_attention(args) -> dict:
+    """An encoder's non-causal ``flash_attention`` call (whisper's: S
+    1500, whose last 64-key tile holds 28 keys) against float64 softmax
+    attention over its S real keys, by the worst query row's relative
+    error (``ENCODER_ROW_REL``); and a control held to fail that limit:
+    the same float64 attention over keys and values zero-padded to the
+    reference Pallas kernel's 512-key block and left unmasked, which is
+    what that kernel computes (``src/repro/kernels/flash_attention.py``
+    pads, and masks only by causality and the window)."""
+    import math
+    from repro_torch.kernels import ops
+    q, k, v, h, kv = args[:5]
+    got = ops.flash_attention(q, k, v, h, kv, causal=False)
+    bh, s, d = q.shape
+    b, group = bh // h, h // kv
+
+    def heads(x):
+        return x.double().view(b, kv, 1, s, d).expand(
+            b, kv, group, s, d).reshape(b, h, s, d)
+    logits = q.double().view(b, h, s, d) @ heads(k).transpose(-1, -2) \
+        / math.sqrt(d)
+    vd = heads(v)
+    want = (torch.softmax(logits, -1) @ vd).view(bh, s, d)
+    pad = (-s) % PALLAS_BLOCK_K
+    padded = torch.cat([logits, logits.new_zeros(b, h, s, pad)], -1)
+    control = (torch.softmax(padded, -1)[..., :s] @ vd).view(bh, s, d)
+    out = {"shape": (bh, s, d), "padded_keys": pad,
+           "row_rel": row_rel(got, want),
+           "max_abs": float((got.double() - want).abs().max()),
+           "control_row_rel": row_rel(control, want)}
+    check(out["row_rel"] <= ENCODER_ROW_REL, f"encoder attention {out} "
+          f"off float64 attention over its {s} keys by more than "
+          f"{ENCODER_ROW_REL} (worst row, relative)")
+    check(out["control_row_rel"] > ENCODER_ROW_REL, f"the zero-padded "
+          f"control reads {out['control_row_rel']}, within "
+          f"{ENCODER_ROW_REL}: the hold cannot see padded keys")
+    return out
+
+
+def serve_model(spec: Served, device, card, held) -> dict:
+    """Serve ``spec.arch`` at full width and depth in bf16 through
     ``make_prefill_step``/``make_serve_step`` (launches held a prefill
     and a step), hold it against the plain route (on the kernel route's
-    MoE choices), each kernel on its inputs against its plain version, a
-    float32 prefill + decode against a forward, time it, and run
-    ``serve_loop(use_reduced=False)``.  Returns the numbers, with the
-    main-path launches by kernel.
+    MoE choices), each kernel on its inputs against its plain version
+    (an encoder's attention also against float64), the float32 kernel
+    route against a forward and against the plain route, time it, and
+    run ``serve_loop(use_reduced=False)``.  Returns the numbers, with
+    the main-path launches by kernel.
 
     A model with attention is served from ``conditioned`` weights: at
     the reference's init its attention logits reach hundreds (granite's
@@ -3428,28 +3898,35 @@ def serve_mixer(arch, gen, device, card, held) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import forward as F
     from repro_torch.launch import serve
-    from repro_torch.models.common import tree_map
+    from repro_torch.models.frontends import synth_frontend_inputs
     from repro_torch.models.moe import Routing
     from repro_torch.models.transformer import Model
+    arch, gen = spec.arch, spec.gen
     cfg = get_config(arch)
     moe = cfg.n_experts > 0
     rec = RecordingOps()
     rec.model = arch
-    model, plain = Model(cfg, impl=rec), Model(cfg, impl=F.PLAIN)
+    model = Model(cfg, impl=rec)
     params = model.init(torch.Generator(device=device)
                         .manual_seed(SERVE_SEED))
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+    prompts = torch.randint(0, cfg.vocab_size, (spec.batch, spec.prompt),
                             device=device, generator=torch.Generator(
                                 device=device).manual_seed(SERVE_SEED + 1))
-    max_len = SERVE_PROMPT + gen + 8
+    extras = synth_frontend_inputs(cfg, spec.batch, torch.Generator(
+        device=device).manual_seed(SERVE_SEED + 2), device=device)
+    # the cache holds the patches ahead of the prompt (early fusion)
+    skip = cfg.n_patches if "patches" in extras else 0
+    max_len = skip + spec.prompt + gen + 8
     attention = any(e.startswith("attn") for e in cfg.pattern)
+    pinned = (lambda: chosen.pinned()) if moe else (lambda: None)
     reference_init = None
     if attention:
         rec.model = None
         chosen = Routing() if moe else None
-        got = model.prefill(params, prompts, max_len, routing=chosen)[0]
-        want = plain.prefill(params, prompts, max_len,
-                             routing=chosen.pinned() if moe else None)[0]
+        got = model.prefill(params, prompts, max_len, routing=chosen,
+                            **extras)[0]
+        want = Model(cfg, impl=F.PLAIN).prefill(
+            params, prompts, max_len, routing=pinned(), **extras)[0]
         reference_init = row_rel(got, want)
         del got, want, chosen
         params = conditioned(params)
@@ -3458,8 +3935,12 @@ def serve_mixer(arch, gen, device, card, held) -> dict:
     prefill = serve.make_prefill_step(model, None, max_len)
     step = serve.make_serve_step(model, None)
     out = {"config": f"{arch}, {cfg.n_layers} layers, d {cfg.d_model}, "
-                     f"bf16, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
-                     f"{gen} decode steps"
+                     f"bf16, batch {spec.batch}, prompt {spec.prompt}"
+                     + (f" + {cfg.n_patches} patches" if "patches" in extras
+                        else "")
+                     + (f", {cfg.encoder_seq} encoder frames"
+                        if "frames" in extras else "")
+                     + f", {gen} decode steps"
                      + (", conditioned attention" if attention else ""),
            "params": model.n_params(), "launches_per_prefill": want_pre,
            "launches_per_decode_step": want_step, "routes": {},
@@ -3469,11 +3950,12 @@ def serve_mixer(arch, gen, device, card, held) -> dict:
     t0 = time.perf_counter()
     tokens, launches = greedy(prefill, step, params, prompts, gen,
                               count=(f"{arch} bf16", want_pre, want_step,
-                                     None), routes=out["routes"])
+                                     None), routes=out["routes"],
+                              extras=extras)
     out["first_run_s"] = time.perf_counter() - t0
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["launches"] = launches
-    check(tokens.shape == (SERVE_BATCH, gen + 1) and
+    check(tokens.shape == (spec.batch, gen + 1) and
           bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           f"{arch}: greedy tokens {tuple(tokens.shape)} misshapen or out of "
           f"range")
@@ -3485,15 +3967,22 @@ def serve_mixer(arch, gen, device, card, held) -> dict:
           f"run {out['first_run_s']} s, peak memory "
           f"{out['peak_memory_gb']} GB  [{card}]")
 
-    # each kernel on the inputs the model gave it
-    before = {name: len(held.cases[name]) for name in OPS}
-    for (name, shapes), (_, args, kwargs) in rec.inputs.items():
-        hold_call(held, name, f"main path {arch} {shapes}", args, kwargs,
-                  main=True)
-    rec.inputs.clear()
+    # each kernel on the inputs the model gave it; an encoder's
+    # non-causal attention also against float64
     rec.model = None
-    out["held"] = {name: len(held.cases[name]) - before[name]
-                   for name in OPS if len(held.cases[name]) > before[name]}
+    encoder = [args for (name, shapes), (_, args, _) in rec.inputs.items()
+               if name == "flash_attention" and ("causal", False) in shapes]
+    if cfg.encoder_layers:
+        check(len(encoder) == 1, f"{arch}: {len(encoder)} recorded "
+              f"encoder attentions")
+        out["encoder_attention"] = e = hold_encoder_attention(encoder[0])
+        print(f"  the encoder's non-causal flash_attention {e['shape']} "
+              f"against float64 attention over its keys: worst row "
+              f"{e['row_rel']} (limit {ENCODER_ROW_REL}), max abs "
+              f"{e['max_abs']}; the reference Pallas kernel's unmasked "
+              f"{e['padded_keys']} zero keys read {e['control_row_rel']}")
+    del encoder
+    out["held"] = hold_recorded(held, rec, f"main path {arch}")
     print(f"  each kernel on {arch}'s inputs (one call a shape) against "
           f"its plain version: {out['held']} shapes held")
 
@@ -3502,12 +3991,12 @@ def serve_mixer(arch, gen, device, card, held) -> dict:
     # plain route on the kernel route's choices
     feed = tokens[:, :-1]
     chosen = Routing() if moe else None
-    got = teacher_forced(model, params, prompts, feed, max_len, chosen)
-    want = teacher_forced(plain, params, prompts, feed, max_len,
-                          chosen.pinned() if moe else None)
+    got = teacher_forced(model, params, prompts, feed, max_len, chosen,
+                         extras)
+    want = teacher_forced(Model(cfg, impl=F.PLAIN), params, prompts, feed,
+                          max_len, pinned(), extras)
     ctl = teacher_forced(Model(cfg, impl=reordered_plain()), params,
-                         prompts, feed, max_len,
-                         chosen.pinned() if moe else None)
+                         prompts, feed, max_len, pinned(), extras)
     rels = [row_rel(g, w) for g, w in zip(got, want)]
     control = [row_rel(c, w) for c, w in zip(ctl, want)]
     limit = max(SERVE_BF16_ROW_REL, MIXER_CONTROL_FACTOR * max(control))
@@ -3529,14 +4018,15 @@ def serve_mixer(arch, gen, device, card, held) -> dict:
         # the plain route's own choices in a prefill, against the kernel
         # route's (the prefill's calls come first in ``chosen``)
         free = Routing()
-        plain.prefill(params, prompts, max_len, routing=free)
+        Model(cfg, impl=F.PLAIN).prefill(params, prompts, max_len,
+                                         routing=free, **extras)
         flips, total = routing_flips(chosen, free)
         out["routing_unpinned"] = {"differs": flips, "of": total,
                                    "share": flips / total}
         del free
-    pinned = ", on the kernel route's MoE choices" if moe else ""
+    on_choices = ", on the kernel route's MoE choices" if moe else ""
     print(f"  bf16 logits against the plain route (worst row, relative; "
-          f"limit {limit}{pinned}): prefill {rels[0]}, decode steps max "
+          f"limit {limit}{on_choices}): prefill {rels[0]}, decode steps max "
           f"{out['bf16_row_rel_decode_max']}; the plain route with its "
           f"GEMM sums reordered: prefill {control[0]}, decode steps max "
           f"{max(control[1:])}; "
@@ -3550,17 +4040,20 @@ def serve_mixer(arch, gen, device, card, held) -> dict:
 
     # times of the kernel route, where its device time goes, and the
     # plain route's prefill
-    out["times"] = time_route(prefill, step, params, prompts, gen)
-    batch = {"tokens": prompts}
+    out["times"] = time_route(prefill, step, params, prompts, gen, extras)
+    batch = {"tokens": prompts, **extras}
     last, cache = prefill(params, batch)
     tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
     out["trace"] = {"prefill": profile_step(lambda: prefill(params, batch),
                                             SERVE_KERNELS),
                     "decode step": profile_step(
                         lambda: step(params, cache, tok), SERVE_KERNELS)}
-    del last, cache
-    out["plain_prefill_ms"] = cuda_ms(
-        lambda: plain.prefill(params, prompts, max_len), iters=1, warmup=1)
+    del last, cache, prefill, step, model, rec
+    plain = Model(cfg, impl=F.PLAIN)
+    out["plain_prefill_ms"] = cuda_ms(    # warm: it ran teacher-forced
+        lambda: plain.prefill(params, prompts, max_len, **extras), iters=1,
+        warmup=0)
+    del plain
     t = out["times"]
     print(f"  kernels route: prefill {t['prefill_ms']} ms (device "
           f"{t['prefill_device_ms']} ms, idle {t['prefill_idle']}); decode "
@@ -3574,52 +4067,91 @@ def serve_mixer(arch, gen, device, card, held) -> dict:
               f"{tr['records']}  [{card}]")
         for kname, ms, count in tr["top"][:5]:
             print(f"      {kname[:70]}: {ms} ms, {count} records")
-    del prefill, step, model, plain, rec
 
-    # float32: prefill + decode against one forward of the same tokens
+    # float32, on the same weights (a period of them for a model whose
+    # float32 weights do not fit the card): prefill + decode against one
+    # forward of the same tokens, and the kernel route's prefill against
+    # the plain route's
     cfg32 = cfg.replace(dtype=torch.float32)
+    if spec.f32_layers:
+        first_layers(params, cfg, spec.f32_layers)
+        cfg32 = cfg32.replace(n_layers=spec.f32_layers)
     if moe:
         cfg32 = cfg32.replace(moe_capacity=MIXER_F32_CAPACITY)
-    p32 = tree_map(lambda x: x.float(), params)
+    p32 = to_float(params)
     del params
+    ex32 = {k: v.float() for k, v in extras.items()}
     torch.cuda.empty_cache()
     m32 = Model(cfg32)
     total = SERVE_F32_PROMPT + SERVE_F32_STEPS
     ids = prompts[:, :total]
     with torch.inference_mode():
-        full, _, _ = m32.forward(p32, ids)
+        full, _, _ = m32.forward(p32, ids, **ex32)
     got32 = teacher_forced(m32, p32, ids[:, :SERVE_F32_PROMPT],
-                           ids[:, SERVE_F32_PROMPT:], total + 8)
-    errs = [float((g - full[:, SERVE_F32_PROMPT - 1 + i]).abs().max())
+                           ids[:, SERVE_F32_PROMPT:], skip + total + 8,
+                           extras=ex32)
+    errs = [float((g - full[:, skip + SERVE_F32_PROMPT - 1 + i]).abs().max())
             for i, g in enumerate(got32)]
+    out["f32_layers"] = cfg32.n_layers
     out["f32_prefill_decode_vs_forward_max_abs"] = max(errs)
     out["f32_logits_max_abs"] = float(full.abs().max())
     check(max(errs) <= SERVE_F32_ABS, f"{arch}: f32 prefill + decode off "
           f"the forward by {max(errs)}, above {SERVE_F32_ABS}")
-    del full, got32, p32, m32
+    del full, got32
+    # batch 1: the kernel route, the plain route on its MoE choices, and
+    # the plain route with its GEMM sums reordered
+    one = dict(tokens=prompts[:1], max_len=skip + spec.prompt + 8,
+               **{k: v[:1] for k, v in ex32.items()})
+    chosen = Routing() if moe else None
+    lasts = {"kernels": m32.prefill(p32, routing=chosen, **one)[0]}
+    del m32
+    for name, impl in (("plain", F.PLAIN), ("control", reordered_plain())):
+        lasts[name] = Model(cfg32, impl=impl).prefill(p32, routing=pinned(),
+                                                      **one)[0]
+    out["f32_vs_plain"] = {
+        name: {"max_abs": float((lasts[name] - lasts["plain"]).abs().max()),
+               "row_rel": row_rel(lasts[name], lasts["plain"])}
+        for name in ("kernels", "control")}
+    e = out["f32_vs_plain"]["kernels"]["max_abs"]
+    check(e <= SERVE_F32_ABS, f"{arch}: the f32 kernel route's prefill "
+          f"logits off the plain route's by {e}, above {SERVE_F32_ABS}")
+    del p32, lasts, chosen
     torch.cuda.empty_cache()
-    print(f"  float32{f' (moe_capacity {MIXER_F32_CAPACITY})' if moe else ''}"
-          f": prefill of {SERVE_F32_PROMPT} + {SERVE_F32_STEPS} decode steps "
+    print(f"  float32 ({cfg32.n_layers} layers"
+          f"{f', moe_capacity {MIXER_F32_CAPACITY}' if moe else ''}): "
+          f"prefill of {SERVE_F32_PROMPT} + {SERVE_F32_STEPS} decode steps "
           f"against one forward, max abs err {max(errs)} (limit "
-          f"{SERVE_F32_ABS}; logits reach {out['f32_logits_max_abs']})")
+          f"{SERVE_F32_ABS}; logits reach {out['f32_logits_max_abs']}); "
+          f"a prefill of 1 x {spec.prompt} against the plain route"
+          f"{' on its MoE choices' if moe else ''}: {e} (limit "
+          f"{SERVE_F32_ABS}), worst row "
+          f"{out['f32_vs_plain']['kernels']['row_rel']}; the plain route "
+          f"with its GEMM sums reordered: {out['f32_vs_plain']['control']}")
 
     # the reference's demo at its defaults, full size, float32
-    logs = []
-    loop_want = {name: k + 15 * serve_launches(cfg32, False)[name]
-                 for name, k in serve_launches(cfg32, True).items()}
-    res, loop_launches, _ = counted(
-        f"serve_loop {arch}", lambda: serve.serve_loop(
-            arch, use_reduced=False, device=device, log=logs.append),
-        loop_want, "mma")
-    check(res["generated"].shape == (4, 16) and
-          ((res["generated"] >= 0) & (res["generated"] < cfg.vocab_size))
-          .all(), f"serve_loop {arch} tokens {res['generated'].shape}")
-    out["serve_loop"] = {"elapsed_s": res["elapsed_s"], "log": logs[0],
-                         "launches": loop_launches}
-    torch.cuda.empty_cache()
-    print(f"  serve_loop({arch!r}, use_reduced=False) at its defaults "
-          f"(batch 4, prompt 16, 16 tokens, float32): {logs[0]}; launches "
-          f"{loop_launches}, every GEMM on mma  [{card}]")
+    loop_launches = dict.fromkeys(launches, 0)
+    if spec.loop:
+        logs = []
+        cfg_loop = cfg.replace(dtype=torch.float32)
+        loop_want = {name: k + 15 * serve_launches(cfg_loop, False)[name]
+                     for name, k in serve_launches(cfg_loop, True).items()}
+        res, loop_launches, _ = counted(
+            f"serve_loop {arch}", lambda: serve.serve_loop(
+                arch, use_reduced=False, device=device, log=logs.append),
+            loop_want, "mma")
+        check(res["generated"].shape == (4, 16) and
+              ((res["generated"] >= 0) & (res["generated"] < cfg.vocab_size))
+              .all(), f"serve_loop {arch} tokens {res['generated'].shape}")
+        out["serve_loop"] = {"elapsed_s": res["elapsed_s"], "log": logs[0],
+                             "launches": loop_launches}
+        torch.cuda.empty_cache()
+        print(f"  serve_loop({arch!r}, use_reduced=False) at its defaults "
+              f"(batch 4, prompt 16, 16 tokens, float32): {logs[0]}; "
+              f"launches {loop_launches}, every GEMM on mma  [{card}]")
+    else:
+        print(f"  serve_loop({arch!r}, use_reduced=False) not run: its "
+              f"float32 weights ({4 * out['params'] / 1e9} GB) do not fit "
+              f"the card")
     out["main_path_launches"] = {name: launches[name] + loop_launches[name]
                                  for name in launches}
     return out
@@ -3628,72 +4160,47 @@ def serve_mixer(arch, gen, device, card, held) -> dict:
 def mixers_slice(device, card, report) -> dict:
     """Phase 18: ``flash_attention`` at head_dim 256, then granite-moe-1b,
     mamba2-130m and recurrentgemma-9b served at full width and depth
-    (``serve_mixer``).  Returns the main-path launches by kernel, the
-    kernel checks, and the head_dim 256 attention's times."""
+    (``serve_model``).  Returns the main-path launches and the kernel
+    checks by kernel."""
     held = Held()
-    t0 = time.perf_counter()
     out = {"attention_256": hold_attention_256(held, device, card)}
     launches = {}
-    for arch, gen in MIXER_MODELS:
-        out[arch] = serve_mixer(arch, gen, device, card, held)
-        for name, n in out[arch]["main_path_launches"].items():
-            launches[name] = launches.get(name, 0) + n
-    out["seconds"] = time.perf_counter() - t0
+    for spec in MIXER_MODELS:
+        t0 = time.perf_counter()
+        out[spec.arch] = serve_model(spec, device, card, held)
+        out[spec.arch]["seconds"] = time.perf_counter() - t0
+        add_launches(launches, out[spec.arch]["main_path_launches"])
     report["mixers"] = out
-    print(f"mixers phase: {out['seconds']} s; main-path launches "
-          f"{launches}")
+    print(f"mixers phase: main-path launches {launches}; seconds "
+          f"{ {spec.arch: out[spec.arch]['seconds'] for spec in MIXER_MODELS} }")
     return {"launches": launches,
             "held": {name: (len(held.cases[name]), held.max_err(name))
-                     for name in OPS if held.cases[name]},
-            "attention_256": out["attention_256"]["times"]}
+                     for name in OPS if held.cases[name]}}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="also write every number as JSON here")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
-              "run needs a CUDA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _ext
+def serving_attention_slice(device, card, report) -> dict:
+    """Phase 20: gemma3-27b, pixtral-12b, stablelm-1.6b and whisper-tiny
+    served at full width and depth (``serve_model``).  Returns the
+    main-path launches and the kernel checks by kernel."""
+    held = Held()
+    out, launches = {}, {}
+    for spec in ATTENTION_MODELS:
+        t0 = time.perf_counter()
+        out[spec.arch] = serve_model(spec, device, card, held)
+        out[spec.arch]["seconds"] = time.perf_counter() - t0
+        add_launches(launches, out[spec.arch]["main_path_launches"])
+    report["serving_attention"] = out
+    print(f"attention configs' serving: main-path launches {launches}; "
+          f"seconds { {a: out[a]['seconds'] for a in out} }")
+    return {"launches": launches,
+            "held": {name: (len(held.cases[name]), held.max_err(name))
+                     for name in OPS if held.cases[name]}}
 
-    # float32 references on the card run in full float32, never TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda")
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    report = {"card": card, "kind": kind, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "python": sys.version.split()[0]}
-    print(f"card: {card}")
-    print(f"device: {kind}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, python {report['python']}")
 
-    t0 = time.perf_counter()
-    report["build_s_each"] = _ext.build_all()
-    report["build_s"] = time.perf_counter() - t0
-    report["ptxas"] = {}
-    print(f"build: {len(report['build_s_each'])} sources in parallel in "
-          f"{report['build_s']} s")
-    for source, secs in report["build_s_each"].items():
-        ptxas = [ln.strip() for ln in _ext.BUILD_LOGS.get(source, "")
-                 .splitlines() if "registers" in ln or "spill" in ln]
-        report["ptxas"][source] = ptxas
-        print(f"  {source}: {secs} s -> "
-              f"{_ext.library_path(source).relative_to(ROOT)}")
-        for ln in ptxas:
-            print(f"    ptxas: {ln}")
-
-    report["sass"] = sass_counts()
-    print(f"SASS tensor-core instructions: {report['sass']}")
-    check(report["sass"]["matmul.cu"]["HGMMA"] > 0,
-          "matmul.cu's library holds no HGMMA")
-    check(report["sass"]["flash_attention.cu"]["HMMA"] +
-          report["sass"]["flash_attention.cu"]["HGMMA"] > 0,
-          "flash_attention.cu's library holds no tensor-core MMA")
-
+def dse_phases(device, card, report) -> dict:
+    """Phases 3-9: the DSE main path and the LLM searches, the refine and
+    the service on the card; returns ``grid_minmax``'s kernels-line
+    entry."""
     with Recorder() as rec:
         results, launches, routes, wall_s, inputs = drive_main_path(device,
                                                                     rec)
@@ -3757,31 +4264,9 @@ def main(argv=None) -> int:
         llm_launches, llm_cases = llm_slice(device, card, report, rec,
                                             results)
 
-    slice_entries = kernel_slice(device, card, report)
-    bn_back_entry, train_launches = training_slice(device, card, report)
-    serving = serving_slice(device, card, report)
-    llm_train = training_llm_slice(device, card, report)
-    mixers = mixers_slice(device, card, report)
-    for entry in slice_entries:
-        name = entry["name"]
-        entry["launches"] += train_launches[name] + \
-            serving.get(name, 0) + llm_train["launches"].get(name, 0) + \
-            mixers["launches"].get(name, 0)
-        for more in (llm_train["held"], mixers["held"]):
-            if name in more:
-                checks, err = more[name]
-                entry["checks"] += checks
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        if name == "flash_attention":
-            t = mixers["attention_256"]
-            entry["head_dim_256"] = {
-                key: t[key] for key in ("ms", "device_ms", "plain_ms",
-                                        "bound_ms", "bound_by", "library_ms",
-                                        "library_device_ms")}
-
     main_label = "lattice128/training/cycles"
     t = timing[main_label]
-    kernels = {"kernels": [{
+    return {
         "name": "grid_minmax", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grid_minmax.cu",
         "replaces": "src/repro/kernels/reduce.py:65",
@@ -3791,8 +4276,152 @@ def main(argv=None) -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "device_ms": t["device_ms"], "profiler_ms": t["profiler_ms"],
-        "shape": t["shape"], "timed_on": main_label,
-    }] + slice_entries + [bn_back_entry]}
+        "shape": t["shape"], "timed_on": main_label}
+
+
+# The groups of phases ``--phases`` selects (numbered as in this file's
+# docstring; phases 1-2, the card and the build, always run): a group
+# runs whole, its first number naming it.  Phases 3-9 are the DSE main
+# path and the LLM searches, whose refine holds on the main path's grid.
+PHASE_GROUPS = ((3, 9), (10, 12), (13, 15), (16, 16), (17, 17), (18, 18),
+                (19, 19), (20, 20))
+
+
+def parse_phases(text: str) -> set:
+    """The groups (by first phase) that ``--phases`` names: ``all``, or
+    phases and ranges such as ``3-9,19``, each widened to its group."""
+    if text == "all":
+        return {first for first, _ in PHASE_GROUPS}
+    picked = set()
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        if not (lo.isdigit() and (hi.isdigit() or not hi)):
+            raise ValueError(f"--phases: {part!r} is not a phase or range")
+        lo, hi = int(lo), int(hi or lo)
+        if not PHASE_GROUPS[0][0] <= lo <= hi <= PHASE_GROUPS[-1][1]:
+            raise ValueError(f"--phases: {part!r} outside phases "
+                             f"{PHASE_GROUPS[0][0]}-{PHASE_GROUPS[-1][1]}")
+        picked.update(first for first, last in PHASE_GROUPS
+                      if first <= hi and lo <= last)
+    return picked
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write every number as JSON here")
+    ap.add_argument("--phases", default="all", help="the phases to run: "
+                    "all (the default), or phases and ranges such as "
+                    "3-9,19 (each runs its whole group, PHASE_GROUPS)")
+    args = ap.parse_args(argv)
+    run = parse_phases(args.phases)
+    # Growable segments, read when the allocator first runs: phase 19's
+    # recurrentgemma step holds ~63 GB and AdamW's per-leaf temporaries
+    # of its 4.2 GB embedding then found no 3.9 GB block among 15 GB of
+    # freed, fragmented cache.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "run needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _ext
+
+    # float32 references on the card run in full float32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(CARD)
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    report = {"card": card, "kind": kind, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "python": sys.version.split()[0],
+              "phases": sorted(run), "phase_s": {},
+              "alloc_conf": os.environ["PYTORCH_CUDA_ALLOC_CONF"]}
+    print(f"card: {card}")
+    print(f"device: {kind}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, python {report['python']}; "
+          f"PYTORCH_CUDA_ALLOC_CONF={report['alloc_conf']}")
+
+    t0 = time.perf_counter()
+    report["build_s_each"] = _ext.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    report["ptxas"] = {}
+    print(f"build: {len(report['build_s_each'])} sources in parallel in "
+          f"{report['build_s']} s")
+    for source, secs in report["build_s_each"].items():
+        ptxas = [ln.strip() for ln in _ext.BUILD_LOGS.get(source, "")
+                 .splitlines() if "registers" in ln or "spill" in ln]
+        report["ptxas"][source] = ptxas
+        print(f"  {source}: {secs} s -> "
+              f"{_ext.library_path(source).relative_to(ROOT)}")
+        for ln in ptxas:
+            print(f"    ptxas: {ln}")
+
+    report["sass"] = sass_counts()
+    print(f"SASS tensor-core instructions: {report['sass']}")
+    check(report["sass"]["matmul.cu"]["HGMMA"] > 0,
+          "matmul.cu's library holds no HGMMA")
+    check(report["sass"]["flash_attention.cu"]["HMMA"] +
+          report["sass"]["flash_attention.cu"]["HGMMA"] > 0,
+          "flash_attention.cu's library holds no tensor-core MMA")
+
+    def timed(first, fn, *args):
+        """Phase group ``first``'s ``fn(*args)``, its seconds kept."""
+        t = time.perf_counter()
+        out = fn(*args)
+        report["phase_s"][first] = time.perf_counter() - t
+        print(f"phases {first}: {report['phase_s'][first]} s")
+        torch.cuda.empty_cache()
+        return out
+
+    kernels = {"kernels": []}
+    if 3 in run:
+        kernels["kernels"].append(timed(3, dse_phases, device, card, report))
+    # the launches and checks of phases 13-20, added to the kernels line
+    more = []
+    if 10 in run:
+        kernels["kernels"] += timed(10, kernel_slice, device, card, report)
+    if 13 in run:
+        bn_back_entry, train_launches_ = timed(13, training_slice, device,
+                                               card, report)
+        more.append({"launches": train_launches_})
+    if 16 in run:
+        more.append({"launches": timed(16, serving_slice, device, card,
+                                       report)})
+    for first, fn in ((17, training_llm_slice), (18, mixers_slice),
+                      (19, training_mixers_slice),
+                      (20, serving_attention_slice)):
+        if first in run:
+            more.append(timed(first, fn, device, card, report))
+    for entry in kernels["kernels"]:
+        name = entry["name"]
+        if name == "grid_minmax":
+            continue
+        for phase in more:
+            entry["launches"] += phase["launches"].get(name, 0)
+            if name in phase.get("held", {}):
+                checks, err = phase["held"][name]
+                entry["checks"] += checks
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if name == "flash_attention" and 18 in run:
+            t = report["mixers"]["attention_256"]["times"]
+            entry["head_dim_256"] = {
+                key: t[key] for key in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "library_device_ms")}
+    if 13 in run:       # its launches are the bf16 step's, counted there
+        kernels["kernels"].append(bn_back_entry)
+    if run != parse_phases("all"):
+        # a part of the run: the launches and checks of what ran
+        kernels["phases"] = sorted(run)
+        kernels["launches"], kernels["held"] = {}, {}
+        for phase in more:
+            for name, n in phase["launches"].items():
+                kernels["launches"][name] = \
+                    kernels["launches"].get(name, 0) + n
+            for name, (checks, err) in phase.get("held", {}).items():
+                c, e = kernels["held"].get(name, (0, 0.0))
+                kernels["held"][name] = (c + checks, max(e, err))
     report.update(kernels)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -63,7 +63,10 @@ def serve_loop(arch: str, batch: int = 4, prompt_len: int = 16,
     cfg = cfg.replace(dtype=torch.float32, remat=False)
     model = Model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed))
-    max_len = prompt_len + gen + 8
+    # the cache holds a VLM's stub patches ahead of the prompt (the JAX
+    # demo's prompt_len + gen + 8 leaves pixtral-12b's 64 patches no room:
+    # its cache writes are clamped there, out of bounds here)
+    max_len = cfg.n_patches + prompt_len + gen + 8
 
     prompts = torch.randint(
         0, cfg.vocab_size, (batch, prompt_len), device=device,

@@ -162,8 +162,12 @@ def init_params(generator: torch.Generator, defs,
                 dtype=torch.bfloat16) -> Dict:
     """Tensors for a ``ParamDef`` tree on ``generator``'s device: normal
     leaves drawn in float32 with std ``scale / sqrt(fan_in)``, ``fan_in =
-    shape[-2]`` (``shape[-1]`` for a vector), then cast to ``dtype``.
-    The draws differ from the JAX package's (another generator)."""
+    shape[-2]`` (``shape[-1]`` for a vector), then cast to ``dtype``.  A
+    leaf stacked over layers (leading axis ``"layers"``) is drawn one
+    layer at a time: drawn whole, gemma3-27b's (62, 5376, 21504) FFN
+    weights would hold 4x their bfloat16 bytes in float32 at once, past
+    an 80 GB card.  The draws differ from the JAX package's (another
+    generator)."""
     device = generator.device
 
     def make(d: ParamDef) -> torch.Tensor:
@@ -173,8 +177,13 @@ def init_params(generator: torch.Generator, defs,
             return torch.ones(d.shape, dtype=dtype, device=device)
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         std = d.scale / math.sqrt(max(1, fan_in))
-        return (torch.randn(d.shape, generator=generator, device=device,
-                            dtype=torch.float32) * std).to(dtype)
+        out = torch.empty(d.shape, dtype=dtype, device=device)
+        for part in (out.unbind(0) if d.axes[:1] == ("layers",)
+                     else (out,)):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=device,
+                                   dtype=torch.float32).mul_(std))
+        return out
     return tree_map(make, defs)
 
 

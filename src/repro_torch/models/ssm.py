@@ -114,9 +114,15 @@ def ssd_chunked(xh, dt, a_log, bb, cc, chunk: int,
         bk = bb[:, c0:c0 + chunk].float()
         ck = cc[:, c0:c0 + chunk].float()
         cum = torch.cumsum(lak, dim=1)                        # (B,L,H)
-        # intra-chunk "attention": M[i,j] = exp(cum_i - cum_j) * (i >= j)
+        # intra-chunk "attention": M[i,j] = exp(cum_i - cum_j) * (i >= j),
+        # the exponent masked before the exp: above the diagonal cum_i -
+        # cum_j > 0 passes float32's exp range (88.7) within a chunk of
+        # 256 steps of dt ~ 0.7 (mamba2-130m at the reference's init),
+        # where exp's gradient, 0 * inf, would be NaN.  The same values
+        # as the JAX package's jnp.where(causal, jnp.exp(diff), 0.0),
+        # whose gradient is NaN there.
         diff = cum[:, :, None, :] - cum[:, None, :, :]        # (B,L,L,H)
-        m = torch.where(causal, torch.exp(diff), 0.0)
+        m = torch.exp(torch.where(causal, diff, float("-inf")))
         g = torch.einsum("bln,bmn->blm", ck, bk)              # (B,L,L)
         w = m * g[..., None]                                  # (B,L,L,H)
         xdt = xk.float() * dtk[..., None].float()

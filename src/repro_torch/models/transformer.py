@@ -38,7 +38,7 @@ configs add and normalize in plain PyTorch.  The SSD chunk einsums, the
 RG-LRU scan, the convs and the MoE dispatch are plain PyTorch, as the
 JAX package leaves them to XLA.
 
-``forward``, ``prefill`` and ``decode_step`` take an optional
+``forward``, ``prefill``, ``decode_step`` and ``loss`` take an optional
 ``routing`` (``moe.Routing``) that records or replays the MoE layers'
 top-k choices, so that two kernel routes can be compared on the same
 choices.
@@ -373,19 +373,21 @@ class Model:
         return logits, cache, aux
 
     # ---- loss ------------------------------------------------------------------
-    def loss(self, params: Dict, batch: Dict, rules: Optional[Rules] = None
+    def loss(self, params: Dict, batch: Dict, rules: Optional[Rules] = None,
+             routing: Optional[MOE.Routing] = None
              ) -> Tuple[torch.Tensor, Dict]:
         """Mean next-token cross-entropy of ``batch["tokens"]`` (and
         ``frames`` / ``patches``) plus 0.01 x the aux loss; returns
         ``(loss, {"ce", "aux"})``, differentiable in ``params`` when the
         model's ``impl`` is (``kernels.ops.differentiable()`` on the
-        card)."""
+        card).  ``routing`` records or replays the MoE choices, as in
+        ``forward``."""
         cfg = self.cfg
         tokens = batch["tokens"]
         patches = batch.get("patches")
         x, _, aux = self._final_hidden(params, tokens, rules,
                                        frames=batch.get("frames"),
-                                       patches=patches)
+                                       patches=patches, routing=routing)
         if patches is not None:
             x = x[:, patches.shape[1]:]
         targets = tokens[:, 1:].long()

@@ -299,6 +299,54 @@ def test_ssd_chunked_matches_jax_and_the_recurrence(s, chunk, with_state):
     close(tfinal, want_state, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dt_scale", [1.0, 4.0])
+def test_ssd_gradients_stay_finite_past_exps_range(dt_scale):
+    """A chunk of 256 steps whose decay sums pass float32's exp range
+    above the diagonal (cum_i - cum_j up to ~180 at dt ~ 0.7, as mamba2
+    at full size reaches): the port's gradients are finite and equal a
+    float64 step loop's; the JAX package's ``jnp.where(causal,
+    jnp.exp(diff), 0)`` gives NaN there (0 * inf in exp's backward).
+    The forward is the same in both (1e-4, the SSD scan's limit).  The
+    gradients are float32 against float64 over one 256-step chunk: 2e-6
+    (x, B, C) to 2.2e-4 (a_log, summed over the whole chunk, at 4x the
+    init's dt), so 1e-3."""
+    xh, dt, a_log, bb, cc, _ = ssd_inputs(5, b=1, s=256, h=2, p=4, n=4)
+    dt = dt * np.float32(dt_scale)
+    a_log = np.zeros_like(a_log)
+    t = [torch.from_numpy(a).double().requires_grad_()
+         for a in (xh, dt, a_log, bb, cc)]
+    y, _ = SSM.ssd_chunked(*(x.float() for x in t[:5]), 256)
+    gy = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        y.shape).astype(np.float32))
+    got = torch.autograd.grad(y, t, gy)
+
+    def loop(xh, dt, a_log, bb, cc):
+        a = -torch.exp(a_log)
+        state = torch.zeros(xh.shape[0], xh.shape[2], xh.shape[3],
+                            bb.shape[-1], dtype=torch.float64)
+        ys = []
+        for i in range(xh.shape[1]):
+            state = state * torch.exp(dt[:, i] * a)[..., None, None] + \
+                torch.einsum("bh,bhp,bn->bhpn", dt[:, i], xh[:, i], bb[:, i])
+            ys.append(torch.einsum("bn,bhpn->bhp", cc[:, i], state))
+        return torch.stack(ys, 1)
+    want = torch.autograd.grad(loop(*t), t, gy.double())
+    for name, g, w in zip(("xh", "dt", "a_log", "bb", "cc"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        rel = float((g - w).norm() / w.norm())
+        assert rel < 1e-3, (name, rel)
+
+    def jloss(*args):
+        y, _ = JSSM.ssd_chunked(*args, 256)
+        return jnp.sum(y * jnp.asarray(gy.numpy()))
+    jg = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (xh, dt, a_log, bb, cc)))
+    assert not all(np.isfinite(np.asarray(g)).all() for g in jg)
+    jy, _ = JSSM.ssd_chunked(*(jnp.asarray(a) for a in
+                               (xh, dt, a_log, bb, cc)), 256)
+    close(y.detach(), jy, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 def test_causal_conv_matches_jax(with_state):
     x, w = randn(1, 2, 9, 6), randn(2, 4, 6)

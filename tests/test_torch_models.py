@@ -322,6 +322,24 @@ def test_init_params_std_rule_and_determinism():
         ParamDef((2, 3), ("a",))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_init_params_draws_a_stacked_leaf_one_layer_at_a_time(dtype):
+    """A leaf stacked over layers is drawn layer by layer (a whole
+    float32 draw of gemma3-27b's FFN stacks would not fit an 80 GB card):
+    each layer holds what a draw of one layer's shape gives next from
+    the generator; other leaves are drawn whole."""
+    defs = {"a": ParamDef((3, 16, 8), ("layers", "embed", "ff")),
+            "b": ParamDef((16, 4, 8), ("embed", "heads", None))}
+    got = init_params(torch.Generator().manual_seed(11), defs, dtype)
+    gen = torch.Generator().manual_seed(11)
+    for i in range(3):
+        want = torch.randn((16, 8), generator=gen) / np.sqrt(16)
+        assert torch.equal(got["a"][i], want.to(dtype))
+    want = torch.randn((16, 4, 8), generator=gen) / np.sqrt(4)
+    assert torch.equal(got["b"], want.to(dtype))
+    assert got["a"].dtype == dtype and got["a"].is_contiguous()
+
+
 def test_params_from_numpy_keeps_bf16_bits():
     """A JAX bf16 tree crosses leaf for leaf with the same bits, ints
     and nesting too."""

@@ -115,6 +115,34 @@ def test_serve_loop_on_cpu():
     np.testing.assert_array_equal(again["generated"], out["generated"])
 
 
+def test_serve_loop_leaves_room_for_the_patches(monkeypatch):
+    """pixtral's stub patches come ahead of the prompt in the cache:
+    with more patches than the 8 spare rows of ``prompt_len + gen + 8``
+    (pixtral-12b has 64) the loop still serves, and its tokens equal a
+    prefill and steps over a cache with room to spare."""
+    cfg = reduced(get_config("pixtral-12b")).replace(n_patches=24)
+    monkeypatch.setattr(serve, "get_config", lambda arch: cfg)
+    out = serve.serve_loop("pixtral-12b", batch=2, prompt_len=5, gen=4,
+                           use_reduced=False, device="cpu", log=lambda _: 0)
+    cfg32 = cfg.replace(dtype=torch.float32, remat=False)
+    model = Model(cfg32)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 5),
+                            generator=torch.Generator().manual_seed(1))
+    extras = serve.synth_frontend_inputs(cfg32, 2, device="cpu")
+    last, cache = serve.make_prefill_step(model, None, 100)(
+        params, {"tokens": prompts, **extras})
+    tok = torch.argmax(last, -1).to(torch.int32)[:, None]
+    toks = [tok]
+    step = serve.make_serve_step(model, None)
+    for _ in range(3):
+        nxt, cache = step(params, cache, tok)
+        tok = nxt[:, None]
+        toks.append(tok)
+    np.testing.assert_array_equal(out["generated"],
+                                  torch.cat(toks, 1).numpy())
+
+
 def test_serve_loop_main_on_cpu(capsys):
     serve.main(["--arch", "whisper-tiny", "--batch", "2", "--prompt-len",
                 "4", "--gen", "3", "--device", "cpu"])

@@ -1,0 +1,149 @@
+"""Helpers of ``chip_smoke.py``'s phases 18-20, on the CPU (where
+``kernels.ops`` runs the plain versions):
+
+* ``conditioned`` rescales every attention's projections -- self-,
+  cross- and an encoder's -- and nothing else;
+* ``first_layers`` cuts a stacked parameter tree to whole periods of
+  the pattern, and ``to_float`` converts a tree in place;
+* ``hold_encoder_attention`` holds a non-causal attention call against
+  float64 and its zero-padded control fails the limit;
+* ``step_errors`` reads relative errors leaf by leaf from host copies;
+* ``scripts/saved_activations.py`` counts a step's saved bytes on the
+  meta device.
+"""
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_serve import _smoke  # noqa: E402
+
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.models.transformer import Model  # noqa: E402
+
+SMOKE = _smoke()
+
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    monkeypatch.setattr(SMOKE, "CARD", "cpu")
+
+
+def _params(arch, **kw):
+    cfg = reduced(get_config(arch)).replace(**{"dtype": torch.float32,
+                                               **kw})
+    return cfg, Model(cfg).init(torch.Generator().manual_seed(0))
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "recurrentgemma-9b",
+                                  "granite-moe-1b-a400m", "mamba2-130m"])
+def test_conditioned_rescales_every_attention_and_nothing_else(arch):
+    cfg, params = _params(arch)
+    got = dict(_paths(SMOKE.conditioned(params)))
+    scaled = 0
+    for name, w in _paths(params):
+        leaf = name.rsplit("/", 1)[1]
+        if leaf in ("wq", "wk", "wv", "wo") and "attn" in name:
+            factor = (math.sqrt(w.shape[-2] / w.shape[-3]) if leaf != "wo"
+                      else 1 / math.sqrt(w.shape[-3]))
+            torch.testing.assert_close(got[name], w * factor)
+            scaled += 1
+        else:
+            assert got[name] is w, name
+    # the stacked wq, wk, wv, wo of each attention pattern position
+    # (whisper: self-, cross- and the encoder's), and of each unrolled
+    # remainder layer with attention
+    kinds = cfg.pattern + tuple(cfg.pattern[:cfg.n_layers % len(cfg.pattern)])
+    want = 4 * sum(k.startswith("attn") for k in kinds)
+    if cfg.encoder_layers:
+        want += 8
+    assert scaled == want
+
+
+def test_conditioned_whisper_covers_cross_and_encoder_attention():
+    _, params = _params("whisper-tiny")
+    got = SMOKE.conditioned(params)
+    for path in (("blk0", "attn"), ("blk0", "xattn"), ("enc", "blk", "attn")):
+        a, b = params, got
+        for key in path:
+            a, b = a[key], b[key]
+        assert not torch.equal(a["wq"], b["wq"]), path
+
+
+def test_first_layers_and_to_float():
+    cfg, params = _params("recurrentgemma-9b", dtype=torch.bfloat16)
+    assert cfg.n_layers == 7 and "rem0" in params
+    cut = SMOKE.first_layers(params, cfg, 3)
+    assert cut is params and not any(k.startswith("rem") for k in cut)
+    whole = Model(cfg).init(torch.Generator().manual_seed(0))
+    for name, leaf in _paths(cut):
+        if name.startswith("/blk"):
+            assert leaf.shape[0] == 1
+            src = dict(_paths(whole))[name]
+            assert torch.equal(leaf, src[:1])
+    SMOKE.to_float(cut)
+    assert all(leaf.dtype == torch.float32 for _, leaf in _paths(cut))
+    small = cfg.replace(n_layers=3, dtype=torch.float32)
+    logits, _, _ = Model(small).forward(cut, torch.zeros((1, 4),
+                                                         dtype=torch.int64))
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    with pytest.raises(AssertionError):
+        SMOKE.first_layers(Model(cfg).init(torch.Generator().manual_seed(0)),
+                           cfg, 4)
+
+
+@pytest.mark.parametrize("s", [100, 1500])
+def test_encoder_hold_passes_the_plain_attention_and_fails_padding(s):
+    """float32: on the CPU the call runs the plain version, which in
+    bf16 is not the kernel's arithmetic (it rounds the probabilities and
+    sums in bf16 there)."""
+    gen = torch.Generator().manual_seed(3)
+    h = 6
+    q, k, v = (torch.randn((h, s, 64), generator=gen) for _ in range(3))
+    out = SMOKE.hold_encoder_attention((q, k, v, h, h))
+    assert out["padded_keys"] == (-s) % 512
+    assert out["row_rel"] <= SMOKE.ENCODER_ROW_REL < out["control_row_rel"]
+
+
+def test_step_errors_from_host_copies(on_cpu):
+    want = {"loss": 2.0, "grad_norm": 4.0,
+            "grads": {"a": torch.ones(3, 5), "b": torch.full((7,), 2.0)},
+            "params": {"a": torch.ones(3, 5), "b": torch.ones(7)}}
+    got = {"loss": 2.0 * (1 + 1e-7), "grad_norm": 4.0,
+           "grads": {"a": torch.ones(3, 5) * 1.01, "b": torch.full((7,), 2.0)},
+           "params": {"a": torch.ones(3, 5), "b": torch.ones(7) * 0.5}}
+    e = SMOKE.step_errors(got, want)
+    assert e["loss"] == pytest.approx(1e-7) and e["grad_norm"] == 0.0
+    assert e["grad"] == pytest.approx(0.01) and e["grad_worst"] == "a"
+    assert e["param"] == pytest.approx(0.5) and e["param_worst"] == "b"
+    assert SMOKE.rel_fro(torch.zeros(4), torch.zeros(4)) == 0.0
+
+
+def test_saved_activations_script_counts_on_the_meta_device():
+    """``scripts/saved_activations.py``: a step's saved bytes grow with
+    the batch, the plain route saves attention's probabilities beside
+    the kernel route's inputs, and AdamW's state is 16 bytes a
+    parameter."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "saved_activations.py"
+    spec = importlib.util.spec_from_file_location("saved_activations", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    one = script.saved_bytes("smollm-360m", 1, 1, 64, plain=False)
+    two = script.saved_bytes("smollm-360m", 1, 2, 64, plain=False)
+    plain = script.saved_bytes("smollm-360m", 1, 1, 64, plain=True)
+    assert 0 < one["saved_gb"] < two["saved_gb"] <= 2 * one["saved_gb"]
+    assert plain["saved_gb"] > one["saved_gb"]
+    assert one["adamw_state_gb"] == 16 * one["params"] / 1e9
+    assert one["largest"] and one["route"] == "kernels"
