@@ -162,8 +162,8 @@ what ran):
     types against its plain version, finds tensor-core instructions in
     its bf16 instantiation's SASS, prints ptxas's registers and spills,
     holds head_dim 96 to raise, and times it beside its bound and SDPA;
-    then serves granite-moe-1b-a400m (16 greedy steps), mamba2-130m (16)
-    and recurrentgemma-9b (8) at full width and depth through
+    then serves granite-moe-1b-a400m (8 greedy steps), mamba2-130m (8)
+    and recurrentgemma-9b (4) at full width and depth through
     ``Model`` and ``make_prefill_step``/``make_serve_step``: seeded bf16
     weights, batch 4, prompts of 2048 tokens, every launch counter set
     to 0 before the prefill and before each step and read after it
@@ -202,11 +202,11 @@ what ran):
     each limit; each kernel on the step's inputs against its plain
     version; and both routes' warm steps timed (events, the slower of 2
     after one, tokens/s, device time by phase, idle share, peak memory);
-20. serves gemma3-27b (batch 2 x 2048, 8 steps: the 5:1 local:global
+20. serves gemma3-27b (batch 2 x 2048, 4 steps: the 5:1 local:global
     schedule with window 1024), pixtral-12b (4 x 2048 after 64 stub
-    patches, 8 steps), stablelm-1.6b (4 x 2048, 16 steps: LayerNorm, no
+    patches, 4 steps), stablelm-1.6b (4 x 2048, 8 steps: LayerNorm, no
     fused norm) and whisper-tiny (4 x 384 decoder tokens after 1500
-    encoder frames, 16 steps) at full width and depth, as phase 18 serves
+    encoder frames, 8 steps) at full width and depth, as phase 18 serves
     the mixers (``serve_model``, from ``conditioned`` weights):
     launches a prefill and a step held (``serve_launches``: 435/125/62,
     281/81/40, 169/0/24 and 73/0/8 a prefill), bf16 logits against the
@@ -217,7 +217,29 @@ what ran):
     zero-padded keys as a control that must fail), the float32 holds
     (gemma3 at one period, 6 layers: its float32 weights do not fit the
     card) and ``serve_loop(arch, use_reduced=False)`` for all but
-    gemma3.
+    gemma3;
+21. serves llama4-maverick-400b-a17b at full width (d 5120, 40/8 heads,
+    128 experts top-1 and the shared expert, d_ff 8192, vocab 202,048,
+    untied head) and one period of its ``("attn+moe", "attn")`` pattern
+    (``Served.layers`` 2: 18.553 B parameters, 37.1 GB in bf16), batch 4
+    x 2048, 8 greedy steps, from ``conditioned`` weights, as phase 18
+    serves granite (``serve_model``: launches 400/5/2 a prefill and
+    400/5/0 a step held, the bf16 logits against the plain route on the
+    kernel route's MoE choices, each kernel on the model's inputs), with
+    no float32 whole-model hold and no ``serve_loop`` (74.2 GB in
+    float32); the same prefill once more with ``with_axis_sizes(
+    PROD_RULES, mesh)`` over a one-rank (1, 1) ``("data", "model")``
+    mesh on NCCL, its logits bit-equal to ``rules=None``'s; the gradient
+    compression (``optim/compression.py``) over a float32 tree shaped as
+    Qwen3-0.6B's parameters: ``quantize`` and ``dequantize`` bit-equal
+    to the same calls on the CPU (each leaf's first and last 2**20
+    elements, two rounds), ``compressed_psum`` over the one-rank group
+    equal to ``dequantize(quantize(g, err))``, ``quantize`` timed beside
+    its bytes bound; then, the bf16 model freed, llama4's MoE layer
+    alone in float32 (16.233 B parameters, 64.9 GB, its memory reckoned
+    on the meta device first) on 1 x 2048 tokens, the kernel route
+    against the plain route on pinned routing (``SERVE_F32_ABS``, 388
+    launches, every GEMM on `mma`).
 
 Each phase group's seconds are printed.  Any failed phase raises and the
 script exits non-zero.  Without CUDA, or
@@ -234,9 +256,10 @@ import subprocess
 import sys
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from types import SimpleNamespace
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -3677,29 +3700,32 @@ def training_mixers_slice(device, card, report) -> dict:
 
 class Served(NamedTuple):
     """A model ``serve_model`` serves in bf16 from weights seeded with
-    ``SERVE_SEED``: ``batch`` prompts of ``prompt`` tokens, ``gen``
-    greedy steps; its float32 holds at ``f32_layers`` layers (0: all of
-    them; whole periods of the pattern), and ``serve_loop`` at full size
-    where ``loop``."""
+    ``SERVE_SEED``: ``layers`` layers (0: all of them; whole periods of
+    the pattern), ``batch`` prompts of ``prompt`` tokens, ``gen`` greedy
+    steps; its float32 holds at ``f32_layers`` layers (0: all of them;
+    None: none, where no period's float32 weights fit the card, and then
+    no ``serve_loop`` either), and ``serve_loop`` at full size where
+    ``loop``."""
     arch: str
     gen: int
     batch: int = SERVE_BATCH
     prompt: int = SERVE_PROMPT
-    f32_layers: int = 0
+    f32_layers: Optional[int] = 0
     loop: bool = True
+    layers: int = 0
 
 
-MIXER_MODELS = (Served("granite-moe-1b-a400m", 16), Served("mamba2-130m", 16),
-                Served("recurrentgemma-9b", 8))
+MIXER_MODELS = (Served("granite-moe-1b-a400m", 8), Served("mamba2-130m", 8),
+                Served("recurrentgemma-9b", 4))
 # gemma3-27b's bf16 weights take 54.0 GB: batch 2, and its float32 holds
 # at one period of its 5:1 local:global pattern (6 layers, 3.887 B
 # parameters; the 62 layers' 108 GB do not fit the card, so neither
 # does its serve_loop); whisper's decoder positions stop at its
-# learned_pos, 448: 384 prompt tokens + 16 steps + 8 (at most 32 steps)
-ATTENTION_MODELS = (Served("gemma3-27b", 8, batch=2, f32_layers=6,
+# learned_pos, 448: 384 prompt tokens + 8 steps + 8 (at most 56 steps)
+ATTENTION_MODELS = (Served("gemma3-27b", 4, batch=2, f32_layers=6,
                            loop=False),
-                    Served("pixtral-12b", 8), Served("stablelm-1.6b", 16),
-                    Served("whisper-tiny", 16, prompt=384))
+                    Served("pixtral-12b", 4), Served("stablelm-1.6b", 8),
+                    Served("whisper-tiny", 8, prompt=384))
 # the float32 hold's MoE capacity: tests/test_decode.py's no-drop 8.0 (at
 # the config's 1.25 a prefill drops tokens that a 4-token decode step
 # keeps, a property of the reference)
@@ -3878,15 +3904,18 @@ def hold_encoder_attention(args) -> dict:
     return out
 
 
-def serve_model(spec: Served, device, card, held) -> dict:
-    """Serve ``spec.arch`` at full width and depth in bf16 through
+def serve_model(spec: Served, device, card, held, more=None) -> dict:
+    """Serve ``spec.arch`` at full width and depth (``spec.layers``) in
+    bf16 through
     ``make_prefill_step``/``make_serve_step`` (launches held a prefill
     and a step), hold it against the plain route (on the kernel route's
     MoE choices), each kernel on its inputs against its plain version
     (an encoder's attention also against float64), the float32 kernel
     route against a forward and against the plain route, time it, and
-    run ``serve_loop(use_reduced=False)``.  Returns the numbers, with
-    the main-path launches by kernel.
+    run ``serve_loop(use_reduced=False)``.  ``more(cfg, params, batch,
+    max_len)``, if given, runs on the bf16 weights after the timing and
+    its result is kept as ``"more"``.  Returns the numbers, with the
+    main-path launches by kernel.
 
     A model with attention is served from ``conditioned`` weights: at
     the reference's init its attention logits reach hundreds (granite's
@@ -3903,6 +3932,8 @@ def serve_model(spec: Served, device, card, held) -> dict:
     from repro_torch.models.transformer import Model
     arch, gen = spec.arch, spec.gen
     cfg = get_config(arch)
+    if spec.layers:
+        cfg = cfg.replace(n_layers=spec.layers)
     moe = cfg.n_experts > 0
     rec = RecordingOps()
     rec.model = arch
@@ -4067,6 +4098,14 @@ def serve_model(spec: Served, device, card, held) -> dict:
               f"{tr['records']}  [{card}]")
         for kname, ms, count in tr["top"][:5]:
             print(f"      {kname[:70]}: {ms} ms, {count} records")
+    if more is not None:
+        out["more"] = more(cfg, params, batch, max_len)
+    if spec.f32_layers is None:
+        print(f"  float32 holds and serve_loop not run: {arch}'s float32 "
+              f"weights at {cfg.n_layers} layers take "
+              f"{4 * out['params'] / 1e9} GB")
+        out["main_path_launches"] = dict(launches)
+        return out
 
     # float32, on the same weights (a period of them for a model whose
     # float32 weights do not fit the card): prefill + decode against one
@@ -4197,6 +4236,345 @@ def serving_attention_slice(device, card, report) -> dict:
                      for name in OPS if held.cases[name]}}
 
 
+# ---------------------------------------------------------------------------
+# llama4-maverick at one period of its pattern, the port's gradient
+# compression and a one-rank mesh's sharding rules on the card
+# ---------------------------------------------------------------------------
+
+# llama4-maverick-400b-a17b at one period of its ("attn+moe", "attn")
+# pattern, full width: 18.553 B parameters, 37.1 GB in bf16 (the 48
+# layers' 397.7 B take 795 GB).  The period's float32 weights take 74.2
+# GB, past the card beside anything else, so it has no float32
+# whole-model hold and no serve_loop; its MoE layer is held alone in
+# float32 once the bf16 model is freed (``hold_moe_f32``).
+LLAMA4 = Served("llama4-maverick-400b-a17b", 8, layers=2,
+                f32_layers=None, loop=False)
+LLAMA4_F32_TOKENS = 2048
+# compression's CPU hold: each leaf's first and last QUANT_SLICE elements
+QUANT_SLICE = 1 << 20
+
+
+@contextmanager
+def one_rank_mesh(device):
+    """A (1, 1) ``("data", "model")`` ``DeviceMesh`` over a one-rank
+    process group (NCCL on the card; joined through a ``FileStore`` in a
+    temporary directory), torn down on exit."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(
+            str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+        try:
+            yield make_mesh((1, 1), ("data", "model"), device.type)
+        finally:
+            dist.destroy_process_group()
+
+
+def ruled_prefill(mesh):
+    """``serve_model``'s ``more``: the rules on ``mesh``.  The kernel
+    route's prefill once with ``rules=None`` and once with
+    ``PROD_RULES`` sized to ``mesh``: on plain tensors ``shard`` returns
+    its input, so the logits must be the same bits.  Then the rules on
+    ``DTensor``s, where they do act: every parameter leaf placed by
+    ``make_state_shardings`` (AdamW's moments placed as their
+    parameters), held bit-equal through ``full_tensor``; and the
+    prefill's embedded hidden state taken through ``shard`` twice, each
+    time redistributed to the placements its spec resolves to."""
+    def more(cfg, params, batch, max_len):
+        import torch.distributed as dist
+        from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                              distribute_tensor)
+        from repro_torch.launch import serve
+        from repro_torch.launch.train import make_state_shardings
+        from repro_torch.models.common import (PROD_RULES, placements, shard,
+                                               spec, with_axis_sizes)
+        from repro_torch.models.layers import embed_tokens
+        from repro_torch.models.transformer import Model
+        from repro_torch.optim import AdamW
+        rules = with_axis_sizes(PROD_RULES, mesh)
+        model = Model(cfg)
+        want = serve.make_prefill_step(model, None, max_len)(params, batch)[0]
+        got = serve.make_prefill_step(model, rules, max_len)(params, batch)[0]
+        check(torch.equal(got, want), f"{cfg.name}: the prefill's logits "
+              f"with PROD_RULES on a one-rank mesh differ from rules=None's")
+        out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "backend": dist.get_backend(mesh.get_group("data")),
+               "logits": list(got.shape), "bit_equal": True}
+        del want, got
+
+        pairs = make_state_shardings(model, AdamW(schedule=lambda _: 0.0),
+                                     rules, mesh)
+        placed = {"leaves": 0, "sharded": 0}
+        for (name, leaf), (_, (m, pl)) in zip(leaf_items(params),
+                                              leaf_items(pairs["params"])):
+            dt = distribute_tensor(leaf, m, pl)
+            check(list(dt.placements) == pl
+                  and dt.to_local().shape == leaf.shape
+                  and torch.equal(dt.full_tensor(), leaf),
+                  f"{cfg.name}{name}: placed at {pl} on the one-rank mesh, "
+                  f"its local shard or full tensor differs from the leaf")
+            placed["leaves"] += 1
+            placed["sharded"] += any(isinstance(q, Shard) for q in pl)
+            del dt
+        for moment in ("m", "v"):
+            check([pl for _, (_, pl) in leaf_items(pairs["opt"][moment])]
+                  == [pl for _, (_, pl) in leaf_items(pairs["params"])],
+                  f"{cfg.name}: AdamW's {moment} placed otherwise than the "
+                  f"parameters")
+        check(placed["sharded"] > 0, f"{cfg.name}: PROD_RULES shard none "
+              f"of the {placed['leaves']} parameter leaves")
+        out["placed"] = placed
+
+        x = embed_tokens(params["embed"], batch["tokens"], None, cfg.dtype)
+        xd = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
+        out["hidden"] = []
+        for axes in (("batch", "seq_resid", "act_embed"),
+                     ("batch", "seq", "act_embed")):
+            pl = placements(spec(rules, *axes, shape=tuple(x.shape)), mesh)
+            before = list(xd.placements)
+            xd = shard(xd, rules, *axes)
+            check(isinstance(xd, DTensor) and list(xd.placements) == pl
+                  and pl != before and torch.equal(xd.full_tensor(), x),
+                  f"{cfg.name}: shard of the hidden state by {axes} did not "
+                  f"redistribute {before} to {pl} with the same values")
+            out["hidden"].append(f"{before} -> {pl}")
+        del x, xd
+        print(f"  the prefill with with_axis_sizes(PROD_RULES, mesh) over a "
+              f"one-rank {out['mesh']} mesh ({out['backend']}): logits "
+              f"{out['logits']} bit-equal to rules=None's (shard passes "
+              f"plain tensors); make_state_shardings placed "
+              f"{placed['leaves']} parameter leaves ({placed['sharded']} "
+              f"sharded), each full_tensor bit-equal; shard redistributed "
+              f"the hidden state {'; '.join(out['hidden'])}, values equal")
+        return out
+    return more
+
+
+def _quant_slices(size: int) -> list:
+    """``(start, stop)`` of a leaf's first and last ``QUANT_SLICE``
+    elements, the last from a block boundary (the whole leaf if small)."""
+    from repro_torch.optim.compression import BLOCK
+    if size <= 2 * QUANT_SLICE:
+        return [(0, size)]
+    return [(0, QUANT_SLICE),
+            ((size - QUANT_SLICE) // BLOCK * BLOCK, size)]
+
+
+def hold_compression(device, card) -> dict:
+    """``optim.compression`` on the card over a float32 gradient-shaped
+    tree of Qwen3-0.6B's parameters (seeded, std 1e-3): ``quantize``
+    twice (a zero error, then the carried one) and ``dequantize`` held
+    bit-equal to the same calls on the CPU on each leaf's first and last
+    ``QUANT_SLICE`` elements; ``compressed_psum`` over the one-rank
+    group bit-equal to ``dequantize(quantize(g, err))`` and its new
+    errors to ``quantize``'s; ``quantize`` over the whole tree timed by
+    CUDA events beside its bytes bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import compression as C
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED + 7)
+    defs = Model(get_config("qwen3-0.6b")).param_defs()
+    grads = tree_map(lambda d: torch.randn(
+        d.shape, generator=gen, device=device).mul_(1e-3), defs)
+    gs = [g for _, g in leaf_items(grads)]
+    n = sum(g.numel() for g in gs)
+    err = C.init_error(grads)
+    checked = 0
+    for _ in range(2):
+        new = []
+        for (name, g), e in zip(leaf_items(grads),
+                                [e for _, e in leaf_items(err)]):
+            q, scale, ne = C.quantize(g, e)
+            for a, b in _quant_slices(g.numel()):
+                qc, sc, ec = C.quantize(g.reshape(-1)[a:b].cpu(),
+                                        e.reshape(-1)[a:b].cpu())
+                blk = slice(a // C.BLOCK, -(-b // C.BLOCK))
+                dq = C.dequantize(q[blk], scale[blk], (b - a,), b - a)
+                check(torch.equal(q[blk].cpu(), qc)
+                      and torch.equal(scale[blk].cpu(), sc)
+                      and torch.equal(ne.reshape(-1)[a:b].cpu(), ec)
+                      and torch.equal(dq.cpu(), C.dequantize(
+                          qc, sc, (b - a,), b - a)),
+                      f"compression {name}[{a}:{b}]: the card's quantize or "
+                      f"dequantize differs from the CPU's")
+                checked += b - a
+            new.append(ne)
+        it = iter(new)
+        err = tree_map(lambda _: next(it), grads)
+    red, perr = C.compressed_psum(grads, err)
+    for (name, g), e, r, pe in zip(leaf_items(grads),
+                                   [e for _, e in leaf_items(err)],
+                                   [r for _, r in leaf_items(red)],
+                                   [e for _, e in leaf_items(perr)]):
+        q, scale, ne = C.quantize(g, e)
+        check(torch.equal(r, C.dequantize(q, scale, g.shape, g.numel()))
+              and torch.equal(pe, ne), f"compressed_psum {name} over one "
+              f"rank differs from dequantize(quantize(g, err))")
+    del red, perr
+    es = [e for _, e in leaf_items(err)]
+    ms = cuda_ms(lambda: [C.quantize(g, e) for g, e in zip(gs, es)],
+                 iters=3, warmup=1)
+    # each input read once, each output written once
+    nbytes = sum(4 * g.numel() * 3 + (-(-g.numel() // C.BLOCK)) * (
+        C.BLOCK + 4) for g in gs)
+    out = {"leaves": len(gs), "elements": n, "held_elements_cpu": checked,
+           "quantize_ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes": nbytes}
+    print(f"compression on the card over Qwen3-0.6B's gradient-shaped "
+          f"tree ({out['leaves']} leaves, {n} float32 elements): quantize "
+          f"and dequantize bit-equal to the CPU's on {checked} elements "
+          f"over two rounds (the second with the carried error); "
+          f"compressed_psum over the one-rank group bit-equal to "
+          f"dequantize(quantize(g, err)); quantize over the tree {ms} ms, "
+          f"bound {out['bound_ms']} ms ({nbytes} bytes)  [{card}]")
+    return out
+
+
+def moe_f32_reckoning(cfg, tokens: int) -> dict:
+    """The float32 MoE layer hold's bytes, counted on the meta device (no
+    memory, no card): its weights, and every tensor the plain route of
+    ``apply_moe`` makes on (1, tokens, d) but views and in-place results,
+    none of them freed (a bound on its transients)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels import forward as F
+    from repro_torch.models import moe
+    from repro_torch.models.common import param_count, tree_map
+    defs = moe.moe_defs(cfg)
+    params = tree_map(lambda d: torch.empty(d.shape, device="meta"), defs)
+
+    class Made(TorchDispatchMode):
+        made = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            if not func.is_view and not func._schema.is_mutable:
+                for t in (res if isinstance(res, (tuple, list)) else (res,)):
+                    if isinstance(t, torch.Tensor):
+                        Made.made += t.numel() * t.element_size()
+            return res
+
+    x = torch.empty((1, tokens, cfg.d_model), device="meta")
+    with Made():
+        moe.apply_moe(cfg, params, x, None, impl=F.PLAIN)
+    n = param_count(defs)
+    return {"params": n, "weights_gb": 4 * n / 1e9,
+            "activations_gb": Made.made / 1e9, "input_gb": 4 * x.numel() / 1e9,
+            "total_gb": (4 * n + Made.made + 4 * x.numel()) / 1e9}
+
+
+def hold_moe_f32(device, card, held) -> dict:
+    """llama4's MoE layer alone in float32 at full width (128 experts
+    top-1 and the shared expert, d 5120, d_ff 8192), its memory reckoned
+    on the meta device first: ``apply_moe`` on 1 x ``LLAMA4_F32_TOKENS``
+    seeded tokens through the kernels (launches held, every GEMM on
+    `mma`) against the plain route on the kernel route's choices, at
+    ``SERVE_F32_ABS``; the plain route with its GEMM sums reordered
+    printed beside, and the plain route with its GEMMs rounded to
+    bfloat16 (``LLM_CONTROL_BITS``, phases 17 and 19's control), which
+    must fail the limit; each kernel on its inputs against its plain
+    version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import forward as F
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    cfg = get_config(LLAMA4.arch).replace(dtype=torch.float32)
+    tokens = LLAMA4_F32_TOKENS
+    need = moe_f32_reckoning(cfg, tokens)
+    free, total = torch.cuda.mem_get_info()
+    out = {"reckoning": need, "card_free_gb": free / 1e9,
+           "card_total_gb": total / 1e9}
+    print(f"llama4's MoE layer in float32, reckoned on the meta device: "
+          f"{need['params']} parameters, {need['weights_gb']} GB of weights, "
+          f"at most {need['activations_gb']} GB made by the plain route on "
+          f"1 x {tokens} tokens; {out['card_free_gb']} GB free of "
+          f"{out['card_total_gb']}  [{card}]")
+    check(need["total_gb"] * 1e9 < free, f"llama4's float32 MoE layer "
+          f"needs {need['total_gb']} GB, {free / 1e9} GB are free")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED + 8)
+    params = init_params(gen, moe.moe_defs(cfg), torch.float32)
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen, device=device)
+    rec = RecordingOps()
+    rec.model = "llama4 MoE f32"
+    chosen = moe.Routing()
+    want_launches = {"matmul": 1 + 3 * cfg.n_experts
+                     + 3 * cfg.shared_expert}
+    (got, aux), launches, routes = counted(
+        "llama4 MoE layer f32", lambda: moe.apply_moe(
+            cfg, params, x, None, impl=rec, routing=chosen),
+        want_launches, "mma")
+    rec.model = None
+    want, want_aux = moe.apply_moe(cfg, params, x, None, impl=F.PLAIN,
+                                   routing=chosen.pinned())
+    ctl, _ = moe.apply_moe(cfg, params, x, None, impl=reordered_plain(),
+                           routing=chosen.pinned())
+    bf16, _ = moe.apply_moe(cfg, params, x, None, impl=control_plain(
+        rounded_plain(LLM_CONTROL_BITS).matmul, F.PLAIN),
+        routing=chosen.pinned())
+    out.update(
+        launches=launches, routes=routes,
+        max_abs=float((got - want).abs().max()),
+        row_rel=row_rel(got.reshape(tokens, -1), want.reshape(tokens, -1)),
+        aux_abs=float((aux - want_aux).abs()),
+        control_max_abs=float((ctl - want).abs().max()),
+        bf16_control_max_abs=float((bf16 - want).abs().max()),
+        out_max_abs=float(want.abs().max()),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del got, want, ctl, bf16, aux, want_aux
+    out["held"] = hold_recorded(held, rec, "llama4 MoE f32")
+    del params, x, rec, chosen
+    torch.cuda.empty_cache()
+    print(f"  apply_moe float32, kernel route against the plain route on "
+          f"its MoE choices: max abs {out['max_abs']} (limit "
+          f"{SERVE_F32_ABS}; outputs reach {out['out_max_abs']}), worst row "
+          f"{out['row_rel']}, aux {out['aux_abs']}; the reordered control "
+          f"{out['control_max_abs']}; the bf16-GEMM control "
+          f"{out['bf16_control_max_abs']} (must fail the limit); launches "
+          f"{launches}, routes "
+          f"{routes}; each kernel on its inputs: {out['held']}; peak "
+          f"{out['peak_memory_gb']} GB  [{card}]")
+    check(out["max_abs"] <= SERVE_F32_ABS, f"llama4's float32 MoE layer: "
+          f"the kernel route off the plain route by {out['max_abs']}, above "
+          f"{SERVE_F32_ABS}")
+    check(out["bf16_control_max_abs"] > SERVE_F32_ABS, f"llama4's float32 "
+          f"MoE layer: the plain route with bf16 GEMMs within the limit "
+          f"{SERVE_F32_ABS}: {out['bf16_control_max_abs']}")
+    return out
+
+
+def llama4_slice(device, card, report) -> dict:
+    """Phase 21: llama4-maverick served at one period of its pattern and
+    full width (``serve_model``; the prefill also with ``PROD_RULES``
+    over a one-rank NCCL mesh), the gradient compression on the card
+    over that group, and the MoE layer alone in float32.  Returns the
+    main-path launches and the kernel checks by kernel."""
+    held = Held()
+    out, secs = {}, {}
+    with one_rank_mesh(device) as mesh:
+        t0 = time.perf_counter()
+        out["serve"] = serve_model(LLAMA4, device, card, held,
+                                   more=ruled_prefill(mesh))
+        secs["serve"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["compression"] = hold_compression(device, card)
+        secs["compression"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["moe_f32"] = hold_moe_f32(device, card, held)
+    secs["moe_f32"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    report["llama4"] = out
+    print(f"llama4 phase: main-path launches "
+          f"{out['serve']['main_path_launches']}; seconds {secs}")
+    return {"launches": out["serve"]["main_path_launches"],
+            "held": {name: (len(held.cases[name]), held.max_err(name))
+                     for name in OPS if held.cases[name]}}
+
+
 def dse_phases(device, card, report) -> dict:
     """Phases 3-9: the DSE main path and the LLM searches, the refine and
     the service on the card; returns ``grid_minmax``'s kernels-line
@@ -4284,7 +4662,7 @@ def dse_phases(device, card, report) -> dict:
 # runs whole, its first number naming it.  Phases 3-9 are the DSE main
 # path and the LLM searches, whose refine holds on the main path's grid.
 PHASE_GROUPS = ((3, 9), (10, 12), (13, 15), (16, 16), (17, 17), (18, 18),
-                (19, 19), (20, 20))
+                (19, 19), (20, 20), (21, 21))
 
 
 def parse_phases(text: str) -> set:
@@ -4390,7 +4768,7 @@ def main(argv=None) -> int:
                                        report)})
     for first, fn in ((17, training_llm_slice), (18, mixers_slice),
                       (19, training_mixers_slice),
-                      (20, serving_attention_slice)):
+                      (20, serving_attention_slice), (21, llama4_slice)):
         if first in run:
             more.append(timed(first, fn, device, card, report))
     for entry in kernels["kernels"]:

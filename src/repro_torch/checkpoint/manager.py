@@ -16,8 +16,9 @@ and ``manifest.json`` the step, each leaf's key, shape and logical dtype,
 and ``extra``.  A bfloat16 leaf is stored as a ``uint16`` view of its
 bits (``interop.to_stored``).  Arrays are saved whole; ``restore`` places
 every leaf on one device (``device``) or on its template leaf's, where
-the JAX package re-shards onto a mesh (``shardings``, which waits for
-the sharding slice, ROADMAP Queue 1 item 9).
+the JAX package re-shards onto a mesh (``shardings``, not ported: a
+restore onto a ``DeviceMesh`` would ``distribute_tensor`` each leaf by
+``launch.train.make_state_shardings``).
 """
 from __future__ import annotations
 

@@ -21,14 +21,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs import get_config, reduced
-from ..models.common import Rules, check_rules
+from ..models.common import Rules
 from ..models.frontends import synth_frontend_inputs
 from ..models.transformer import Model
 
 
 def make_prefill_step(model: Model, rules: Optional[Rules], max_len: int):
-    check_rules(rules)
-
     def prefill_step(params: Dict, batch: Dict
                      ) -> Tuple[torch.Tensor, Dict]:
         return model.prefill(params, batch["tokens"], max_len, rules,
@@ -38,8 +36,6 @@ def make_prefill_step(model: Model, rules: Optional[Rules], max_len: int):
 
 
 def make_serve_step(model: Model, rules: Optional[Rules]):
-    check_rules(rules)
-
     def serve_step(params: Dict, cache: Dict, tokens: torch.Tensor
                    ) -> Tuple[torch.Tensor, Dict]:
         """The next token of each row (int32) and the cache, updated in

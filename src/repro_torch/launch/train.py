@@ -12,8 +12,9 @@ The parameters are a tree of leaf tensors that require gradients, the
 stacked ``blk<i>`` leaves with their ``(groups,)`` axis as ``Model``
 declares them; the step is eager (the JAX package jits and donates it).
 
-Not ported yet: ``make_state_shardings`` (ROADMAP Queue 1 item 9, the
-sharding slice) and ``launch/shapes.py`` (item 10).
+``make_state_shardings`` lays the state out on a ``DeviceMesh`` by the
+sharding rules: trees of ``(mesh, placements)`` that
+``torch.distributed.tensor.distribute_tensor`` takes.
 
 Run (reduced, on a CUDA card; ``--device cpu`` runs the kernels' plain
 versions):
@@ -33,7 +34,7 @@ from ..configs import get_config, reduced
 from ..data.pipeline import PipelineState, TokenPipeline
 from ..distributed.fault import Watchdog
 from ..kernels import ops
-from ..models.common import Rules, check_rules, tree_map
+from ..models.common import PartitionSpec, Rules, placements, tree_map
 from ..models.frontends import synth_frontend_inputs
 from ..models.transformer import Model
 from ..optim.optimizers import AdamW, cosine_schedule
@@ -52,8 +53,6 @@ def trainable(tree) -> Dict:
 
 
 def make_train_step(model: Model, opt, rules: Optional[Rules]):
-    check_rules(rules)
-
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         params = state["params"]
         loss, metrics = model.loss(params, batch, rules)
@@ -68,6 +67,21 @@ def make_train_step(model: Model, opt, rules: Optional[Rules]):
             out_metrics
 
     return train_step
+
+
+def make_state_shardings(model: Model, opt, rules: Optional[Rules], mesh
+                         ) -> Dict:
+    """``{"params", "opt"}``: for every leaf of the state, ``(mesh,
+    placements)`` under ``rules`` (``distribute_tensor(leaf, *pair)``
+    places it), where the JAX package gives a ``NamedSharding``."""
+    pspecs = model.specs(rules)
+    ospecs = opt.state_specs(pspecs)
+
+    def to_pair(pspec: PartitionSpec):
+        return mesh, placements(pspec, mesh)
+
+    return {"params": tree_map(to_pair, pspecs),
+            "opt": tree_map(to_pair, ospecs)}
 
 
 # ---------------------------------------------------------------------------

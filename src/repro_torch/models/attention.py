@@ -29,8 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .common import (ModelConfig, ParamDef, Rules, TensorSpec,
-                     check_rules, shard)
+from .common import ModelConfig, ParamDef, Rules, TensorSpec, shard
 from .layers import linear, rms_head_norm, rope
 
 NEG_INF = -1e30
@@ -285,7 +284,6 @@ def attend_precomputed(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int,
                   max_len: int, rules: Optional[Rules] = None,
                   device="cuda") -> Dict:
-    check_rules(rules)
     shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),

@@ -1,4 +1,5 @@
-"""Model-stack foundations of the port: config, parameter declaration.
+"""Model-stack foundations of the port: config, parameter declaration,
+sharding rules.
 
 ``ModelConfig`` is the port's own copy of the JAX package's
 (``models/common.py``): the same fields and defaults, except that
@@ -8,10 +9,18 @@ with the JAX package's keys; the same tree materializes to
   * initialized tensors           (``init_params``)
   * ``TensorSpec``s               (``abstract_params``)
   * a count of parameters         (``param_count``)
+  * ``PartitionSpec``s             (``param_specs``)
 
-Sharding is not ported: ``rules`` stays in the signatures and must be
-``None`` (``check_rules``); ``shard`` is then the identity.  The logical
-axes of a ``ParamDef`` are kept for the day it is.
+Logical axis names are mapped to mesh axes through a ``Rules`` dict, the
+JAX package's own (``PROD_RULES``: FSDP over ``data`` x tensor
+parallelism over ``model``).  A ``PartitionSpec`` is the port's own: a
+tuple with one entry a tensor dimension (a mesh axis name, a tuple of
+them, or ``None``), resolved as the JAX package resolves it (a dimension
+not divisible by its axes' product stays whole; a mesh axis shards one
+dimension at most, the first).  ``placements`` turns one into the
+``torch.distributed.tensor`` placements of a ``DeviceMesh``, and
+``shard`` redistributes a ``DTensor`` to the spec of its logical axes
+(a plain tensor, which is what runs on one card, passes unchanged).
 """
 from __future__ import annotations
 
@@ -106,24 +115,142 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Sharding rules (not ported)
+# Sharding rules
 # ---------------------------------------------------------------------------
 
 Rules = Dict[str, Any]   # logical axis -> mesh axis (str | tuple | None)
 
+# Production default: FSDP('data') x TP('model'); batch over data (+pod).
+PROD_RULES: Rules = {
+    # parameter axes
+    "embed": "data",          # FSDP axis of 2D weights
+    "ff": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "qkv": "model",
+    "vocab": "model",
+    "experts": "data",
+    "expert_ff": "model",
+    "rnn": "model",
+    "ssm_heads": "model",
+    "conv": None,
+    "layers": None,
+    "pos": None,
+    # activation axes
+    "batch": "data",
+    "seq": None,
+    # the residual stream between layers, sequence-sharded over the
+    # tensor axis (Megatron-style sequence parallelism)
+    "seq_resid": "model",
+    "act_embed": None,
+    "act_heads": "model",
+    "act_ff": "model",
+    "cache_seq": None,
+    "cache_heads": "model",
+}
 
-def check_rules(rules: Optional[Rules]) -> None:
-    """Raise unless ``rules`` is ``None``: the port runs on one device."""
-    if rules is not None:
-        raise NotImplementedError(
-            "sharding rules are not ported: pass rules=None (ROADMAP "
-            "Queue 1 item 9, the JAX package's models/common.py:116-207)")
+
+class PartitionSpec(tuple):
+    """One entry a tensor dimension: a mesh axis name, a tuple of names
+    (the dimension split over their product, the first major), or
+    ``None`` (whole); ``PartitionSpec()`` replicates every dimension."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def multipod(rules: Rules) -> Rules:
+    """Extend rules with a leading 'pod' pure-DP axis."""
+    r = dict(rules)
+    r["batch"] = ("pod", "data")
+    return r
+
+
+def with_axis_sizes(rules: Rules, mesh) -> Rules:
+    """Attach the axis sizes of ``mesh`` (a ``DeviceMesh``) so that spec
+    resolution can apply the divisibility fallback (a dim not divisible
+    by its mesh axis product is left unsharded, e.g. 5 KV heads on a
+    16-way tensor axis)."""
+    r = dict(rules)
+    r["_axis_sizes"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return r
+
+
+def _axis_product(rules: Rules, axis) -> int:
+    sizes = rules.get("_axis_sizes")
+    if not sizes or axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        return math.prod(sizes.get(a, 1) for a in axis)
+    return sizes.get(axis, 1)
+
+
+def _resolve(rules: Rules, axis, dim: Optional[int]):
+    """Logical axis -> mesh axis, dropped if ``dim`` is not divisible."""
+    phys = rules.get(axis) if axis else None
+    if phys is None:
+        return None
+    if dim is not None and "_axis_sizes" in rules:
+        if dim % _axis_product(rules, phys) != 0:
+            return None
+    return phys
+
+
+def spec(rules: Optional[Rules], *axes: Optional[str],
+         shape: Optional[Tuple[int, ...]] = None) -> PartitionSpec:
+    if rules is None:
+        return P()
+    dims = shape if shape is not None else (None,) * len(axes)
+    out, used = [], set()
+    for a, d in zip(axes, dims):
+        phys = _resolve(rules, a, d)
+        # a mesh axis may appear at most once per spec: first dim wins
+        flat = phys if isinstance(phys, tuple) else (phys,)
+        if phys is not None and any(f in used for f in flat):
+            phys = None
+        if phys is not None:
+            used.update(flat)
+        out.append(phys)
+    return P(*out)
+
+
+def placements(pspec: PartitionSpec, mesh) -> list:
+    """The ``torch.distributed.tensor`` placements of ``pspec`` on
+    ``mesh``, one per mesh dimension in mesh order: ``Shard(d)`` where
+    tensor dimension ``d`` names that mesh axis (alone or in a tuple),
+    else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names or ())
+    dim_of = {}
+    for d, entry in enumerate(pspec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is None:
+                continue
+            if axis not in names:
+                raise ValueError(f"placements: {pspec} names mesh axis "
+                                 f"{axis!r}, not one of {names}")
+            dim_of[axis] = d
+    return [Shard(dim_of[n]) if n in dim_of else Replicate() for n in names]
 
 
 def shard(x: torch.Tensor, rules: Optional[Rules], *axes: Optional[str]):
-    """The identity; ``rules`` must be ``None`` (``check_rules``)."""
-    check_rules(rules)
-    return x
+    """``x`` laid out by its logical axes: a ``DTensor`` redistributed to
+    ``spec(rules, *axes, shape=x.shape)`` on its mesh; ``x`` itself
+    without rules or for a plain tensor."""
+    if rules is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, placements(
+        spec(rules, *axes, shape=tuple(x.shape)), mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +293,10 @@ def init_params(generator: torch.Generator, defs,
     leaf stacked over layers (leading axis ``"layers"``) is drawn one
     layer at a time: drawn whole, gemma3-27b's (62, 5376, 21504) FFN
     weights would hold 4x their bfloat16 bytes in float32 at once, past
-    an 80 GB card.  The draws differ from the JAX package's (another
-    generator)."""
+    an 80 GB card.  A float32 leaf is drawn in place (``normal_`` is
+    what ``randn`` runs: the same bits), so that llama4's (128, 5120,
+    8192) float32 expert stacks are not held twice.  The draws differ
+    from the JAX package's (another generator)."""
     device = generator.device
 
     def make(d: ParamDef) -> torch.Tensor:
@@ -180,9 +309,12 @@ def init_params(generator: torch.Generator, defs,
         out = torch.empty(d.shape, dtype=dtype, device=device)
         for part in (out.unbind(0) if d.axes[:1] == ("layers",)
                      else (out,)):
-            part.copy_(torch.randn(part.shape, generator=generator,
-                                   device=device,
-                                   dtype=torch.float32).mul_(std))
+            if dtype == torch.float32:
+                part.normal_(generator=generator).mul_(std)
+            else:
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       device=device,
+                                       dtype=torch.float32).mul_(std))
         return out
     return tree_map(make, defs)
 
@@ -196,3 +328,12 @@ def param_count(defs) -> int:
     leaves = []
     tree_map(leaves.append, defs)
     return sum(math.prod(d.shape) for d in leaves)
+
+
+def param_specs(defs, rules: Optional[Rules]) -> Dict:
+    """The ``PartitionSpec`` of every leaf of a ``ParamDef`` tree."""
+    def to_spec(d: ParamDef) -> PartitionSpec:
+        if rules is None:
+            return P()
+        return spec(rules, *d.axes, shape=d.shape)
+    return tree_map(to_spec, defs)

@@ -64,7 +64,8 @@ from . import moe as MOE
 from . import rglru as RG
 from . import ssm as SSM
 from .common import (ModelConfig, ParamDef, Rules, TensorSpec,
-                     abstract_params, check_rules, init_params, param_count)
+                     abstract_params, init_params, param_count,
+                     param_specs)
 from .layers import (apply_mlp, apply_norm, embed_defs, embed_tokens,
                      linear, lm_logits, mlp_defs, norm_defs)
 
@@ -261,6 +262,9 @@ class Model:
     def n_params(self) -> int:
         return param_count(self.param_defs())
 
+    def specs(self, rules: Optional[Rules]) -> Dict:
+        return param_specs(self.param_defs(), rules)
+
     def head(self, params: Dict) -> torch.Tensor:
         """The LM head as a contiguous (d, vocab) tensor: ``head``, or the
         tied embedding's transpose, copied once for each embedding tensor
@@ -334,7 +338,6 @@ class Model:
                       ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """The final norm's output (B, S, d), ``cache`` (updated in
         place) and the MoE aux loss summed over the layers."""
-        check_rules(rules)
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, rules, cfg.dtype)
         if patches is not None:

@@ -10,8 +10,9 @@ package the update is functional: it returns new tensors and leaves its
 inputs as they are (run it under ``torch.no_grad()`` when the parameters
 require gradients).  The step count and the learning rate are 0-dim
 tensors on the CPU (int32 and float32), which PyTorch applies as scalars
-to tensors on any device.  The sharding rules (``state_specs``) wait for
-the sharding slice (ROADMAP Queue 1 item 9).
+to tensors on any device.  ``state_specs`` gives the state's
+``PartitionSpec``s from the parameters' (``models.common.param_specs``):
+each moment laid out as its parameter, the step replicated.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+
+from ..models.common import PartitionSpec
 
 Tensors = Dict[str, Any]      # nested dicts of tensors
 
@@ -138,6 +141,10 @@ class AdamW:
         return new_p, {"m": new_m, "v": new_v, "step": step}, \
             {"lr": lr, "grad_norm": gnorm}
 
+    def state_specs(self, pspecs: Dict) -> dict:
+        """Optimizer-state PartitionSpecs mirroring the param specs."""
+        return {"m": pspecs, "v": pspecs, "step": PartitionSpec()}
+
 
 @dataclass(frozen=True)
 class SGDM:
@@ -168,3 +175,6 @@ class SGDM:
             new_p[k] = (p.float() - lr * m).to(p.dtype)
         return new_p, {"mom": new_m, "step": step}, \
             {"lr": lr, "grad_norm": gnorm}
+
+    def state_specs(self, pspecs: Dict) -> dict:
+        return {"mom": pspecs, "step": PartitionSpec()}

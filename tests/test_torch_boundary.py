@@ -93,6 +93,38 @@ def test_port_has_the_training_path_modules():
             "repro_torch.launch.train"} <= mods
 
 
+def test_port_has_the_parallelism_modules():
+    """The compression, mesh, shapes and pipeline modules, each reached
+    by the scans below."""
+    mods = set(_port_modules())
+    scanned = set(PORT.rglob("*.py"))
+    for name in ("optim/compression", "launch/mesh", "launch/shapes",
+                 "distributed/pipeline"):
+        assert f"repro_torch.{name.replace('/', '.')}" in mods
+        assert PORT / f"{name}.py" in scanned
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+            yield from (f"{node.module}.{alias.name}" for alias in node.names)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_only_tests_import_torch_testing_internals(path):
+    """``torch.testing._internal`` (the ``fake`` process group's store
+    among it) is test code: the port and the smoke run never import
+    it."""
+    bad = [m for m in _imported_modules(path)
+           if m.startswith("torch.testing._internal")]
+    assert bad == [], f"{path}: imports {bad}"
+
+
 def test_every_port_module_imports_without_jax_or_repro():
     script = (
         "import importlib, json, sys\n"

@@ -360,9 +360,19 @@ def test_own_routing_changes_nothing(arch):
 
 
 def test_rules_other_than_none_raise():
+    """Rules are accepted since the sharding slice: on plain tensors,
+    ``PROD_RULES`` alone and sized to a (1, 1) mesh give the unruled
+    logits bit for bit.  (The name dates from when rules raised; it is
+    kept so that the test's record runs on.)"""
+    from types import SimpleNamespace
+    from repro_torch.models.common import PROD_RULES, with_axis_sizes
     _, tcfg = configs("qwen3-0.6b")
     model = Model(tcfg)
     params = model.init(torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        model.forward(params, tokens, rules={"batch": "data"})
+    want = model.forward(params, tokens)[0]
+    sized = with_axis_sizes(PROD_RULES, SimpleNamespace(
+        mesh_dim_names=("data", "model"), shape=(1, 1)))
+    for rules in (PROD_RULES, {"batch": "data"}, sized):
+        assert torch.equal(model.forward(params, tokens, rules=rules)[0],
+                           want)

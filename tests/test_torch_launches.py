@@ -11,7 +11,8 @@ training entry points give them):
   through ``ops.differentiable`` in a step of ``Model.loss`` and its
   gradients: three times each forward GEMM, the norms and flash
   attentions of a prefill forward only;
-* the full-size counts that phases 16-20 hold on the card;
+* the full-size counts that phases 16-21 hold on the card (llama4 at
+  one period of its pattern, 2 layers);
 * ``--phases`` selects whole groups of phases.
 """
 import pytest
@@ -89,6 +90,19 @@ def test_full_size_launches(arch):
                                          "matmul": 3 * prefill["matmul"]}
 
 
+def test_full_size_launches_of_llama4s_period():
+    """Phase 21: llama4-maverick at one ("attn+moe", "attn") period, full
+    width: 1 + 3 x 128 + 3 MoE GEMMs, 4 + 4 attention, 3 dense, the head;
+    the MoE layer alone (``hold_moe_f32``) launches its 388."""
+    cfg = get_config("llama4-maverick-400b-a17b").replace(n_layers=2)
+    assert SMOKE.serve_launches(cfg, True) == {
+        "matmul": 400, "fused_add_rmsnorm": 5, "flash_attention": 2}
+    assert SMOKE.serve_launches(cfg, False) == {
+        "matmul": 400, "fused_add_rmsnorm": 5, "flash_attention": 0}
+    assert SMOKE.LLAMA4.layers == 2 and SMOKE.LLAMA4.gen == 8
+    assert SMOKE.LLAMA4.f32_layers is None and not SMOKE.LLAMA4.loop
+
+
 def test_full_size_training_launches_of_the_trained_models():
     """Phases 17 and 19: SmolLM-360M (3(7n+1) / 2n+1 / n)
     and the three mixers, recurrentgemma at one period."""
@@ -106,14 +120,15 @@ def test_full_size_training_launches_of_the_trained_models():
 
 
 @pytest.mark.parametrize("text, want", [
-    ("all", {3, 10, 13, 16, 17, 18, 19, 20}),
+    ("all", {3, 10, 13, 16, 17, 18, 19, 20, 21}),
     ("19", {19}), ("19,20", {19, 20}), ("5", {3}), ("11-14,18", {10, 13, 18}),
-    ("3-20", {3, 10, 13, 16, 17, 18, 19, 20})])
+    ("3-20", {3, 10, 13, 16, 17, 18, 19, 20}), ("21", {21}),
+    ("20-21", {20, 21})])
 def test_phase_selector_takes_whole_groups(text, want):
     assert SMOKE.parse_phases(text) == want
 
 
-@pytest.mark.parametrize("text", ["", "2", "21", "x", "9-3"])
+@pytest.mark.parametrize("text", ["", "2", "22", "x", "9-3"])
 def test_phase_selector_rejects_unknown_phases(text):
     with pytest.raises(ValueError):
         SMOKE.parse_phases(text)

@@ -291,8 +291,9 @@ def test_kv_cache_init_and_specs_match_jax():
         assert not got[name].any()
         assert specs[name] == TensorSpec(jspec[name].shape, got[name].dtype)
     assert got["pos"].dtype == torch.int32 and got["k"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ATT.init_kv_cache(tcfg, 3, 2, 10, rules={}, device="cpu")
+    # rules are accepted (they raised before the sharding slice)
+    ruled = ATT.init_kv_cache(tcfg, 3, 2, 10, rules={}, device="cpu")
+    assert all(torch.equal(ruled[n], got[n]) for n in got)
 
 
 # ---- parameters, interop, frontends ----------------------------------------
@@ -338,6 +339,35 @@ def test_init_params_draws_a_stacked_leaf_one_layer_at_a_time(dtype):
     want = torch.randn((16, 4, 8), generator=gen) / np.sqrt(4)
     assert torch.equal(got["b"], want.to(dtype))
     assert got["a"].dtype == dtype and got["a"].is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_init_params_draws_float32_in_place(dtype):
+    """A float32 leaf is drawn into its own storage: the only tensor of
+    its size made is the leaf (llama4's float32 expert stacks would be
+    held twice otherwise), with the bits a ``randn`` draw gives.  A
+    bfloat16 leaf still makes its float32 draw beside it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    d = ParamDef((4, 64, 32), ("experts", "embed", "expert_ff"))
+    made = []
+
+    class Made(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            if (not func.is_view and not func._schema.is_mutable
+                    and isinstance(res, torch.Tensor)
+                    and res.numel() == 4 * 64 * 32):
+                made.append((str(func), res.dtype))
+            return res
+
+    with Made():
+        got = init_params(torch.Generator().manual_seed(5), {"w": d}, dtype)
+    want = torch.randn(d.shape, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(got["w"], want.mul_(1 / np.sqrt(64)).to(dtype))
+    if dtype == torch.float32:
+        assert made == [("aten.empty.memory_format", torch.float32)]
+    else:
+        assert ("aten.randn.generator", torch.float32) in made
 
 
 def test_params_from_numpy_keeps_bf16_bits():

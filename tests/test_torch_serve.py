@@ -156,11 +156,28 @@ def test_serve_loop_default_device_needs_cuda(monkeypatch):
 
 
 def test_serve_steps_reject_rules():
-    model = Model(reduced(get_config("qwen3-0.6b")))
-    for make in (lambda: serve.make_prefill_step(model, {}, 8),
-                 lambda: serve.make_serve_step(model, {})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            make()
+    """The steps take rules since the sharding slice: with ``PROD_RULES``
+    on plain tensors the logits and tokens are the unruled steps' bit
+    for bit.  (The name dates from when rules raised; it is kept so that
+    the test's record runs on.)"""
+    from types import SimpleNamespace
+    from repro_torch.models.common import PROD_RULES, with_axis_sizes
+    cfg = reduced(get_config("qwen3-0.6b")).replace(dtype=torch.float32)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 6),
+                           generator=torch.Generator().manual_seed(1))
+    sized = with_axis_sizes(PROD_RULES, SimpleNamespace(
+        mesh_dim_names=("data", "model"), shape=(1, 1)))
+    outs = []
+    for rules in (None, sized):
+        last, cache = serve.make_prefill_step(model, rules, 8)(
+            params, {"tokens": tokens})
+        nxt, _ = serve.make_serve_step(model, rules)(
+            params, cache, last.argmax(-1, keepdim=True).to(torch.int32))
+        outs.append((last, nxt))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 class Counting:

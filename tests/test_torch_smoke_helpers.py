@@ -1,4 +1,4 @@
-"""Helpers of ``chip_smoke.py``'s phases 18-20, on the CPU (where
+"""Helpers of ``chip_smoke.py``'s phases 18-21, on the CPU (where
 ``kernels.ops`` runs the plain versions):
 
 * ``conditioned`` rescales every attention's projections -- self-,
@@ -9,7 +9,12 @@
   float64 and its zero-padded control fails the limit;
 * ``step_errors`` reads relative errors leaf by leaf from host copies;
 * ``scripts/saved_activations.py`` counts a step's saved bytes on the
-  meta device.
+  meta device;
+* phase 21: ``_quant_slices`` keeps a leaf's ends block-aligned,
+  ``moe_f32_reckoning`` counts llama4's float32 MoE layer on the meta
+  device, the whole phase (``llama4_slice``) runs at reduced size with
+  the CUDA calls stubbed, and ``--phases 21`` without a card exits
+  non-zero and prints no result.
 """
 import math
 
@@ -147,3 +152,85 @@ def test_saved_activations_script_counts_on_the_meta_device():
     assert plain["saved_gb"] > one["saved_gb"]
     assert one["adamw_state_gb"] == 16 * one["params"] / 1e9
     assert one["largest"] and one["route"] == "kernels"
+
+
+# ---- phase 21 ------------------------------------------------------------------
+
+def test_quant_slices_keep_block_aligned_ends(monkeypatch):
+    monkeypatch.setattr(SMOKE, "QUANT_SLICE", 1024)
+    assert SMOKE._quant_slices(2048) == [(0, 2048)]
+    assert SMOKE._quant_slices(5000) == [(0, 1024), (3840, 5000)]
+    for a, b in SMOKE._quant_slices(10 ** 6 + 7):
+        assert a % 256 == 0 and b - a >= 1024
+
+
+def test_moe_f32_reckoning_of_llama4_at_full_width():
+    cfg = get_config("llama4-maverick-400b-a17b").replace(
+        dtype=torch.float32)
+    got = SMOKE.moe_f32_reckoning(cfg, 2048)
+    assert got["params"] == 16_232_611_840
+    assert got["weights_gb"] == pytest.approx(64.93, abs=0.01)
+    assert 0.5 < got["activations_gb"] < 2.0
+    assert got["total_gb"] < 70
+
+
+class _Event:
+    def __init__(self, **kw):
+        self.t = 0.0
+
+    def record(self):
+        import time
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def test_phase_21_rehearsed_on_the_cpu(monkeypatch):
+    """``llama4_slice`` end to end at reduced size on the CPU: the CUDA
+    calls stubbed, the launch counters (which a plain version never
+    touches) not held, the one-rank mesh over ``gloo``."""
+    import repro_torch.configs as configs
+    full = configs.get_config
+    monkeypatch.setattr(configs, "get_config",
+                        lambda arch: reduced(full(arch)))
+    monkeypatch.setattr(SMOKE, "CARD", "cpu")
+    monkeypatch.setattr(SMOKE, "LLAMA4", SMOKE.LLAMA4._replace(
+        gen=2, batch=2, prompt=12))
+    monkeypatch.setattr(SMOKE, "LLAMA4_F32_TOKENS", 24)
+    monkeypatch.setattr(SMOKE, "QUANT_SLICE", 512)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda *a: (60e9, 80e9))
+    monkeypatch.setattr(SMOKE, "counted", lambda what, fn, want, route: (
+        fn(), dict(want), {"wgmma": 0, "mma": want.get("matmul", 0)}))
+    report = {}
+    got = SMOKE.llama4_slice(torch.device("cpu"), "cpu", report)
+    cfg = reduced(full("llama4-maverick-400b-a17b")).replace(n_layers=2)
+    step = SMOKE.serve_launches(cfg, False)
+    assert got["launches"] == {k: SMOKE.serve_launches(cfg, True)[k]
+                               + 2 * step[k] for k in step}
+    assert set(got["held"]) == {"matmul", "fused_add_rmsnorm",
+                                "flash_attention"}
+    out = report["llama4"]
+    more = out["serve"]["more"]
+    assert more["bit_equal"] and more["placed"]["sharded"] > 0
+    assert more["placed"]["leaves"] == len(list(SMOKE.leaf_items(
+        Model(cfg).param_defs())))
+    assert more["hidden"] == ["[Replicate(), Replicate()] -> [Shard(dim=0), "
+                              "Shard(dim=1)]", "[Shard(dim=0), Shard(dim=1)] "
+                              "-> [Shard(dim=0), Replicate()]"]
+    assert out["compression"]["held_elements_cpu"] > 0
+    assert out["moe_f32"]["max_abs"] <= SMOKE.SERVE_F32_ABS
+    assert out["moe_f32"]["bf16_control_max_abs"] > SMOKE.SERVE_F32_ABS
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_phases_21_without_a_card_exits_nonzero(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert SMOKE.main(["--phases", "21"]) == 1
+    assert '"ok"' not in capsys.readouterr().out

@@ -203,9 +203,27 @@ def test_train_main_on_cpu(capsys):
 
 
 def test_train_step_rejects_rules():
-    model = Model(reduced(get_config("smollm-360m")))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        train.make_train_step(model, None, {})
+    """The step takes rules since the sharding slice: with ``PROD_RULES``
+    on plain tensors its loss and new parameters are the unruled step's
+    bit for bit.  (The name dates from when rules raised; it is kept so
+    that the test's record runs on.)"""
+    from repro_torch.models.common import PROD_RULES
+    from repro_torch.optim.optimizers import AdamW, constant_schedule
+    cfg = reduced(get_config("smollm-360m")).replace(dtype=torch.float32)
+    model = Model(cfg)
+    opt = AdamW(schedule=constant_schedule(1e-3))
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))}
+    outs = []
+    for rules in (None, PROD_RULES):
+        params = train.trainable(
+            model.init(torch.Generator().manual_seed(0)))
+        state = {"params": params, "opt": opt.init(params)}
+        outs.append(train.make_train_step(model, opt, rules)(state, batch))
+    assert torch.equal(outs[0][1]["loss"], outs[1][1]["loss"])
+    for a, b in zip(train.leaves(outs[0][0]["params"]),
+                    train.leaves(outs[1][0]["params"])):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
