@@ -239,7 +239,30 @@ what ran):
     alone in float32 (16.233 B parameters, 64.9 GB, its memory reckoned
     on the meta device first) on 1 x 2048 tokens, the kernel route
     against the plain route on pinned routing (``SERVE_F32_ABS``, 388
-    launches, every GEMM on `mma`).
+    launches, every GEMM on `mma`);
+22. holds the dry run's count (``launch/{costmodel,roofline,dryrun,
+    hillclimb}.py``) against the card: the 16 x 16 record of Qwen3-0.6B's
+    ``train_4k`` on the ``fake`` backend, in a process of its own (one
+    default process group a process); then Qwen3-0.6B at full width and
+    depth (bf16, seed 2026, ``conditioned`` weights) on three cells of
+    ``launch/shapes.py`` cut in batch only (``DRY_CELLS``: ``train_4k``
+    at 2 x 4096, ``prefill_32k`` at 1 x 32,768, ``decode_32k`` at 8 over
+    a 32,768-row cache), each reckoned on the meta device first
+    (``dry_reckoning``); for each, the walker's roofline on one card
+    (plain route, and for train and prefill after the hill-climb's flash
+    substitution with block skipping), the walker's GEMM FLOPs equal to
+    ``FlopCounterMode``'s over the same traces, the kernel route on the
+    card with its launches held (``chunked_train_launches`` a training
+    step, ``serve_launches`` a prefill and each of 8 decode steps), ms by
+    events (median of 3; decode a step over 8), device ms and idle share
+    from the profiler, peak memory; the roofline step time at most
+    ``DRY_SLACK`` x the device ms, the state's bytes at most the peak;
+    prints roofline / device ms and the model-FLOPs utilisation; then
+    one gemma3-27b attention layer (1 x 4096, 32/16 heads, window 1024
+    and global) through ``flash_attention`` against its plain version
+    and timed against the hill-climb's bound (kernel-true bytes,
+    block-skipped FLOPs), which it may not beat by more than
+    ``DRY_SLACK``, the plain route timed beside the walker's count.
 
 Each phase group's seconds are printed.  Any failed phase raises and the
 script exits non-zero.  Without CUDA, or
@@ -4433,36 +4456,82 @@ def hold_compression(device, card) -> dict:
     return out
 
 
+# Ops whose CUDA kernel holds, beside its output, a temporary as large
+# as the output times this, unseen by a dispatch mode: read on an H100 by
+# ``scripts/op_temporaries.py`` over Qwen3-0.6B's training step at 2 x
+# 4096 (``_softmax_backward_data`` at rows of 4096 float32: 2.147 GB over
+# its 2.147 GB output, each of its 28 calls; the step's peak is there).
+CUDA_OP_TEMPORARIES = {torch.ops.aten._softmax_backward_data.default: 1}
+
+
+def meta_peak_bytes(fn) -> int:
+    """The most bytes ``fn()``'s ops hold at once on the meta device:
+    every storage an op makes (an output on none of its inputs'
+    storages), from its making until it is freed (a storage autograd
+    keeps for the backward stays counted), and the temporaries of
+    ``CUDA_OP_TEMPORARIES`` while their op runs; tensors made before the
+    call are not.  Storages, not schemas, decide: under inference mode
+    ``aten.to`` and ``aten.reshape`` reach the mode undecomposed, and may
+    copy."""
+    import weakref
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    live = {"now": 0, "peak": 0}
+
+    def free(n):
+        live["now"] -= n
+
+    def storages(tree):
+        return {t.untyped_storage()._cdata for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)}
+
+    class Live(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            # under inference mode a composite op (``einsum``) reaches
+            # the mode whole: its parts, and the copies they make, come
+            # back through the mode by its decomposition
+            with self:
+                res = func.decompose(*args, **(kwargs or {}))
+            if res is not NotImplemented:
+                return res
+            res = func(*args, **(kwargs or {}))
+            seen, made = storages((args, kwargs)), 0
+            for t in tree_leaves(res):
+                if not isinstance(t, torch.Tensor):
+                    continue
+                st = t.untyped_storage()
+                if st._cdata in seen:
+                    continue
+                seen.add(st._cdata)
+                n = st.nbytes()
+                made += n
+                live["now"] += n
+                weakref.finalize(st, free, n)
+            live["peak"] = max(live["peak"], live["now"] + made
+                               * CUDA_OP_TEMPORARIES.get(func, 0))
+            return res
+
+    with Live():
+        fn()
+    return live["peak"]
+
+
 def moe_f32_reckoning(cfg, tokens: int) -> dict:
     """The float32 MoE layer hold's bytes, counted on the meta device (no
-    memory, no card): its weights, and every tensor the plain route of
-    ``apply_moe`` makes on (1, tokens, d) but views and in-place results,
-    none of them freed (a bound on its transients)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+    memory, no card): its weights, and the most the plain route of
+    ``apply_moe`` on (1, tokens, d) holds at once (``meta_peak_bytes``)."""
     from repro_torch.kernels import forward as F
     from repro_torch.models import moe
     from repro_torch.models.common import param_count, tree_map
     defs = moe.moe_defs(cfg)
     params = tree_map(lambda d: torch.empty(d.shape, device="meta"), defs)
-
-    class Made(TorchDispatchMode):
-        made = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            res = func(*args, **(kwargs or {}))
-            if not func.is_view and not func._schema.is_mutable:
-                for t in (res if isinstance(res, (tuple, list)) else (res,)):
-                    if isinstance(t, torch.Tensor):
-                        Made.made += t.numel() * t.element_size()
-            return res
-
     x = torch.empty((1, tokens, cfg.d_model), device="meta")
-    with Made():
-        moe.apply_moe(cfg, params, x, None, impl=F.PLAIN)
+    made = meta_peak_bytes(lambda: moe.apply_moe(cfg, params, x, None,
+                                                 impl=F.PLAIN))
     n = param_count(defs)
     return {"params": n, "weights_gb": 4 * n / 1e9,
-            "activations_gb": Made.made / 1e9, "input_gb": 4 * x.numel() / 1e9,
-            "total_gb": (4 * n + Made.made + 4 * x.numel()) / 1e9}
+            "activations_gb": made / 1e9, "input_gb": 4 * x.numel() / 1e9,
+            "total_gb": (4 * n + made + 4 * x.numel()) / 1e9}
 
 
 def hold_moe_f32(device, card, held) -> dict:
@@ -4488,8 +4557,8 @@ def hold_moe_f32(device, card, held) -> dict:
            "card_total_gb": total / 1e9}
     print(f"llama4's MoE layer in float32, reckoned on the meta device: "
           f"{need['params']} parameters, {need['weights_gb']} GB of weights, "
-          f"at most {need['activations_gb']} GB made by the plain route on "
-          f"1 x {tokens} tokens; {out['card_free_gb']} GB free of "
+          f"at most {need['activations_gb']} GB held at once by the plain "
+          f"route on 1 x {tokens} tokens; {out['card_free_gb']} GB free of "
           f"{out['card_total_gb']}  [{card}]")
     check(need["total_gb"] * 1e9 < free, f"llama4's float32 MoE layer "
           f"needs {need['total_gb']} GB, {free / 1e9} GB are free")
@@ -4573,6 +4642,598 @@ def llama4_slice(device, card, report) -> dict:
     return {"launches": out["serve"]["main_path_launches"],
             "held": {name: (len(held.cases[name]), held.max_err(name))
                      for name in OPS if held.cases[name]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the dry run's count held on the card
+# ---------------------------------------------------------------------------
+
+DRY_ARCH = "qwen3-0.6b"
+DRY_SEED = 2026
+# (cell of launch/shapes.py, its batch cut to fit one card)
+DRY_CELLS = (("train_4k", 2), ("prefill_32k", 1), ("decode_32k", 8))
+DRY_TIMED = 3                     # timed steps or prefills, the median kept
+DRY_DECODE_STEPS = 8
+# the walker's roofline step time may exceed the measured device time by
+# this much at most: a faster reading means the count is wrong.  The
+# check is one-sided: a count that is too low always passes it.
+DRY_SLACK = 1.05
+# The card's peak allocated bytes of a cell, less its reckoning on the
+# meta device (``dry_reckoning``), must lie in [-low, high] GB.  On an
+# H100 each of the three cells read 0.067 GB (64 MiB: the libraries'
+# workspaces, which the meta device never allocates).
+DRY_PEAK_MARGIN_GB = (0.1, 0.1)
+# A recorded attention whose plain version's float32 S x S logits (all
+# heads at once) exceed this is held on its first KV group alone; the
+# plain route is compared one KV group at a time (``grouped_plain``).
+DRY_PLAIN_ATTN_BYTES = 16e9
+# gemma3-27b's attention layer at train_4k's per-layer shape, batch 1
+DRY_GEMMA = dict(arch="gemma3-27b", shape="train_4k", batch=1,
+                 windows=(1024, 0))
+
+
+def kernel_shaped():
+    """The kernel route's memory on the meta device: what each wrapper
+    allocates.  ``matmul`` its output in A's type and, where the tile
+    model splits K, the float32 workspace of the partial sums, freed on
+    return; ``fused_add_rmsnorm`` its two outputs; attention its output
+    alone (the plain version's S x S scores never exist on the kernel
+    route's forward; its backward, ``FlashAttentionFn``, recomputes
+    them)."""
+    from repro_torch.core.gpu_model import select_matmul_block
+
+    def matmul(a, b):
+        (m, k), n, size = a.shape, b.shape[1], a.element_size()
+        out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        splits = select_matmul_block(m, n, k, bytes_in=size,
+                                     bytes_out=size).splits
+        if splits > 1:
+            torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+        return out
+    return SimpleNamespace(
+        matmul=matmul,
+        fused_add_rmsnorm=lambda x, r, s: (torch.empty_like(x),
+                                           torch.empty_like(x)),
+        flash_attention=lambda q, k, v, *a, **kw: torch.empty_like(q))
+
+
+def kv_group(q, k, v, n_heads: int, n_kv: int, j: int = 0) -> tuple:
+    """Attention's arguments cut to KV head ``j`` and its group of query
+    heads: ``(q, k, v, group, 1)`` in the kernels' layout."""
+    bh, s, d = q.shape
+    b, g = bh // n_heads, n_heads // n_kv
+    return (q.reshape(b, n_kv, g, s, d)[:, j].reshape(b * g, s, d)
+            .contiguous(), k.reshape(b, n_kv, s, d)[:, j].contiguous(),
+            v.reshape(b, n_kv, s, d)[:, j].contiguous(), g, 1)
+
+
+def grouped_plain(base=None):
+    """``base``'s plain versions (``kernels.forward.PLAIN`` by default)
+    with attention taken one KV group at a time (``kv_group``): the same
+    function, with the float32 S x S logits of one group's heads at once
+    (Qwen3's 16 heads at S 32,768 would need 68.7 GB)."""
+    from repro_torch.kernels import forward as F
+    base = F.PLAIN if base is None else base
+
+    def flash_attention(q, k, v, n_heads, n_kv, causal=True, window=0):
+        bh, s, d = q.shape
+        return torch.cat([base.flash_attention(
+            *kv_group(q, k, v, n_heads, n_kv, j), causal, window).reshape(
+                bh // n_heads, -1, s, d) for j in range(n_kv)],
+            dim=1).reshape(bh, s, d)
+    return SimpleNamespace(**{**vars(base),
+                              "flash_attention": flash_attention})
+
+
+def dry_inputs(cfg, kind: str, batch: int, seq: int, device, impl=None):
+    """The step of ``kind`` on ``Model(cfg, impl)`` (``kernels.ops`` by
+    default; on ``meta`` ``kernel_shaped`` stands in for the kernels)
+    and its inputs on ``device``: ``(step, state, step_input)``, where
+    ``step(state, x)`` returns the next state and the step's output (the
+    metrics, the prefill's logits, the next tokens).  Training takes
+    AdamW as the dry run does; decode a cache of ``seq`` rows, its
+    ``pos`` set ``DRY_DECODE_STEPS`` rows short of the end."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamW, constant_schedule
+    meta = device.type == "meta"
+    impl = kernel_shaped() if meta else (impl or ops)
+    if kind == "train":
+        impl = ops.differentiable(impl)
+    model = Model(cfg, impl=impl)
+    if meta:
+        params = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                                device=device),
+                          model.abstract())
+        tokens = torch.empty((batch, 1 if kind == "decode" else seq),
+                             dtype=torch.int32, device=device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(DRY_SEED)
+        params = conditioned(model.init(gen))
+        tokens = torch.randint(0, cfg.vocab_size, (batch, 1 if kind ==
+                               "decode" else seq), generator=gen,
+                               device=device, dtype=torch.int32)
+    if kind == "train":
+        opt = AdamW(schedule=constant_schedule(1e-4))
+        p = train.trainable(params)
+        return (train.make_train_step(model, opt, None),
+                {"params": p, "opt": opt.init(p)}, {"tokens": tokens})
+    if kind == "prefill":
+        prefill = serve.make_prefill_step(model, None,
+                                          max_len=seq + cfg.n_patches + 8)
+
+        def prefill_step(params, x):
+            return params, prefill(params, x)[0]
+        return prefill_step, params, {"tokens": tokens}
+    cache = model.make_cache(batch, seq, device=device)
+    if not meta:
+        for part in cache.values():
+            part["k"].normal_(generator=gen).mul_(0.5)
+            part["v"].normal_(generator=gen)
+            part["pos"].fill_(seq - DRY_DECODE_STEPS)
+    decode = serve.make_serve_step(model, None)
+
+    def step(st, x):
+        params, cache = st
+        return st, decode(params, cache, x)[0]
+    return step, (params, cache), tokens
+
+
+def chunked_train_launches(cfg, seq: int) -> dict:
+    """``train_launches`` of a step over ``seq`` tokens whose
+    cross-entropy is chunked (``cfg.ce_chunk``): the head's GEMM runs once
+    a chunk forward, again in the backward's recompute
+    (``torch.utils.checkpoint``), and its dX and dW, where the unchunked
+    step runs 3."""
+    want = train_launches(cfg)
+    if cfg.ce_chunk and seq - 1 > cfg.ce_chunk:
+        want["matmul"] += 4 * -(-(seq - 1) // cfg.ce_chunk) - 3
+    return want
+
+
+def start_fake_dryrun(arch: str, shape_name: str, out_dir: str):
+    """Starts ``python -m repro_torch.launch.dryrun`` of one cell on the
+    16 x 16 mesh in a process of its own (the ``fake`` process group it
+    starts is the only default group there).  It runs on the CPU while
+    the phase works on the card; its record and log go to ``out_dir``."""
+    with open(Path(out_dir) / "log.txt", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape_name, "--out", out_dir], cwd=ROOT,
+            stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+def fake_dryrun_record(proc, arch: str, shape_name: str,
+                       out_dir: str) -> dict:
+    """The record of ``start_fake_dryrun``'s process, once it ends."""
+    rc = proc.wait(timeout=600)
+    log = (Path(out_dir) / "log.txt").read_text()
+    check(rc == 0, f"the dry run of {arch} x {shape_name} failed: "
+          f"{log[-4000:]}")
+    rec = json.loads((Path(out_dir) / f"{arch}.{shape_name}.16x16.json")
+                     .read_text())
+    check(rec["status"] == "ok" and rec["memory"]["argument_bytes"] > 0,
+          f"the dry run of {arch} x {shape_name}: {rec}")
+    return rec
+
+
+def hold_gemma_substitution(device, card, held) -> dict:
+    """The hill-climb's flash substitution on the card: one gemma3-27b
+    attention layer at ``train_4k``'s per-layer shape (batch 1, S 4096,
+    32/16 heads, head_dim 128), windowed and global.  The kernel held
+    against its plain version on the same inputs and timed against its
+    bound from ``hillclimb``: the kernel-true bytes, and the plain
+    attention's walker FLOPs times ``block_skip_factor``; it may not beat
+    the bound by more than ``DRY_SLACK``.  The plain route timed beside
+    the walker's bytes and FLOPs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gpu_model import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import hillclimb
+    from repro_torch.launch.shapes import SHAPES, adjust_config
+    from repro_torch.models.attention import _heads_first
+    g = DRY_GEMMA
+    cfg = adjust_config(get_config(g["arch"]), SHAPES[g["shape"]])
+    s, b = SHAPES[g["shape"]].seq, g["batch"]
+    gen = torch.Generator(device=device).manual_seed(DRY_SEED + 1)
+    q, k, v = (_heads_first(torch.randn(
+        (b, s, n, cfg.hd), generator=gen, device=device, dtype=cfg.dtype))
+        for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    args = (q, k, v, cfg.n_heads, cfg.n_kv_heads)
+    out = {}
+    for w in g["windows"]:
+        sub = hillclimb.attention_bytes_per_layer(cfg.replace(window=w), b,
+                                                  s, False)
+        factor = hillclimb.block_skip_factor(s, w)
+        kw = {"causal": True, "window": w}
+        hold_call(held, "flash_attention", f"gemma3 attention, window {w}",
+                  args, kw, main=True)
+        row = {"window": w, "kernel_bytes": sub["kernel_bytes"],
+               "walker_bytes": sub["xla_bytes"],
+               "walker_flops": sub["xla_flops"], "skip_factor": factor,
+               "ms": cuda_ms(lambda: ops.flash_attention(*args, **kw),
+                             iters=10),
+               "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
+                   *args, True, w), iters=3, warmup=1)}
+        row["bytes_bound_ms"] = sub["kernel_bytes"] / HBM_BW * 1e3
+        row["flops_bound_ms"] = (sub["xla_flops"] * factor
+                                 / PEAK_FLOPS_BF16 * 1e3)
+        row["bound_ms"] = max(row["bytes_bound_ms"], row["flops_bound_ms"])
+        row["walker_ms"] = max(sub["xla_bytes"] / HBM_BW,
+                               sub["xla_flops"] / PEAK_FLOPS_BF16) * 1e3
+        out[f"window_{w}"] = row
+        print(f"  gemma3-27b attention layer (1 x {s}, {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} heads, window {w}): kernel {row['ms']} ms "
+              f"against its bound {row['bound_ms']} ms (kernel-true bytes "
+              f"{row['bytes_bound_ms']} ms, block-skipped FLOPs "
+              f"{row['flops_bound_ms']} ms at factor {factor}); plain "
+              f"{row['plain_ms']} ms against the walker's "
+              f"{row['walker_ms']} ms ({sub['xla_bytes']} bytes, "
+              f"{sub['xla_flops']} FLOPs)  [{card}]")
+        check(row["ms"] >= row["bound_ms"] / DRY_SLACK, f"gemma3 attention "
+              f"window {w}: the kernel's {row['ms']} ms beats its bound "
+              f"{row['bound_ms']} ms by more than {DRY_SLACK}")
+    return out
+
+
+def dryrun_slice(device, card, report) -> dict:
+    """Phase 22: the dry run's count held on the card.  The 16 x 16
+    record of Qwen3-0.6B's ``train_4k`` on the ``fake`` backend (in its
+    own process, on the CPU while the rest runs); Qwen3-0.6B at full
+    width and depth on three cells cut in batch (``DRY_CELLS``,
+    ``dry_cell``); then gemma3-27b's attention layer under the
+    hill-climb's substitution.  Returns the main-path launches and the
+    kernel checks by kernel."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES, adjust_config
+    held = Held()
+    out, secs, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = start_fake_dryrun(DRY_ARCH, "train_4k", tmp)
+        try:
+            for shape_name, batch in DRY_CELLS:
+                t0 = time.perf_counter()
+                cfg = adjust_config(get_config(DRY_ARCH), SHAPES[shape_name])
+                out[shape_name] = dry_cell(cfg, shape_name, batch, device,
+                                           card, held)
+                add_launches(launches, out[shape_name]["launches"])
+                secs[shape_name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["gemma3_attention"] = hold_gemma_substitution(device, card,
+                                                              held)
+            secs["gemma3_attention"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["fake_16x16"] = rec = fake_dryrun_record(
+                proc, DRY_ARCH, "train_4k", tmp)
+            secs["fake_16x16_wait"] = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    r = rec["roofline"]
+    print(f"dry run {DRY_ARCH} x train_4k x 16x16 on the fake backend: "
+          f"argument {rec['memory']['argument_bytes']} bytes a device, "
+          f"output {rec['memory']['output_bytes']}; flops {r['flops']}, "
+          f"hbm {r['hbm_bytes']}, bound {r['bound']}, step "
+          f"{r['step_time_s']} s, model FLOPs ratio "
+          f"{r['model_flops_ratio']}; traced in {rec['compile_us'] / 1e6} s")
+    out["attention_rows"] = held.row_rel
+    out["seconds"] = secs
+    report["dryrun"] = out
+    print(f"dry run phase: each bf16 attention held against its plain "
+          f"version, relative error by query row (worst, whole): "
+          f"{held.row_rel} (limit {ATTN_BF16_ROW_REL})")
+    print(f"dry run phase: main-path launches {launches}; seconds {secs}")
+    return {"launches": launches,
+            "held": {name: (len(held.cases[name]), held.max_err(name))
+                     for name in OPS if held.cases[name]}}
+
+
+def state_bytes(state) -> int:
+    """Bytes of every tensor of a state tree (dicts and tuples)."""
+    if isinstance(state, dict):
+        return sum(state_bytes(v) for v in state.values())
+    if isinstance(state, (tuple, list)):
+        return sum(state_bytes(v) for v in state)
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
+    return 0
+
+
+def dry_reckoning(cfg, kind: str, batch: int, seq: int) -> dict:
+    """The cell's bytes on the meta device, before any run: its state
+    (parameters; AdamW's moments for training; the cache for decode),
+    and the most held at once while it is made and two kernel-shaped
+    steps run from it, so that what a first step leaves (the tied head's
+    kept copy) is held through the second, as on the card."""
+    made = {}
+
+    def two_steps():
+        step, state, x = dry_inputs(cfg, kind, batch, seq,
+                                    torch.device("meta"))
+        made["state"] = state_bytes(state)
+        for _ in range(2):
+            state, _ = step(state, x)
+    peak = meta_peak_bytes(two_steps)
+    return {"state_gb": made["state"] / 1e9,
+            "step_peak_gb": (peak - made["state"]) / 1e9,
+            "total_gb": peak / 1e9}
+
+
+def walked_and_counted(cfg, kind: str, batch: int, seq: int):
+    """The walker's ``Cost`` of the cell's plain-route step at full depth
+    (``dryrun.depth_cost`` over ``dryrun.step_program``) and
+    ``FlopCounterMode``'s FLOPs over the same traces, extrapolated the
+    same way."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import costmodel, dryrun
+    counted_ = {}
+
+    def cost_of(c):
+        fn, args = dryrun.step_program(c, kind, batch, seq)
+        gm = costmodel.trace(fn, *args)
+        walked = costmodel.walk(gm.graph)
+        with FlopCounterMode(display=False) as fc:
+            gm(*args)
+        counted_[c.n_layers] = costmodel.Cost(
+            flops=float(fc.get_total_flops()))
+        return walked
+    cost = dryrun.depth_cost(cfg, cost_of)
+    flops = dryrun.depth_cost(cfg, lambda c: counted_[c.n_layers]).flops
+    return cost, flops
+
+
+def dry_outputs(cfg, kind: str, impl, state, x, seq: int) -> torch.Tensor:
+    """The logits a cell's routes are compared by, on ``Model(cfg,
+    impl)`` from ``state``: training a forward over the batch, a prefill
+    its last position, decode one step from the cache at
+    ``DRY_DECODE_STEPS`` rows short of its end."""
+    from repro_torch.models.transformer import Model
+    model = Model(cfg, impl=impl)
+    with torch.no_grad():
+        if kind == "train":
+            return model.forward(state["params"], x["tokens"])[0]
+        if kind == "prefill":
+            return model.prefill(state, x["tokens"],
+                                 seq + cfg.n_patches + 8)[0]
+        params, cache = state
+        for part in cache.values():
+            part["pos"].fill_(seq - DRY_DECODE_STEPS)
+        return model.decode_step(params, x, cache)[0]
+
+
+def hold_dry_recorded(held, rec, label: str) -> dict:
+    """``hold_recorded``, but an attention whose plain version would
+    make more than ``DRY_PLAIN_ATTN_BYTES`` of float32 logits is held on
+    its first KV group (``kv_group``).  Returns the shapes held by
+    kernel."""
+    got = {}
+    for key in [key for key, (_, args, _) in rec.inputs.items()
+                if key[0] == "flash_attention"
+                and 4 * args[0].shape[0] * args[0].shape[1] ** 2
+                > DRY_PLAIN_ATTN_BYTES]:
+        _, args, kwargs = rec.inputs.pop(key)
+        args = tuple(a.to(CARD) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        hold_call(held, "flash_attention", f"{label} {key[1]}, its first "
+                  f"KV group", kv_group(*args[:5]) + args[5:], kwargs,
+                  main=True)
+        got["flash_attention"] = got.get("flash_attention", 0) + 1
+    for name, n in hold_recorded(held, rec, label).items():
+        got[name] = got.get(name, 0) + n
+    return got
+
+
+def dry_cell(cfg, shape_name: str, batch: int, device, card, held) -> dict:
+    """One of Qwen3-0.6B's cells at full width and depth: the walker's
+    roofline (``analyze`` on one card, and for train/prefill after the
+    kernel's flash substitution with block skipping); the kernel route
+    on the card, its first call (a step, a prefill, ``DRY_DECODE_STEPS``
+    steps) through ``RecordingOps`` (launches held, every GEMM on
+    `wgmma`), then timed (ms by events, device ms and idle share from
+    the profiler, peak memory).  Held: the roofline step time at most
+    ``DRY_SLACK`` x the device time; the walker's GEMM FLOPs equal to
+    ``FlopCounterMode``'s; the peak within ``DRY_PEAK_MARGIN_GB`` of the
+    reckoning; the outputs finite and in range; the kernel route's
+    logits within ``SERVE_BF16_ROW_REL`` or ``MIXER_CONTROL_FACTOR`` x
+    a control's (the plain route with its GEMM sums reordered), worst
+    row, of the plain route's from the same state (``grouped_plain``;
+    training also the first step's loss within ``TRAIN_REL``); each
+    kernel on the inputs the first call gave it against its plain
+    version (``hold_dry_recorded``)."""
+    from repro_torch.core.gpu_model import PEAK_FLOPS_BF16
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hillclimb, roofline
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models.transformer import Model
+    shape = SHAPES[shape_name]
+    kind, seq = shape.kind, shape.seq
+    label = f"{cfg.name} {shape_name} at {batch}"
+    out = {"cell": shape_name, "batch": batch, "seq": seq,
+           "cut": f"batch {shape.global_batch} -> {batch}"}
+    out["reckoning"] = dry_reckoning(cfg, kind, batch, seq)
+    free, _ = torch.cuda.mem_get_info()
+    check(out["reckoning"]["total_gb"] * 1e9 < free, f"{label}: reckoned "
+          f"{out['reckoning']['total_gb']} GB, {free / 1e9} GB free")
+
+    t0 = time.perf_counter()
+    cost, counted_flops = walked_and_counted(cfg, kind, batch, seq)
+    out["walk_s"] = time.perf_counter() - t0
+    _, n_active = roofline.count_params(Model(cfg).param_defs())
+    tokens = batch * (1 if kind == "decode" else seq)
+    rec = {"roofline": roofline.analyze(cost, 1, n_active, tokens,
+                                        kind == "train")}
+    out["plain_roofline"] = rec["roofline"]
+    if kind != "decode":
+        rec = hillclimb.apply_flash_substitution(rec, cfg, shape_name,
+                                                 skip=True, batch=batch)
+    r = rec["roofline"]
+    out["roofline"] = r
+    out["gemm_flops"], out["flop_counter_flops"] = cost.gemm_flops, \
+        counted_flops
+    check(cost.gemm_flops == counted_flops, f"{label}: the walker's GEMM "
+          f"FLOPs {cost.gemm_flops} differ from FlopCounterMode's "
+          f"{counted_flops}")
+
+    recorded = RecordingOps(host=True)
+    step, state, x = dry_inputs(cfg, kind, batch, seq, device,
+                                impl=recorded)
+    out["state_gb"] = state_bytes(state) / 1e9
+    plain = grouped_plain()
+    if kind == "train":
+        # the plain route's loss from the weights the first step sees
+        with torch.no_grad():
+            out["plain_loss"] = float(Model(cfg, impl=plain).loss(
+                state["params"], x)[0])
+    torch.cuda.reset_peak_memory_stats()
+    reps = DRY_DECODE_STEPS if kind == "decode" else 1
+
+    def reset():
+        if kind == "decode":
+            for part in state[1].values():
+                part["pos"].fill_(seq - DRY_DECODE_STEPS)
+
+    def run(n=reps):
+        nonlocal state
+        outs = []
+        for _ in range(n):
+            state, o = step(state, x)
+            outs.append(o)
+        return outs
+
+    if kind == "train":
+        want = chunked_train_launches(cfg, seq)
+    else:
+        want = {k: n * reps for k, n in
+                serve_launches(cfg, kind == "prefill").items()}
+    recorded.model = label
+    outs, launches, routes = counted(label, run, want, "wgmma")
+    recorded.model = None
+    out["launches"], out["routes"] = launches, routes
+    if kind == "train":
+        out["loss"] = float(outs[0]["loss"])
+        out["outputs_ok"] = all(bool(torch.isfinite(o["loss"]))
+                                for o in outs)
+    elif kind == "prefill":
+        out["outputs_ok"] = all(
+            o.shape == (batch, cfg.vocab_size) and
+            bool(torch.isfinite(o).all()) for o in outs)
+    else:
+        out["outputs_ok"] = all(
+            o.shape == (batch,) and bool(((o >= 0) & (o < cfg.vocab_size))
+                                         .all()) for o in outs)
+    del outs
+
+    times = []
+    for _ in range(DRY_TIMED if kind != "decode" else 1):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    out["ms_each"] = times
+    out["ms"] = sorted(times)[len(times) // 2]
+    # the trace of one call (decode: the 8 steps), split by kernel
+    reset()
+    prof = profile_step(run, SERVE_KERNELS)
+    out["device_ms"] = prof["device_ms"] / reps if prof["device_ms"] \
+        else None
+    out["device_parts_ms"] = {k: v / reps
+                              for k, v in prof["parts_ms"].items()}
+    out["trace_records"] = prof["records"]
+    out["trace_top"] = prof["top"][:5]
+    out["idle"] = None if out["device_ms"] is None else \
+        1.0 - out["device_ms"] / out["ms"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_less_reckoned_gb"] = (out["peak_gb"]
+                                    - out["reckoning"]["total_gb"])
+
+    # the kernel route against the plain route from the same state, and
+    # the plain route with its GEMM sums reordered against it: bf16's own
+    # floor (the limit is phases 18-21's, MIXER_CONTROL_FACTOR)
+    t0 = time.perf_counter()
+    want_logits = dry_outputs(cfg, kind, plain, state, x, seq)
+    got_logits = dry_outputs(cfg, kind, ops, state, x, seq)
+    out["row_rel"] = row_rel(got_logits, want_logits)
+    del got_logits
+    control = dry_outputs(cfg, kind, grouped_plain(reordered_plain()),
+                          state, x, seq)
+    out["control_row_rel"] = row_rel(control, want_logits)
+    out["row_limit"] = max(SERVE_BF16_ROW_REL, MIXER_CONTROL_FACTOR
+                           * out["control_row_rel"])
+    out["compare_s"] = time.perf_counter() - t0
+    del step, state, x, want_logits, control
+    torch.cuda.empty_cache()
+    out["held"] = hold_dry_recorded(held, recorded, label)
+
+    out["roofline_ms"] = r["step_time_s"] * 1e3
+    if out["device_ms"] is not None:
+        out["roofline_over_device"] = out["roofline_ms"] / out["device_ms"]
+    out["mfu"] = r["model_flops"] / (out["ms"] / 1e3) / PEAK_FLOPS_BF16
+    print(f"  {label}: reckoned {out['reckoning']['total_gb']:.2f} GB "
+          f"(state {out['reckoning']['state_gb']:.2f}); walker "
+          f"{cost.flops} FLOPs ({cost.gemm_flops} GEMM = FlopCounterMode's "
+          f"{counted_flops}), {cost.bytes} bytes, traced in "
+          f"{out['walk_s']:.1f} s")
+    for name, rr in (("plain route", out["plain_roofline"]),
+                     ("kernel route" + (" (flash+skip)" if kind != "decode"
+                                        else ""), r)):
+        print(f"    roofline, {name}: compute {rr['t_compute_s'] * 1e3} ms, "
+              f"memory {rr['t_memory_s'] * 1e3} ms, bound {rr['bound']}, "
+              f"step {rr['step_time_s'] * 1e3} ms, model FLOPs ratio "
+              f"{rr['model_flops_ratio']}")
+    print(f"    measured: {out['ms']} ms by events ({out['ms_each']}), "
+          f"device {out['device_ms']} ms (by part "
+          f"{out['device_parts_ms']}; records {out['trace_records']}), "
+          f"idle {out['idle']}; roofline / device "
+          f"{out.get('roofline_over_device')} (limit {DRY_SLACK}); MFU "
+          f"{out['mfu']}; peak {out['peak_gb']} GB, reckoned "
+          f"{out['reckoning']['total_gb']} GB (peak less reckoning "
+          f"{out['peak_less_reckoned_gb']} GB, limits "
+          f"{DRY_PEAK_MARGIN_GB}; state {out['state_gb']} GB); launches "
+          f"{launches}, routes {routes}  [{card}]")
+    print(f"    outputs finite and in range: {out['outputs_ok']}; kernel "
+          f"route against the plain route from the same state: worst row "
+          f"{out['row_rel']} (limit {out['row_limit']}: {SERVE_BF16_ROW_REL}"
+          f" or {MIXER_CONTROL_FACTOR} x the reordered control's "
+          f"{out['control_row_rel']}; {out['compare_s']:.1f} s)" +
+          (f"; first step's loss {out['loss']} against the plain route's "
+           f"{out['plain_loss']} (relative limit "
+           f"{TRAIN_REL[torch.bfloat16]})" if kind == "train" else "") +
+          f"; each kernel on its inputs: {out['held']} shapes held")
+    print(f"    the longest kernels of the traced call (name, ms, "
+          f"records; decode: {reps} steps): "
+          f"{out['trace_top']}")
+
+    check(out["device_ms"] is not None, f"{label}: the profiler's trace "
+          f"holds no device time")
+    check(out["roofline_ms"] <= DRY_SLACK * out["device_ms"], f"{label}: "
+          f"the roofline's {out['roofline_ms']} ms is above {DRY_SLACK} x "
+          f"the card's {out['device_ms']} device ms: the count is wrong")
+    low, high = DRY_PEAK_MARGIN_GB
+    check(-low <= out["peak_less_reckoned_gb"] <= high, f"{label}: the "
+          f"peak {out['peak_gb']} GB less the reckoning "
+          f"{out['reckoning']['total_gb']} GB is "
+          f"{out['peak_less_reckoned_gb']} GB, outside [-{low}, {high}]")
+    check(out["outputs_ok"], f"{label}: an output is not finite or out of "
+          f"range")
+    check(out["row_rel"] <= out["row_limit"], f"{label}: the kernel "
+          f"route's logits off the plain route's by {out['row_rel']} "
+          f"(worst row), above {out['row_limit']}")
+    if kind == "train":
+        out["loss_rel"] = abs(out["loss"] - out["plain_loss"]) / abs(
+            out["plain_loss"])
+        check(out["loss_rel"] <= TRAIN_REL[torch.bfloat16], f"{label}: the "
+              f"first step's loss {out['loss']} off the plain route's "
+              f"{out['plain_loss']} by {out['loss_rel']} (relative)")
+    return out
 
 
 def dse_phases(device, card, report) -> dict:
@@ -4662,7 +5323,7 @@ def dse_phases(device, card, report) -> dict:
 # runs whole, its first number naming it.  Phases 3-9 are the DSE main
 # path and the LLM searches, whose refine holds on the main path's grid.
 PHASE_GROUPS = ((3, 9), (10, 12), (13, 15), (16, 16), (17, 17), (18, 18),
-                (19, 19), (20, 20), (21, 21))
+                (19, 19), (20, 20), (21, 21), (22, 22))
 
 
 def parse_phases(text: str) -> set:
@@ -4755,7 +5416,7 @@ def main(argv=None) -> int:
     kernels = {"kernels": []}
     if 3 in run:
         kernels["kernels"].append(timed(3, dse_phases, device, card, report))
-    # the launches and checks of phases 13-20, added to the kernels line
+    # the launches and checks of phases 13-22, added to the kernels line
     more = []
     if 10 in run:
         kernels["kernels"] += timed(10, kernel_slice, device, card, report)
@@ -4768,7 +5429,8 @@ def main(argv=None) -> int:
                                        report)})
     for first, fn in ((17, training_llm_slice), (18, mixers_slice),
                       (19, training_mixers_slice),
-                      (20, serving_attention_slice), (21, llama4_slice)):
+                      (20, serving_attention_slice), (21, llama4_slice),
+                      (22, dryrun_slice)):
         if first in run:
             more.append(timed(first, fn, device, card, report))
     for entry in kernels["kernels"]:

@@ -24,14 +24,15 @@ What changes for the card:
 * peak rates: 989 TFLOP/s for bf16 on the tensor cores, 67 TFLOP/s for
   f32 on the CUDA cores (the f32 route uses no TF32).
 
-The roofline terms of a whole step wait for the port of the JAX
-package's roofline module.
+The same constants give the roofline of a whole step
+(``RooflineTerms``, ``model_flops``: the counterparts of the TPU
+model's), which the dry run (``launch/dryrun.py``) reports per cell.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # ---- H100 SXM constants (NVIDIA data sheet; dense rates at 700 W) --------
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s, tensor cores
@@ -42,6 +43,12 @@ SMEM_BYTES = 232_448              # shared memory one block can use
 SMEM_PER_SM = 233_472             # shared memory of one SM (228 KB)
 REGS_PER_SM = 65_536
 THREADS_PER_SM = 2_048
+# NVLink 4 between the cards of one node: 18 links x 25 GB/s a direction,
+# 450 GB/s a card a direction (NVIDIA H100 SXM data sheet: 900 GB/s both
+# ways).  A mesh that spans nodes is bounded lower, by each card's NIC
+# (InfiniBand NDR: 50 GB/s a direction); ``RooflineTerms`` does not split
+# that case.
+NVLINK_BW = 450e9                 # bytes/s a card, one direction
 
 # The (bm, bn, bk) tiles matmul.cu compiles its `mma` route for, f32 and
 # bf16 alike: the tiles the JAX package's kernel tests name (64^3, and bm
@@ -68,6 +75,76 @@ EXTRA_REGS = 32
 MAX_SPLITS = 256
 # the split-K reduction is a second launch; a fixed cost assumed for it
 REDUCE_LAUNCH_S = 4e-6
+
+
+@dataclass(frozen=True)
+class RooflineTerms:
+    """Three-term roofline for one step on ``chips`` cards:
+        compute    = FLOPs            / (chips * 989e12 FLOP/s, bf16)
+        memory     = HBM bytes        / (chips * 3.35e12 B/s)
+        collective = collective bytes / (chips * 450e9 B/s, NVLink 4)
+    The bf16 peak stands for every cell, float32 ones too, as the TPU
+    model's does.  ``collective_bytes`` None (the port has no partitioned
+    program to read them from, ``launch/dryrun.py``) leaves the
+    collective term out: ``t_collective`` is None and the bound and step
+    time are taken over compute and memory alone."""
+    flops: float
+    hbm_bytes: float
+    collective_bytes: Optional[float]
+    chips: int
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / (self.chips * PEAK_FLOPS_BF16)
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes / (self.chips * HBM_BW)
+
+    @property
+    def t_collective(self) -> Optional[float]:
+        if self.collective_bytes is None:
+            return None
+        return self.collective_bytes / (self.chips * NVLINK_BW)
+
+    def _terms(self) -> Dict[str, float]:
+        terms = {"compute": self.t_compute, "memory": self.t_memory}
+        if self.t_collective is not None:
+            terms["collective"] = self.t_collective
+        return terms
+
+    @property
+    def bound(self) -> str:
+        terms = self._terms()
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time(self) -> float:
+        """Paper-style segment time: max over the parallel engines (Eq.
+        18 generalized to compute, HBM and the interconnect)."""
+        return max(self._terms().values())
+
+    @property
+    def roofline_fraction(self) -> float:
+        """``t_compute / step_time``: the share of the dominant
+        resource's time that is useful compute."""
+        st = self.step_time
+        return self.t_compute / st if st > 0 else 0.0
+
+    def as_dict(self) -> Dict[str, float]:
+        return {
+            "flops": self.flops, "hbm_bytes": self.hbm_bytes,
+            "collective_bytes": self.collective_bytes, "chips": self.chips,
+            "t_compute_s": self.t_compute, "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective, "bound": self.bound,
+            "step_time_s": self.step_time,
+            "roofline_fraction": self.roofline_fraction,
+        }
+
+
+def model_flops(n_active_params: int, tokens: int, training: bool) -> float:
+    """MODEL_FLOPS = 6*N*D for training, 2*N*D for a forward/serve step."""
+    return (6.0 if training else 2.0) * n_active_params * tokens
 
 
 @dataclass(frozen=True)

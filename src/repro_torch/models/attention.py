@@ -122,6 +122,7 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
               window=None,
               causal: Optional[bool] = None,
               impl=ops,
+              fresh: bool = False,
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self- or cross-attention with optional KV cache.
 
@@ -132,6 +133,9 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
       against the whole buffer.
     * ``window``: sliding-window size, a python int (0 = full) or, off
       the flash path, a tensor scalar.
+    * ``fresh``: ``cache`` is the zero cache ``make_cache`` made, its
+      position 0 known without reading it from the device (a prefill;
+      a trace on the meta device cannot read it).
     """
     b, s, _ = x.shape
     causal = cfg.causal if causal is None else causal
@@ -166,7 +170,7 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     # a prefill whose keys are its own queries: the flash path (the cache,
     # if any, is empty; reading its position waits for the device)
     flash = kv_x is None and s > 1 and (
-        cache is None or int(cache["pos"]) == 0)
+        cache is None or fresh or int(cache["pos"]) == 0)
 
     if cache is not None:
         # append at pos (decode or staged prefill); int8 caches quantize on

@@ -136,12 +136,14 @@ def _apply_block(cfg: ModelConfig, entry: str, p: Dict, x: torch.Tensor,
                  enc_out: Optional[torch.Tensor] = None,
                  causal: Optional[bool] = None, impl=ops,
                  routing: Optional[MOE.Routing] = None,
+                 fresh: bool = False,
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict],
                             Optional[torch.Tensor]]:
     """One block on the residual stream ``x + pending``.  Returns ``(x,
     pending, cache, aux)``: the stream is again ``x + pending``, the
     block's last residual not yet added (``add_norm`` of the next norm
-    adds it); ``aux`` is the MoE aux loss, None for a dense FFN."""
+    adds it); ``aux`` is the MoE aux loss, None for a dense FFN;
+    ``fresh`` as in ``attention.attention``."""
     _check_entry(entry)
     kind = _mixer_kind(entry)
     aux = None
@@ -150,7 +152,8 @@ def _apply_block(cfg: ModelConfig, entry: str, p: Dict, x: torch.Tensor,
     h, x = add_norm(cfg, p["norm1"], x, pending, impl)
     if kind == "attn":
         mix, cache = ATT.attention(cfg, p["attn"], h, rules, cache=cache,
-                                   window=window, causal=causal, impl=impl)
+                                   window=window, causal=causal, impl=impl,
+                                   fresh=fresh)
     elif kind == "mamba2":
         mix, cache = SSM.apply_ssm(cfg, p["ssm"], h, rules, state=cache,
                                    impl=impl)
@@ -298,7 +301,8 @@ class Model:
     def _run_stack(self, params: Dict, x: torch.Tensor,
                    rules: Optional[Rules], cache: Optional[Dict],
                    enc_out: Optional[torch.Tensor],
-                   routing: Optional[MOE.Routing] = None
+                   routing: Optional[MOE.Routing] = None,
+                   fresh: bool = False
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                               Optional[Dict], torch.Tensor]:
         """The layers on ``x``; returns ``(x, pending, cache, aux)`` (the
@@ -323,7 +327,7 @@ class Model:
             x, pending, _, aux = _apply_block(
                 cfg, entry, p, x, rules, pending=pending, window=wins[i],
                 cache=csl, enc_out=enc_out, impl=self.impl,
-                routing=routing)
+                routing=routing, fresh=fresh)
             if aux is not None:
                 aux_total = aux_total + aux
         return x, pending, cache, aux_total
@@ -335,6 +339,7 @@ class Model:
                       patches: Optional[torch.Tensor] = None,
                       cache: Optional[Dict] = None,
                       routing: Optional[MOE.Routing] = None,
+                      fresh: bool = False,
                       ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """The final norm's output (B, S, d), ``cache`` (updated in
         place) and the MoE aux loss summed over the layers."""
@@ -353,7 +358,7 @@ class Model:
             enc_out = self.encode(params, frames, rules)
 
         x, pending, cache, aux = self._run_stack(params, x, rules, cache,
-                                                 enc_out, routing)
+                                                 enc_out, routing, fresh)
         if cache is not None and "pos_offset" in cache:
             cache["pos_offset"].add_(x.shape[1])
         x, _ = add_norm(cfg, params["final_norm"], x, pending, self.impl)
@@ -365,12 +370,15 @@ class Model:
                 patches: Optional[torch.Tensor] = None,
                 cache: Optional[Dict] = None,
                 routing: Optional[MOE.Routing] = None,
+                fresh: bool = False,
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """Returns (logits_f32, cache, moe_aux_loss); ``cache`` is
         updated in place; ``routing`` records or replays the MoE
-        choices (``moe.Routing``)."""
+        choices (``moe.Routing``); ``fresh``: ``cache`` is a zero cache
+        from ``make_cache`` (its positions 0 are then not read from the
+        device)."""
         x, cache, aux = self._final_hidden(params, tokens, rules, frames,
-                                           patches, cache, routing)
+                                           patches, cache, routing, fresh)
         logits = lm_logits(params["embed"], x, rules, self.impl,
                            head=self.head(params))
         return logits, cache, aux
@@ -486,11 +494,12 @@ class Model:
             enc_out = self.encode(params, frames, rules)
             cache = self._fill_cross(params, cache, enc_out)
             logits, cache, _ = self.forward(params, tokens, rules,
-                                            cache=cache, routing=routing)
+                                            cache=cache, routing=routing,
+                                            fresh=True)
         else:
             logits, cache, _ = self.forward(params, tokens, rules,
                                             patches=patches, cache=cache,
-                                            routing=routing)
+                                            routing=routing, fresh=True)
         # a copy, so that the (B, S, vocab) logits are freed
         return logits[:, -1].clone(memory_format=torch.contiguous_format), \
             cache

@@ -170,7 +170,8 @@ def test_moe_f32_reckoning_of_llama4_at_full_width():
     got = SMOKE.moe_f32_reckoning(cfg, 2048)
     assert got["params"] == 16_232_611_840
     assert got["weights_gb"] == pytest.approx(64.93, abs=0.01)
-    assert 0.5 < got["activations_gb"] < 2.0
+    # the most held at once (``meta_peak_bytes``): 0.40 GB
+    assert 0.2 < got["activations_gb"] < 2.0
     assert got["total_gb"] < 70
 
 
