@@ -262,7 +262,22 @@ what ran):
     and global) through ``flash_attention`` against its plain version
     and timed against the hill-climb's bound (kernel-true bytes,
     block-skipped FLOPs), which it may not beat by more than
-    ``DRY_SLACK``, the plain route timed beside the walker's count.
+    ``DRY_SLACK``, the plain route timed beside the walker's count;
+23. runs the port's static checks and examples on the card machine,
+    every process started at once and each stopped at
+    ``EXAMPLE_TIMEOUT_S``: ``python -m repro_torch.analysis --baseline
+    analysis-baseline-torch.json`` over this checkout (rc 0, its file and
+    finding counts printed); a lock witness in a process of its own
+    (``lock_witness``: every lock of the analysis manifest's
+    ``lock_order`` replaced by a recording wrapper, phase 8's burst from
+    4 client threads through one ``DSEService`` over a CUDA study on cold
+    table caches, every observed nesting ordered by
+    the manifest, each lock of ``WITNESSED`` taken, every answer
+    bit-identical to a direct search); and the five ``examples/torch_*.py``
+    run as a user runs them, on the card, each with rc 0
+    (``torch_train_resume`` holding its own drift, the serving examples
+    serving on cuda, ``torch_simulate_accelerator`` printing on the card
+    the lines it prints with ``--device cpu``).
 
 Each phase group's seconds are printed.  Any failed phase raises and the
 script exits non-zero.  Without CUDA, or
@@ -275,6 +290,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -5236,6 +5252,304 @@ def dry_cell(cfg, shape_name: str, batch: int, device, card, held) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the port's static checks, a lock witness, the port's examples
+# ---------------------------------------------------------------------------
+
+ANALYSIS_BASELINE = "analysis-baseline-torch.json"
+EXAMPLES = ("quickstart", "serve_batched", "train_resume",
+            "simulate_accelerator", "dse_service")
+# the locks the witness's burst must take at least once (by the end of
+# their id in the manifest's lock_order)
+WITNESSED = (":DSEService.self._lock", ":ServiceMetrics.self._lock",
+             "core/dse.py:_CACHE_LOCK", "kernels/reduce.py:_WS_LOCK",
+             "kernels/reduce.py:_COUNT_LOCK", "kernels/_ext.py:_LOCK")
+EXAMPLE_TIMEOUT_S = 600
+
+
+class _RecordingLock:
+    """A lock of the manifest's ``lock_order`` that tells a
+    ``LockWitness`` when it is taken and let go."""
+
+    def __init__(self, inner, lock_id: str, witness: "LockWitness"):
+        self._inner, self._id, self._witness = inner, lock_id, witness
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        got = self._inner.acquire(blocking, timeout)
+        if got:
+            self._witness.acquired(self._id)
+        return got
+
+    def release(self) -> None:
+        self._witness.released(self._id)
+        self._inner.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
+class LockWitness:
+    """Replaces every lock of ``order`` (the analysis manifest's
+    ``lock_order``: module globals, ``Class.self.attr`` instance locks,
+    ``Class.method`` context managers) with a recording wrapper, and
+    keeps each thread's held locks: a lock taken while another is held is
+    an observed nesting, ``edges[(held, taken)]``; ``inversions()`` lists
+    the nestings the order does not allow.  ``uninstall`` puts every
+    original back."""
+
+    def __init__(self, order):
+        self.order = tuple(order)
+        self.rank = {lock_id: i for i, lock_id in enumerate(self.order)}
+        self.counts = dict.fromkeys(self.order, 0)
+        self.edges = {}
+        self._held = threading.local()
+        self._lock = threading.Lock()
+        self._undo = []
+
+    def _stack(self) -> list:
+        if not hasattr(self._held, "ids"):
+            self._held.ids = []
+        return self._held.ids
+
+    def acquired(self, lock_id: str) -> None:
+        held = self._stack()
+        with self._lock:
+            self.counts[lock_id] += 1
+            for h in dict.fromkeys(held):
+                if h != lock_id:
+                    self.edges[(h, lock_id)] = \
+                        self.edges.get((h, lock_id), 0) + 1
+        held.append(lock_id)
+
+    def released(self, lock_id: str) -> None:
+        held = self._stack()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i] == lock_id:
+                del held[i]
+                return
+
+    def inversions(self) -> list:
+        return sorted(f"{a} -> {b}" for a, b in self.edges
+                      if self.rank[a] >= self.rank[b])
+
+    def _patch(self, owner, name: str, value) -> None:
+        self._undo.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, value)
+
+    def install(self) -> "LockWitness":
+        import contextlib
+        import importlib
+        for lock_id in self.order:
+            path, _, name = lock_id.partition(":")
+            module = importlib.import_module(
+                path.removesuffix(".py").replace("/", "."))
+            if ".self." in name:
+                cls_name, _, attr = name.partition(".self.")
+                cls = getattr(module, cls_name)
+                init = cls.__dict__["__init__"]
+
+                def wrapped_init(obj, *a, _init=init, _attr=attr,
+                                 _id=lock_id, **k):
+                    _init(obj, *a, **k)
+                    setattr(obj, _attr, _RecordingLock(
+                        getattr(obj, _attr), _id, self))
+                self._patch(cls, "__init__", wrapped_init)
+            elif "." in name:
+                cls_name, _, meth = name.partition(".")
+                cls = getattr(module, cls_name)
+                method = cls.__dict__[meth]
+
+                @contextlib.contextmanager
+                def recorded(obj, *a, _method=method, _id=lock_id, **k):
+                    self.acquired(_id)      # before: the body may fire
+                    try:
+                        with _method(obj, *a, **k):
+                            yield
+                    finally:
+                        self.released(_id)
+                self._patch(cls, meth, recorded)
+            else:
+                self._patch(module, name, _RecordingLock(
+                    getattr(module, name), lock_id, self))
+        return self
+
+    def uninstall(self) -> None:
+        while self._undo:
+            owner, name, value = self._undo.pop()
+            setattr(owner, name, value)
+
+
+def lock_witness(device=None) -> dict:
+    """Phase 23 (b), in a process of its own (so that the grid kernel's
+    library is loaded, under ``_ext._LOCK``, by the burst): every lock of
+    ``repro_torch.analysis.DEFAULT_MANIFEST.lock_order`` replaced by a
+    recording wrapper, then phase 8's burst through one ``DSEService`` over
+    a study on ``device`` (``CARD``) on cold table caches, from 4 client
+    threads, every answer held bit-identical to a direct search
+    (``drive_service``).  Returns the locks' counts, the observed nestings
+    and those the order forbids."""
+    from repro_torch.analysis import DEFAULT_MANIFEST
+    from repro_torch.core.dse import clear_table_caches
+    device = torch.device(CARD if device is None else device)
+    witness = LockWitness(DEFAULT_MANIFEST.lock_order).install()
+    try:
+        clear_table_caches()
+        t0 = time.perf_counter()
+        with Recorder() as rec:
+            service = drive_service(device, rec)
+        wall = time.perf_counter() - t0
+    finally:
+        witness.uninstall()
+    return {"counts": witness.counts,
+            "edges": {f"{a} -> {b}": n
+                      for (a, b), n in sorted(witness.edges.items())},
+            "inversions": witness.inversions(), "wall_s": wall,
+            "launches": service["launches"],
+            "expected_launches": service["expected_launches"],
+            "failed": service["failed"]}
+
+
+def _start(args, out_dir: Path, name: str) -> tuple:
+    """``args`` started from the repository root with ``src`` on the path,
+    stdout and stderr into ``out_dir``."""
+    out = open(out_dir / f"{name}.out", "w+")
+    err = open(out_dir / f"{name}.err", "w+")
+    proc = subprocess.Popen(
+        args, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=out, stderr=err, text=True)
+    return proc, out, err
+
+
+def _finish_all(started: dict, timeout: float) -> dict:
+    """``{name: (returncode, stdout, stderr, seconds)}`` of ``_start``ed
+    processes, each waited for until ``timeout`` seconds from now and
+    killed there (returncode None); ``seconds`` is the time from this
+    call to the process's end."""
+    t0 = time.perf_counter()
+    ended = {}
+    while len(ended) < len(started):
+        for name, (proc, _, _) in started.items():
+            if name not in ended and proc.poll() is not None:
+                ended[name] = time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            for name, (proc, _, _) in started.items():
+                if name not in ended:
+                    proc.kill()
+                    proc.wait()
+                    ended[name] = None
+        time.sleep(0.05)
+    done = {}
+    for name, (proc, out, err) in started.items():
+        texts = []
+        for f in (out, err):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        rc = None if ended[name] is None else proc.returncode
+        done[name] = (rc, texts[0], texts[1], ended[name])
+    return done
+
+
+def analysis_slice(device, card, report) -> dict:
+    """Phase 23: (a) ``python -m repro_torch.analysis --baseline
+    analysis-baseline-torch.json`` over the shipped tree must exit 0,
+    overlapped with (b) ``lock_witness`` in a process of its own, whose
+    observed nestings must all be ordered by the manifest and which must
+    take each lock of ``WITNESSED``, and (c) the port's five examples run
+    as a user runs them, on the card, each with rc 0 (``torch_train_resume``
+    holds its own drift; ``torch_simulate_accelerator`` prints on the card
+    what it prints with ``--device cpu``)."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = Path(tmp)
+        started = {
+            "analysis": _start([sys.executable, "-m", "repro_torch.analysis",
+                                "--baseline", ANALYSIS_BASELINE], logs,
+                               "analysis"),
+            "witness": _start([sys.executable, "-c",
+                               "import json, sys; sys.path.insert(0, '.'); "
+                               "import chip_smoke; print(json.dumps("
+                               "chip_smoke.lock_witness()))"], logs,
+                              "witness"),
+        }
+        for name in EXAMPLES:
+            started[name] = _start(
+                [sys.executable, f"examples/torch_{name}.py"], logs, name)
+        started["simulate_accelerator/cpu"] = _start(
+            [sys.executable, "examples/torch_simulate_accelerator.py",
+             "--device", "cpu"], logs, "simulate_accelerator.cpu")
+        done = _finish_all(started, EXAMPLE_TIMEOUT_S)
+    out["seconds"] = {name: d[3] for name, d in done.items()}
+
+    def ok(name: str) -> str:
+        rc, stdout, stderr, _ = done[name]
+        check(rc == 0, f"phase 23: {name} exited {rc}:\n{stdout[-3000:]}\n"
+                       f"{stderr[-3000:]}")
+        return stdout
+
+    summary = ok("analysis").strip().splitlines()[0]
+    m = re.search(r"(\d+) file\(s\), (\d+) finding\(s\)", summary)
+    check(m is not None and int(m.group(2)) == 0,
+          f"phase 23: the analysis reported {summary!r}")
+    out["analysis"] = {"files": int(m.group(1)),
+                       "findings": int(m.group(2)), "line": summary}
+    print(f"analysis on the shipped tree: {out['analysis']['files']} "
+          f"files, {out['analysis']['findings']} findings, rc 0")
+
+    witness = json.loads(ok("witness").strip().splitlines()[-1])
+    out["witness"] = witness
+    check(witness["inversions"] == [],
+          f"phase 23: nestings against the manifest's lock order: "
+          f"{witness['inversions']}")
+    for suffix in WITNESSED:
+        lock_id = next(i for i in witness["counts"] if i.endswith(suffix))
+        check(witness["counts"][lock_id] >= 1,
+              f"phase 23: the witness never saw {lock_id} taken")
+    print(f"lock witness: {sum(witness['edges'].values())} nested "
+          f"acquisitions over {len(witness['edges'])} ordered pairs, none "
+          f"against the order; taken: " + ", ".join(
+              f"{i.rpartition('/')[2]} {n}"
+              for i, n in witness["counts"].items())
+          + f"; grid_minmax launches {witness['launches']} (expected "
+            f"{witness['expected_launches']}); failed {witness['failed']}; "
+            f"{witness['wall_s']:.1f} s")
+    for pair, n in witness["edges"].items():
+        print(f"  nested: {pair} x{n}")
+
+    out["examples"] = {}
+    for name in EXAMPLES:
+        stdout = ok(name)
+        out["examples"][name] = {"lines": len(stdout.splitlines())}
+    check("OK — resumed trajectory matches" in done["train_resume"][1],
+          "phase 23: torch_train_resume did not hold its drift")
+    out["examples"]["train_resume"]["drift"] = re.search(
+        r"drift vs uninterrupted run: (\S+)", done["train_resume"][1])[1]
+    for name in ("quickstart", "serve_batched"):
+        check(" on cuda" in done[name][1],
+              f"phase 23: torch_{name} did not serve on the card")
+    card_lines = ok("simulate_accelerator").splitlines()
+    check(card_lines == ok("simulate_accelerator/cpu").splitlines()
+          and len(card_lines) >= 10,
+          "phase 23: torch_simulate_accelerator printed on the card what it "
+          "did not print on the CPU")
+    ex = out["examples"]
+    ex["simulate_accelerator"]["same_on_cpu"] = len(card_lines)
+    print("examples on the card, rc 0: " + ", ".join(
+        f"torch_{n} ({v['lines']} lines)" for n, v in ex.items())
+        + f"; train_resume drift {ex['train_resume']['drift']}; "
+        f"simulate_accelerator's {ex['simulate_accelerator']['same_on_cpu']}"
+        f" lines equal to --device cpu's  [{card}]")
+    print("  seconds to each process's end: " + ", ".join(
+        f"{n} {t:.1f}" for n, t in out["seconds"].items()))
+    report["analysis_phase"] = out
+    return {"launches": {"grid_minmax": witness["launches"]}}
+
+
 def dse_phases(device, card, report) -> dict:
     """Phases 3-9: the DSE main path and the LLM searches, the refine and
     the service on the card; returns ``grid_minmax``'s kernels-line
@@ -5323,7 +5637,7 @@ def dse_phases(device, card, report) -> dict:
 # runs whole, its first number naming it.  Phases 3-9 are the DSE main
 # path and the LLM searches, whose refine holds on the main path's grid.
 PHASE_GROUPS = ((3, 9), (10, 12), (13, 15), (16, 16), (17, 17), (18, 18),
-                (19, 19), (20, 20), (21, 21), (22, 22))
+                (19, 19), (20, 20), (21, 21), (22, 22), (23, 23))
 
 
 def parse_phases(text: str) -> set:
@@ -5430,13 +5744,11 @@ def main(argv=None) -> int:
     for first, fn in ((17, training_llm_slice), (18, mixers_slice),
                       (19, training_mixers_slice),
                       (20, serving_attention_slice), (21, llama4_slice),
-                      (22, dryrun_slice)):
+                      (22, dryrun_slice), (23, analysis_slice)):
         if first in run:
             more.append(timed(first, fn, device, card, report))
     for entry in kernels["kernels"]:
         name = entry["name"]
-        if name == "grid_minmax":
-            continue
         for phase in more:
             entry["launches"] += phase["launches"].get(name, 0)
             if name in phase.get("held", {}):

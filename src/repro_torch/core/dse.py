@@ -703,12 +703,16 @@ def _fault_directive() -> Optional[tuple]:
 def _terminate_pool(pool) -> None:
     """Best-effort teardown of a pool that may hold hung or dead workers:
     never join (a hung worker would hang *us* — the failure mode this
-    layer exists to prevent), just cancel and kill."""
+    layer exists to prevent), just cancel and kill.  The workers are
+    listed before the shutdown, which drops the pool's own list of them:
+    a hung worker listed after it would outlive the pool, and the
+    interpreter's exit would wait for it."""
+    procs = list((getattr(pool, "_processes", None) or {}).values())
     try:
         pool.shutdown(wait=False, cancel_futures=True)
     except Exception:
         pass
-    for proc in list((getattr(pool, "_processes", None) or {}).values()):
+    for proc in procs:
         try:
             proc.terminate()
         except Exception:

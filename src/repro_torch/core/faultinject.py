@@ -64,7 +64,7 @@ ENV_VAR = "REPRO_FAULTS"
 
 # The canonical fault-point registry.  Injection sites (``fire``), tests
 # (``arm`` / REPRO_FAULTS specs), and the docstring table above must all
-# use these names; ``repro.analysis`` cross-checks the three sets, and
+# use these names; ``repro_torch.analysis`` cross-checks the three sets, and
 # ``arm`` warns on a name not listed here.
 FAULT_POINTS: Dict[str, str] = {
     "conv_worker_exc": "parallel ConvTable build task raises in the worker",

@@ -90,9 +90,11 @@ class _CPlan(ctypes.Structure):
                 ("n_simd", ctypes.c_longlong),
                 ("rows_per_item", ctypes.c_longlong),
                 ("col_tiles", ctypes.c_longlong),
-                ("n_items", ctypes.c_longlong), ("route", ctypes.c_int),
-                ("run_slots", ctypes.c_int), ("blocks", ctypes.c_int),
-                ("smem", ctypes.c_int)]
+                ("n_items", ctypes.c_longlong),
+                ("route", ctypes.c_int),  # analysis: allow[X64002] 0 or 1
+                ("run_slots", ctypes.c_int),  # analysis: allow[X64002] <= 256
+                ("blocks", ctypes.c_int),  # analysis: allow[X64002] one wave
+                ("smem", ctypes.c_int)]  # analysis: allow[X64002] <= 227 KB
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,11 +107,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``SOURCE``) with its entry points typed and its
     structures checked against this module's."""
     lib.grid_minmax_launch.restype = ctypes.c_int
-    lib.grid_minmax_launch.argtypes = (ctypes.c_void_p,) * 9 + (ctypes.c_int,)
+    # the last argument is the device index
+    lib.grid_minmax_launch.argtypes = \
+        (ctypes.c_void_p,) * 9 + (ctypes.c_int,)  # analysis: allow[X64002]
     for name in ("grid_minmax_partial_bytes", "grid_minmax_plan_bytes"):
         getattr(lib, name).restype = ctypes.c_int
     lib.grid_minmax_error_string.restype = ctypes.c_char_p
-    lib.grid_minmax_error_string.argtypes = (ctypes.c_int,)
+    lib.grid_minmax_error_string.argtypes = \
+        (ctypes.c_int,)  # analysis: allow[X64002] an error code
     if lib.grid_minmax_plan_bytes() != ctypes.sizeof(_CPlan) or \
             lib.grid_minmax_partial_bytes() != PARTIAL_BYTES:
         raise RuntimeError(f"{SOURCE}: the library's Plan or partial "

@@ -1,5 +1,6 @@
 """The port's package boundary: ``repro_torch`` imports neither jax nor the
-JAX package ``repro``, and ``chip_smoke.py`` neither.
+JAX package ``repro``, and ``chip_smoke.py`` and the port's examples
+(``examples/torch_*.py``) neither.
 
 Checked twice: by importing every module of the port in a fresh process
 where ``import jax`` fails, and by an AST scan of every source file for
@@ -104,6 +105,24 @@ def test_port_has_the_parallelism_modules():
         assert PORT / f"{name}.py" in scanned
 
 
+def test_port_has_the_analysis_modules():
+    """A counterpart of each of the JAX package's ten ``analysis``
+    modules, each reached by the scans below."""
+    mods = set(_port_modules())
+    scanned = set(PORT.rglob("*.py"))
+    jax_side = ROOT / "src" / "repro" / "analysis"
+    names = sorted(p.stem for p in jax_side.glob("*.py"))
+    assert len(names) == 10
+    for name in names:
+        path = PORT / "analysis" / f"{name}.py"
+        assert path in scanned
+        assert ("repro_torch.analysis" if name == "__init__"
+                else f"repro_torch.analysis.{name}") in mods
+
+
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 def _imported_modules(path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -114,7 +133,7 @@ def _imported_modules(path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES,
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_only_tests_import_torch_testing_internals(path):
     """``torch.testing._internal`` (the ``fake`` process group's store
@@ -187,7 +206,7 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    + sorted((ROOT / "scripts").glob("*.py")),
+    + sorted((ROOT / "scripts").glob("*.py")) + EXAMPLES,
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_file_imports_jax_or_repro(path):
     bad = [(line, root) for line, root in _imported_roots(path)
