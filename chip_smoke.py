@@ -12,7 +12,10 @@ what ran):
 2. builds every CUDA kernel of the port from this checkout's sources
    (``src/repro_torch/kernels/csrc/*.cu``), one ``nvcc`` each, all at once,
    and counts the tensor-core instructions in the GEMM's and attention's
-   SASS (HGMMA must appear in the GEMM's, HMMA or HGMMA in attention's);
+   SASS (HGMMA must appear in the GEMM's, HMMA or HGMMA in attention's),
+   and the float32 GEMM's TMA loads (UTMALDG) and cp.async copies
+   (LDGSTS), both of which must appear, with no spill in ptxas's report
+   of any of its instantiations;
 3. drives the DSE main path -- ``Study(hw).search(Workload("resnet50"[,
    training=True]), 2048, 2048, objective=...)`` at the 64x64 presets on
    the Table VIII power-of-two lattice (cycles through the fused kernel,
@@ -81,14 +84,19 @@ what ran):
    plain version's formula in float64, and at 10 and 100 against the
    float32 plain version), and the whole decoder against the same
    composition of plain versions; each batch-norm kernel gives the same
-   bits on a second call on every main-path input;
+   bits on a second call on every main-path input; the float32 GEMM
+   (``f32_cases``) at 2e-4 on every compiled tile over aligned, ragged
+   (K or N not a multiple of 4, one row) and offset views, split-K at
+   each tile, SmolLM-360M's training-step shapes and recurrentgemma-9b's
+   RG-LRU product, the same bits on a second call on each;
 12. times each kernel at those shapes beside its plain version, the one
    PyTorch call that computes the same (where there is one) and its bound:
    through the wrapper (CUDA events), on the device alone (the calls
    queued behind a device sleep), and as the profiler's trace sees it
    (where a batch-norm call must show exactly one kernel, its own);
    and times every compiled GEMM tile, with the split count the model
-   gives it, against the tile model's pick;
+   gives it, against the tile model's pick; and the float32 GEMM at
+   SmolLM-360M's gate/up shape (``F32_HEADLINE``) beside ``torch.matmul``;
 13. drives one ResNet-50 training step at full width and depth
     (``kernels/training.py``: batch 32, 224 x 224 images, 1000 classes,
     bf16 GEMMs and float32 BN, Goyal et al.'s zero-gamma init, seeded),
@@ -279,11 +287,13 @@ what ran):
     serving on cuda, ``torch_simulate_accelerator`` printing on the card
     the lines it prints with ``--device cpu``).
 
-Each phase group's seconds are printed.  Any failed phase raises and the
-script exits non-zero.  Without CUDA, or
+Each phase group's seconds are printed, with its float32 GEMM launches by
+how the kernel's ring was filled (TMA or cp.async; phase 17's all on
+TMA).  Any failed phase raises and the script exits non-zero.  Without CUDA, or
 without the repository's ``src/`` beside it, it exits non-zero and prints
 no result.  The last line is ``{"ok": true, "device": {...}}``; the line
-before it lists the kernels as JSON.
+before it lists the kernels as JSON (``matmul``'s entry times the bf16 LM
+head and, under ``"f32"``, the float32 kernel at ``F32_HEADLINE``).
 """
 from __future__ import annotations
 
@@ -365,6 +375,26 @@ def sass_counts(sources=("matmul.cu", "flash_attention.cu")) -> dict:
         out[source] = {op: sum(f" {op}." in ln for ln in lines)
                        for op in ("HGMMA", "HMMA")}
     return out
+
+
+def f32_gemm_build() -> dict:
+    """The float32 GEMM (``mm_f32``) as built: TMA loads (UTMALDG) and
+    cp.async copies (LDGSTS) in its SASS, and each instantiation's
+    registers and spilled bytes from ptxas's report."""
+    sass = sass_of_functions("matmul.cu", "mm_f32",
+                             ops=("UTMALDG", "LDGSTS", "FFMA"))
+    ops = {op: sum(c[op] for c in sass.values())
+           for op in ("UTMALDG", "LDGSTS", "FFMA")}
+    spills, regs = {}, {}
+    for ln in ptxas_of("matmul.cu", "mm_f32"):
+        name, _, text = ln.partition(": ")
+        if "spill" in text:     # "N bytes stack frame, N bytes spill ..."
+            spills[name] = sum(int(part.split()[0]) for part in
+                               text.split(",") if "spill" in part)
+        elif "registers" in text:
+            regs[name] = int(text.split("Used ")[1].split()[0])
+    return {"functions": len(sass), "sass": ops, "registers": regs,
+            "spilled_bytes": spills}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1336,6 +1366,13 @@ def _routes() -> dict:
     return mm.matmul.routes
 
 
+def _f32_loads() -> dict:
+    """``matmul``'s float32 launches by how its ring is filled: ``tma``
+    or ``cp.async`` (``gpu_model.f32_tma_ok``)."""
+    from repro_torch.kernels import matmul as mm
+    return dict(mm.matmul.f32_loads)
+
+
 def _bn_routes() -> dict:
     """Each batch-norm kernel's launches by route (vector or scalar)."""
     from repro_torch.kernels import bn
@@ -1686,6 +1723,70 @@ def edge_cases(device):
     return out + redesign_cases(device)
 
 
+# recurrentgemma-9b's RG-LRU input products w_r and w_i at its prefill's
+# 4 x 2048 tokens, (m, k, n)
+RG_LRU_GEMM = (8192, 4096, 4096)
+
+
+def f32_cases(device):
+    """``(label, a, b, kwargs)`` of the float32 GEMM's own holds, drawn
+    one at a time from a generator of their own (the LM head's operands
+    are 1.6 GB): every compiled float32 tile on aligned, ragged (K or N
+    not a multiple of 4, one row) and 4-byte-offset operands (the ragged
+    and offset ones on the cp.async path), and split-K at each tile with
+    K = 5 bk + 7 in 4 splits; then SmolLM-360M's training-step shapes
+    (fwd, dX, dW of each forward GEMM at 8 x 1024 tokens) and
+    recurrentgemma-9b's RG-LRU product at the model's pick, B scaled by
+    1 / sqrt(k) as a layer's weights are."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gpu_model import F32_TILES
+    gen = torch.Generator(device=device).manual_seed(SLICE_SEED + 9)
+
+    def rn(m, k, n, offset=False, scale=1.0):
+        e = 1 if offset else 0
+        a = torch.randn(m * k + e, generator=gen, device=device)[e:]
+        b = torch.randn(k * n + e, generator=gen, device=device)[e:]
+        return a.view(m, k), (b * scale).view(k, n)
+    for tile in F32_TILES:
+        kw = dict(zip(("bm", "bn", "bk"), tile))
+        for m, n, k in ((256, 512, 1024), (33, 17, 65), (1, 128, 7),
+                        (200, 90, 130)):
+            yield (f"f32 {(m, n, k)} {tile}", *rn(m, k, n), kw)
+        yield (f"f32 offset views (129, 72, 200) {tile}",
+               *rn(129, 200, 72, offset=True), kw)
+        k = 5 * tile[2] + 7
+        yield (f"f32 split-K (100, 72, {k}) {tile} splits 4",
+               *rn(100, k, 72), dict(kw, splits=4))
+    shapes = {}
+    for m, k, n, _ in llm_gemm_shapes(get_config(LLM_ARCH), LLM_BATCH,
+                                      LLM_SEQ):
+        for phase, mkn in (("fwd", (m, k, n)), ("dX", (m, n, k)),
+                           ("dW", (k, m, n))):
+            shapes.setdefault((phase, mkn), None)
+    shapes[("rg-lru", RG_LRU_GEMM)] = None
+    for phase, (m, k, n) in shapes:
+        yield (f"f32 {phase} {(m, n, k)}", *rn(m, k, n, scale=k ** -0.5),
+               {})
+
+
+def hold_f32(held, label, a, b, kw) -> None:
+    """One float32 GEMM within 2e-4 of ``matmul_ref``, and the same bits
+    on a second call (a ``splits`` of its own goes to the wrapper)."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+    if "splits" in kw:
+        def call():
+            return mm.matmul(a, b, kw["bm"], kw["bn"], kw["bk"],
+                             splits=kw["splits"])
+    else:
+        def call():
+            return ops.matmul(a, b, **kw)
+    got = call()
+    held.add("matmul", label, [("c", got, ref.matmul_ref(a, b),
+                                TOL[torch.float32])])
+    hold_same_bits(held, "matmul", label, (got,), (call(),))
+
+
 def bn_forward_f64(x, g, b, eps=1e-5):
     """``ref.bn_forward_ref``'s two-pass formula in float64 (the plain
     version casts x to float32)."""
@@ -1796,6 +1897,10 @@ def hold_slice(slice_run, device) -> Held:
                   main=True)
     for name, label, args, kwargs in edge_cases(device):
         hold_call(held, name, label, args, kwargs)
+    for label, a, b, kw in f32_cases(device):
+        hold_f32(held, label, a, b, kw)
+    del a, b
+    torch.cuda.synchronize()
     shifted = hold_shifted_means(held, device)
 
     dims, params, ids = slice_run["qwen"]
@@ -2034,6 +2139,35 @@ HEADLINE = {
 }
 
 
+# the float32 GEMM's line of the JSON report: SmolLM-360M's gate and up
+# projections at 8 x 1024 tokens, (m, k, n)
+F32_HEADLINE = (8192, 960, 2560)
+
+
+def time_f32_headline(device) -> dict:
+    """``time_op`` of the float32 GEMM at ``F32_HEADLINE`` (the model's
+    pick) beside ``torch.matmul`` in float32 (TF32 off) and its bound at
+    the CUDA cores' 67 TFLOP/s."""
+    from repro_torch.core.gpu_model import select_matmul_block
+    from repro_torch.kernels import ops, ref
+    m, k, n = F32_HEADLINE
+    gen = torch.Generator(device=device).manual_seed(SLICE_SEED + 10)
+    a = torch.randn((m, k), generator=gen, device=device)
+    b = torch.randn((k, n), generator=gen, device=device) * k ** -0.5
+    blk = select_matmul_block(m, n, k, 4, 4)
+    t = time_op(lambda: ops.matmul(a, b), lambda: ref.matmul_ref(a, b),
+                lambda: torch.matmul(a, b), 2.0 * m * n * k,
+                _nbytes(a, b) + m * n * 4, SCALAR_OPS_PER_S, "mm_f32",
+                iters=20)
+    out = {key: t[key] for key in ("ms", "device_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "library_device_ms")}
+    out.update(timed_on=f"matmul (({m}, {k}), ({k}, {n})) float32",
+               tile=str((blk.bm, blk.bn, blk.bk)), splits=blk.splits,
+               device_tflops=2.0 * m * n * k / (t["device_ms"] * 1e9))
+    return out
+
+
 def kernel_slice(device, card, report) -> list:
     """Drive, hold and time the kernel slice; the JSON entries of its four
     kernels."""
@@ -2100,6 +2234,10 @@ def kernel_slice(device, card, report) -> list:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "profiler_ms": t["profiler_ms"], "timed_on": HEADLINE[name]})
+    f32 = entries[0]["f32"] = time_f32_headline(device)
+    report["f32_headline"] = f32
+    print(f"  matmul float32 {F32_HEADLINE} (m, k, n): " + ", ".join(
+        f"{k} {v}" for k, v in f32.items()) + f"  [{card}]")
     return entries
 
 
@@ -3803,17 +3941,19 @@ def routing_flips(got, want) -> tuple:
     return flips, total
 
 
-def sass_of_functions(source: str, fragment: str) -> dict:
-    """HGMMA and HMMA instructions in the SASS of each function of
-    ``source``'s library whose mangled name holds ``fragment``."""
+def sass_of_functions(source: str, fragment: str,
+                      ops=("HGMMA", "HMMA")) -> dict:
+    """Instructions ``ops`` (by default the tensor cores': HGMMA and HMMA)
+    in the SASS of each function of ``source``'s library whose mangled
+    name holds ``fragment``."""
     out, name = {}, ""
     for ln in sass_of(source).splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
         elif fragment in name:
-            counts = out.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+            counts = out.setdefault(name, dict.fromkeys(ops, 0))
             for op in counts:
-                counts[op] += f" {op}." in ln
+                counts[op] += f" {op}." in ln or f" {op} " in ln
     return out
 
 
@@ -5714,16 +5854,35 @@ def main(argv=None) -> int:
     print(f"SASS tensor-core instructions: {report['sass']}")
     check(report["sass"]["matmul.cu"]["HGMMA"] > 0,
           "matmul.cu's library holds no HGMMA")
+    f32 = report["f32_gemm_build"] = f32_gemm_build()
+    print(f"float32 GEMM: {f32['functions']} mm_f32 instantiations, SASS "
+          f"{f32['sass']}, spilled bytes "
+          f"{sum(f32['spilled_bytes'].values())}, registers "
+          f"{sorted(set(f32['registers'].values()))}")
+    check(f32["sass"]["UTMALDG"] > 0 and f32["sass"]["LDGSTS"] > 0,
+          f"mm_f32 shows no TMA load or no cp.async: {f32['sass']}")
+    if f32["spilled_bytes"]:      # else the library was built earlier
+        check(len(f32["spilled_bytes"]) == f32["functions"] and not any(
+            f32["spilled_bytes"].values()), f"mm_f32 spills (ptxas): "
+            f"{f32['spilled_bytes']}")
     check(report["sass"]["flash_attention.cu"]["HMMA"] +
           report["sass"]["flash_attention.cu"]["HGMMA"] > 0,
           "flash_attention.cu's library holds no tensor-core MMA")
 
     def timed(first, fn, *args):
-        """Phase group ``first``'s ``fn(*args)``, its seconds kept."""
+        """Phase group ``first``'s ``fn(*args)``, its seconds kept, and its
+        float32 GEMM launches by how the ring was filled."""
         t = time.perf_counter()
+        loads = _f32_loads()
         out = fn(*args)
         report["phase_s"][first] = time.perf_counter() - t
-        print(f"phases {first}: {report['phase_s'][first]} s")
+        loads = {key: n - loads[key] for key, n in _f32_loads().items()}
+        report.setdefault("f32_loads", {})[first] = loads
+        print(f"phases {first}: {report['phase_s'][first]} s; float32 GEMM "
+              f"launches by ring fill {loads}")
+        if first == 17:     # SmolLM's every operand is TMA-aligned
+            check(loads["cp.async"] == 0 and loads["tma"] > 0,
+                  f"SmolLM-360M's float32 GEMMs not all on TMA: {loads}")
         torch.cuda.empty_cache()
         return out
 

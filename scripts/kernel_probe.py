@@ -2,7 +2,7 @@
 """Quick check of the port's CUDA kernels on one CUDA card.
 
     python3 scripts/kernel_probe.py [--only gemm|attention|bn|grid_minmax]
-                                    [--src DIR]
+                                    [--src DIR] [--bits FILE]
 
 From the repository root.  Builds the sources it probes only, prints
 their ptxas reports (and the tensor-core instructions in the GEMM's and
@@ -25,13 +25,28 @@ version and the bound.  ``--src`` imports the port from another tree (an
 unpacked parent commit, say), whose batch-norm wrappers are only called
 through ``ops``; run it and the tree's own probe in one call to compare
 the two on one card.  A build of the kernel with ``-DGRID_MINMAX_TRACE``
-then gives each block's phase times in one call at both shapes.  It
-exits non-zero if a case fails.  About a minute;
+then gives each block's phase times in one call at both shapes.
+
+The float32 GEMM (``--only gemm``) is also held bit for bit: at one
+split on SmolLM-360M's training-step shapes (8 x 1024 tokens; fwd, dX,
+dW), recurrentgemma-9b's RG-LRU product (8192, 4096) @ (4096, 4096),
+ragged shapes and views offset by 4 bytes, every tile giving the same
+bits; at a fixed tile and split count on split-K cases.  ``--bits FILE``
+writes a digest of each output there, or, if the file exists, fails on
+any output whose digest differs: run it on an unpacked parent with
+``--src`` first and on this tree next, in one call, to hold the two
+kernels' bits equal.  Then it times the float32 kernel at those shapes
+(each of its tiles, and the model's pick) beside ``torch.matmul`` (TF32
+off), summed over the step's GEMMs by phase.  ``--only attention`` also
+times the float32 attention at SmolLM's shape beside SDPA in float32.
+It exits non-zero if a case fails.  About a minute a part;
 ``chip_smoke.py`` is the full run.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import subprocess
 import sys
 import time
@@ -59,14 +74,37 @@ def build(sources) -> None:
         t0 = time.perf_counter()
         path = _ext._build(source)
         print(f"built {source} in {time.perf_counter() - t0:.1f} s")
-        for ln in _ext.BUILD_LOGS.get(source, "").splitlines():
-            if "registers" in ln or "spill" in ln:
-                print("  ", ln.strip())
+        for name, line in ptxas_lines(_ext.BUILD_LOGS.get(source, "")):
+            print(f"   {name}: {line}")
         sass = subprocess.run([str(tool), "--dump-sass", str(path)],
                               check=True, capture_output=True,
                               text=True).stdout
         print(f"  SASS: HGMMA {sass.count(' HGMMA.')}, "
               f"HMMA {sass.count(' HMMA.')}")
+
+
+def ptxas_lines(log: str):
+    """``(kernel, line)`` for each register and spill line of a build's
+    ptxas report; a template's integer arguments are shown, as in
+    ``mm_f32<128,128,32>``."""
+    import re
+    name = ""
+    for ln in log.splitlines():
+        if "Function properties for " in ln or "entry function '" in ln:
+            raw = ln.split("for ")[-1] if "Function properties" in ln \
+                else ln.split("entry function '")[1].split("'")[0]
+            name = raw.strip()
+            if "ILi" in name:       # <length><name>I Li<int>E ... E
+                pre, args = name.split("ILi", 1)
+                for size in range(1, len(pre)):
+                    if pre[:-size].endswith(str(size)) and \
+                            not pre[-size].isdigit():
+                        name = pre[-size:] + "<" + ",".join(
+                            re.findall(r"(\d+)E", "Li" + args.split("EE")[0]
+                                       + "E")) + ">"
+                        break
+        elif "registers" in ln or "spill" in ln:
+            yield name, ln.strip()
 
 
 class Holds:
@@ -131,6 +169,150 @@ def hold_gemms(hold: Holds, dev) -> None:
                  lambda: ops.matmul(a, b), want, TOL[dtype])
 
 
+# ---- the float32 GEMM, bit for bit and timed ------------------------------
+
+def smollm_gemms():
+    """``(phase, (m, k, n), count)`` of SmolLM-360M's training step at 8 x
+    1024 tokens: fwd (m, k) @ (k, n), dX (m, n) @ (n, k), dW (k, m) @
+    (m, n) of each forward GEMM (``chip_smoke.llm_gemm_shapes``), one
+    entry a distinct shape and phase."""
+    from repro_torch.configs import get_config
+    cs = _smoke()
+    counts = {}
+    for m, k, n, count in cs.llm_gemm_shapes(get_config("smollm-360m"),
+                                             cs.LLM_BATCH, cs.LLM_SEQ):
+        for key in (("fwd", (m, k, n)), ("dX", (m, n, k)),
+                    ("dW", (k, m, n))):
+            counts[key] = counts.get(key, 0) + count
+    return [(ph, mkn, count) for (ph, mkn), count in counts.items()]
+
+
+RG_LRU_GEMM = (8192, 4096, 4096)      # recurrentgemma-9b's w_r / w_i, (m, k, n)
+
+
+def _f32_operands(m, k, n, seed, dev, offset=False):
+    """Seeded float32 A (m, k) and B (k, n) / sqrt(k) on the card; with
+    ``offset``, views that start one float past their storage."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    extra = 1 if offset else 0
+    a = torch.randn(m * k + extra, generator=gen, device=dev)[extra:]
+    b = torch.randn(k * n + extra, generator=gen, device=dev)[extra:] \
+        * k ** -0.5
+    return a.view(m, k), b.view(k, n)
+
+
+def f32_bit_cases():
+    """``(key, (m, k, n), offset, [(tile, splits), ...])``: every run
+    listed under one key must give the same bits, in this tree and in the
+    tree ``--bits`` recorded.  One split: any compiled tile; split-K: one
+    tile and split count a key."""
+    wide = ((128, 128, 32), (128, 64, 64), (32, 64, 128)) + tuple(
+        t for t in getattr(g, "F32_TILES", ()) if t not in g.MATMUL_TILES)
+    cases = [(f"smollm {ph} {mkn} x1", mkn, False, [(t, 1) for t in wide])
+             for ph, mkn, _ in smollm_gemms()]
+    cases.append((f"rg-lru {RG_LRU_GEMM} x1", RG_LRU_GEMM, False,
+                  [(t, 1) for t in wide]))
+    for mkn in ((33, 65, 17), (1, 7, 128), (200, 130, 90), (147, 4099, 64),
+                (300, 96, 200), (129, 200, 72)):
+        cases.append((f"ragged {mkn} x1", mkn, False,
+                      [(t, 1) for t in g.MATMUL_TILES]))
+    for mkn in ((256, 1024, 512), (129, 200, 72)):
+        cases.append((f"offset views {mkn} x1", mkn, True,
+                      [(t, 1) for t in g.MATMUL_TILES]))
+    for mkn, tile, splits in (((200, 1000, 96), (128, 64, 64), 7),
+                              ((147, 4099, 64), (128, 128, 64), 13),
+                              ((33, 650, 17), (32, 64, 32), 5),
+                              ((300, 2050, 256), (128, 256, 64), 3),
+                              ((64, 777, 40), (64, 64, 128), 6),
+                              ((960, 8192, 2560), (128, 128, 32), 4),
+                              ((2560, 8192, 960), (128, 64, 32), 3)):
+        cases.append((f"split-K {mkn} {tile} x{splits}", mkn, False,
+                      [(tile, splits)]))
+    return cases
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().view(torch.int32).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def hold_f32_bits(hold: Holds, dev, bits_path) -> None:
+    """Each case within 2e-4 of ``matmul_ref``, two calls and every tile
+    of its key the same bits, and the same bits as ``bits_path`` (written
+    there if it does not exist)."""
+    recorded = None
+    if bits_path is not None and Path(bits_path).exists():
+        recorded = json.loads(Path(bits_path).read_text())
+    digests = {}
+    for i, (key, (m, k, n), offset, runs) in enumerate(f32_bit_cases()):
+        a, b = _f32_operands(m, k, n, 2026 + i, dev, offset)
+        want = ref.matmul_ref(a, b)
+        seen = set()
+        for tile, splits in runs:
+            hold(f"f32 {key} {tile} x{splits}",
+                 lambda: mm.matmul(a, b, *tile, splits=splits), want,
+                 TOL[torch.float32])
+            got = mm.matmul(a, b, *tile, splits=splits)
+            again = mm.matmul(a, b, *tile, splits=splits)
+            torch.cuda.synchronize()
+            seen.add(_digest(got))
+            if not torch.equal(got, again):
+                print(f"FAIL f32 {key} {tile} x{splits}: two calls differ")
+                hold.failed += 1
+        digests[key] = sorted(seen)
+        ok = len(seen) == 1 and (recorded is None or key not in recorded
+                                 or recorded[key] == digests[key])
+        print(f"{'ok  ' if ok else 'FAIL'} f32 bits {key}: {digests[key]}"
+              + ("" if recorded is None else
+                 f" (recorded {recorded.get(key)})"))
+        hold.failed += not ok
+        del a, b, want
+    if bits_path is not None and recorded is None:
+        Path(bits_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(bits_path).write_text(json.dumps(digests, indent=1))
+        print(f"f32 digests written to {bits_path}")
+
+
+def f32_times(dev) -> None:
+    """Queued device ms of the float32 kernel at SmolLM's step shapes and
+    recurrentgemma's RG-LRU product: the model's pick, every compiled
+    tile (with the model's split for it) and ``torch.matmul``; then the
+    sums over the step's GEMMs by phase."""
+    tiles = getattr(g, "F32_TILES", g.MATMUL_TILES)
+    sums = {}
+    rows = [(ph, mkn, count) for ph, mkn, count in smollm_gemms()]
+    rows.append(("rg-lru", RG_LRU_GEMM, 1))
+    for ph, (m, k, n), count in rows:
+        a, b = _f32_operands(m, k, n, 7, dev)
+        iters = 3 if n * k > 10 ** 7 else 10
+        blk = g.select_matmul_block(m, n, k, 4, 4)
+        pick = queued_ms(lambda: ops.matmul(a, b), iters)
+        lib = queued_ms(lambda: torch.matmul(a, b), iters)
+        per = {}
+        for t in tiles:
+            sp = g.select_matmul_block(m, n, k, 4, 4, tile=t).splits
+            per[t] = (sp, queued_ms(lambda: mm.matmul(a, b, *t, splits=sp),
+                                    iters))
+        best = min(per, key=lambda t: per[t][1])
+        flop = 2.0 * m * n * k
+        print(f"f32 {ph} {(m, k, n)} x{count}: model "
+              f"{(blk.bm, blk.bn, blk.bk)} x{blk.splits} {pick:.4f} ms "
+              f"({flop / pick / 1e9:.1f} TFLOP/s), fastest {best} "
+              f"x{per[best][0]} {per[best][1]:.4f} ms, torch.matmul "
+              f"{lib:.4f} ms ({flop / lib / 1e9:.1f} TFLOP/s), bound "
+              f"{flop / 67e12 * 1e3:.4f} ms; tiles: " + ", ".join(
+                  f"{t} x{sp} {v:.4f}" for t, (sp, v) in per.items()))
+        for key, v in (("kernel", pick), ("torch.matmul", lib),
+                       ("fastest tile", per[best][1]),
+                       ("bound", flop / 67e12 * 1e3)):
+            sums.setdefault(ph, {}).setdefault(key, 0.0)
+            sums[ph][key] += count * v
+        del a, b
+    for ph, row in sums.items():
+        print(f"f32 {ph} summed over the step's GEMMs: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in row.items()))
+
+
 def hold_attention(hold: Holds, dev) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         for d in (16, 32, 64, 128):
@@ -175,6 +357,23 @@ def attention_times(dev) -> None:
     print(f"flash_attention Qwen3 causal (32, 2048, 128) bf16: "
           f"{queued_ms(lambda: ops.flash_attention(q, k, v, 16, 8))} ms, "
           f"scaled_dot_product_attention {sdpa} ms")
+    # float32 at SmolLM-360M's training shape: 8 x 15 heads, 5 KV, S 1024,
+    # head_dim 64, causal; bound at the CUDA cores' 67 TFLOP/s
+    b, h, kv, s, d = 8, 15, 5, 1024, 64
+    q = torch.randn(b * h, s, d, device=dev)
+    k = torch.randn(b * kv, s, d, device=dev)
+    v = torch.randn(b * kv, s, d, device=dev)
+    qb, kb, vb = q.view(b, h, s, d), k.view(b, kv, s, d), v.view(b, kv, s, d)
+    flop = 4.0 * d * b * h * s * (s + 1) / 2
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    kern = queued_ms(lambda: ops.flash_attention(q, k, v, h, kv))
+    plain = queued_ms(lambda: ref.flash_attention_ref(q, k, v, h, kv), 5)
+    sdpa = queued_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, is_causal=True, enable_gqa=True))
+    print(f"flash_attention SmolLM causal (120, 1024, 64) float32: {kern} ms "
+          f"({flop / kern / 1e9:.1f} TFLOP/s), plain {plain} ms, "
+          f"scaled_dot_product_attention {sdpa} ms, bound "
+          f"{max(flop / 67e12, nbytes / HBM_BYTES_PER_S) * 1e3} ms")
 
 
 def gemm_times(dev) -> None:
@@ -433,6 +632,8 @@ def main() -> int:
     ap.add_argument("--only", choices=("gemm", "attention", "bn",
                                        "grid_minmax"))
     ap.add_argument("--src", help="import the port from this src/ tree")
+    ap.add_argument("--bits", help="float32 GEMM digests: written here, "
+                    "or held against this file if it exists")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA card", file=sys.stderr)
@@ -455,9 +656,12 @@ def main() -> int:
                      ("bn", hold_bn), ("grid_minmax", hold_grid_minmax)):
         if part in parts:
             fn(hold, "cuda")
+    if "gemm" in parts:
+        hold_f32_bits(hold, "cuda", args.bits)
     if hold.failed == 0:
         for part, fn in (("attention", attention_times),
-                         ("gemm", gemm_times), ("bn", bn_shift),
+                         ("gemm", gemm_times), ("gemm", f32_times),
+                         ("bn", bn_shift),
                          ("bn", bn_times),
                          ("grid_minmax", grid_minmax_times),
                          ("grid_minmax", grid_minmax_trace)):

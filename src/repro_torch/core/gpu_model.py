@@ -19,8 +19,10 @@ What changes for the card:
   float32 partial tile and a second kernel sums them in split order;
 * two routes (``matmul_route``): ``wgmma`` (bf16 only; TMA loads into a
   4-stage ring, ``wgmma`` products) for the tiles of ``WGMMA_TILES`` when
-  TMA can read both operands, and ``mma`` (WMMA for bf16, CUDA-core FMAs
-  for f32, single-buffered) for everything else;
+  TMA can read both operands, and ``mma`` for everything else: WMMA for
+  bf16, single-buffered; for f32 CUDA-core FMAs on the tiles of
+  ``F32_TILES``, fed by a ring of ``f32_stages`` stages that TMA fills
+  where ``f32_tma_ok``, else ``cp.async``;
 * peak rates: 989 TFLOP/s for bf16 on the tensor cores, 67 TFLOP/s for
   f32 on the CUDA cores (the f32 route uses no TF32).
 
@@ -64,6 +66,12 @@ MATMUL_TILES: Tuple[Tuple[int, int, int], ...] = (
 WGMMA_TILES: Tuple[Tuple[int, int, int], ...] = (
     (128, 64, 64), (128, 128, 64), (128, 256, 64))
 
+# The tiles of the f32 kernel (``mm_f32``): every `mma` tile, so that an
+# explicit tile runs in either type, and its own 128 x 256 x 32 (8 x 16
+# outputs a thread, four stages).
+F32_TILES: Tuple[Tuple[int, int, int], ...] = MATMUL_TILES + (
+    (128, 256, 32),)
+
 # Kernel facts the model counts with (matmul.cu):
 WGMMA_STAGES = 4                  # TMA ring depth
 WGMMA_THREADS = 288               # two consumer warpgroups + a producer warp
@@ -72,6 +80,16 @@ MMA_THREADS = 256
 # accumulators a thread, and about 32 more registers besides (ptxas reads
 # 58, 90 and 154 for the three `wgmma` tiles).
 EXTRA_REGS = 32
+# The f32 kernel's ring: as many stages (2 to F32_MAX_STAGES) as fit
+# beside the transposed A rows and 128 bytes of alignment slack in
+# F32_SMEM_BUDGET bytes, half of a block's shared memory, for a tile with
+# up to 8 x 8 outputs a thread, bounded to 128 registers so that two
+# blocks share an SM (``__launch_bounds__(256, 2)``); in twice that for a
+# larger one.
+F32_MAX_STAGES = 4
+F32_SMEM_BUDGET = 116_224
+F32_KC = 32                       # k rows of A transposed at a time
+F32_TWO_BLOCK_OUTPUTS = 64
 MAX_SPLITS = 256
 # the split-K reduction is a second launch; a fixed cost assumed for it
 REDUCE_LAUNCH_S = 4e-6
@@ -164,6 +182,66 @@ def smem_bytes(bm: int, bn: int, bk: int, bytes_in: int) -> int:
     return (bm * bk + bk * bn) * bytes_in
 
 
+def f32_stage_floats(bm: int, bn: int, bk: int) -> int:
+    """Floats of one stage of the f32 kernel's ring: A as [bm][bk], B as
+    [bk][bn] (``F32Tile::STAGE``)."""
+    return bm * bk + bk * bn
+
+
+def f32_two_blocks(bm: int, bn: int) -> bool:
+    """Whether the f32 kernel asks for two blocks an SM at this tile
+    (``F32Tile::MIN_BLOCKS``): up to 8 x 8 outputs a thread."""
+    return (bm // 16) * (bn // 16) <= F32_TWO_BLOCK_OUTPUTS
+
+
+def f32_stages(bm: int, bn: int, bk: int) -> int:
+    """The f32 kernel's ring depth for a tile (``F32Tile::STAGES``): what
+    fits beside the transposed A rows, [F32_KC][bm], and the slack."""
+    budget = F32_SMEM_BUDGET * (1 if f32_two_blocks(bm, bn) else 2)
+    fit = (budget - 4 * F32_KC * bm - 128) // (
+        4 * f32_stage_floats(bm, bn, bk))
+    return max(2, min(F32_MAX_STAGES, fit))
+
+
+def f32_regs(bm: int, bn: int, tma: bool = True) -> int:
+    """Registers a thread of the f32 kernel: its (bm/16) x (bn/16)
+    accumulators, the A and B values of two k steps (one in use, one
+    loaded ahead) and ``EXTRA_REGS``; at most 128 where two blocks an SM
+    are asked for (``F32Tile::MIN_BLOCKS``, on the TMA path only)."""
+    tm, tn = bm // 16, bn // 16
+    cap = 128 if tma and f32_two_blocks(bm, bn) else 255
+    return min(cap, tm * tn + 2 * (tm + tn) + EXTRA_REGS)
+
+
+def f32_fma_share(bm: int, bn: int) -> float:
+    """The share of the CUDA cores' peak the f32 kernel's products can
+    reach at a tile, from a k step of one warp on each of an SM's four
+    schedulers: each issues tm tn FMAs and tm / va + tn / 4 shared loads
+    (va = min(tm, 4) floats of A, 4 of B), one instruction a cycle; the
+    SM's shared memory delivers 128 bytes a cycle and a warp's load
+    fills all 32 lanes, so the four take 4 (tm + tn) cycles of it.  The
+    longer of the two bounds the step (8 x 8 outputs: 0.94; 8 x 4: 0.67;
+    8 x 16: 0.96)."""
+    tm, tn = bm // 16, bn // 16
+    issue = tm * tn + tm // min(tm, 4) + tn // 4
+    return tm * tn / max(issue, 4 * (tm + tn))
+
+
+def f32_vector_copies(n: int, k: int, a_ptr: int = 0,
+                      b_ptr: int = 0) -> Tuple[bool, bool]:
+    """Whether A (m, k) and B (k, n) can be read 16 bytes at a time
+    (``launch_f32``): a row a multiple of 4 floats and a 16-byte aligned
+    base."""
+    return (k % 4 == 0 and a_ptr % 16 == 0, n % 4 == 0 and b_ptr % 16 == 0)
+
+
+def f32_tma_ok(n: int, k: int, a_ptr: int = 0, b_ptr: int = 0) -> bool:
+    """Whether the f32 kernel fills its ring by TMA (both operands read
+    16 bytes at a time); else by cp.async, 16 bytes a copy for the
+    operand that allows it and one float for the other."""
+    return all(f32_vector_copies(n, k, a_ptr, b_ptr))
+
+
 def kernel_smem(route: str, bm: int, bn: int, bk: int,
                 bytes_in: int) -> int:
     """Dynamic shared memory one block of the kernel asks for, as
@@ -173,19 +251,30 @@ def kernel_smem(route: str, bm: int, bn: int, bk: int,
         return WGMMA_STAGES * smem_bytes(bm, bn, bk, 2) + 1024
     if bytes_in == 2:    # padded A and B tiles, a 16 x 16 f32 buffer a warp
         return 2 * (bm * (bk + 8) + bk * (bn + 8)) + 4 * 8 * 256
-    return 4 * (bk * (bm + 1) + bk * bn)
+    return 4 * (f32_stages(bm, bn, bk) * f32_stage_floats(bm, bn, bk)
+                + F32_KC * bm) + 128
 
 
 def resident_blocks(route: str, bm: int, bn: int, bk: int,
-                    bytes_in: int) -> int:
+                    bytes_in: int, tma: bool = True) -> int:
     """Blocks of this kernel one SM holds at once: the least of what its
-    shared memory, its threads and its registers allow."""
+    shared memory, its threads and its registers allow (``tma``: the f32
+    kernel's ring is filled by TMA, ``f32_tma_ok``)."""
     threads = WGMMA_THREADS if route == "wgmma" else MMA_THREADS
-    regs = min(255, bm * bn // 256 + EXTRA_REGS)
+    if route == "mma" and bytes_in == 4:
+        regs = f32_regs(bm, bn, tma)
+    else:
+        regs = min(255, bm * bn // 256 + EXTRA_REGS)
     return max(0, min(SMEM_PER_SM // kernel_smem(route, bm, bn, bk,
                                                  bytes_in),
                       THREADS_PER_SM // threads,
                       REGS_PER_SM // (threads * regs)))
+
+
+def compiled_tiles(bytes_in: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The tiles matmul.cu compiles for this element size: ``F32_TILES``
+    for float32, ``MATMUL_TILES`` for bf16."""
+    return F32_TILES if bytes_in == 4 else MATMUL_TILES
 
 
 def tma_ok(n: int, k: int, bytes_in: int, a_ptr: int = 0,
@@ -220,12 +309,14 @@ def split_bounds(k: int, bk: int, splits: int) -> List[Tuple[int, int]]:
 def matmul_cost(m: int, n: int, k: int, bm: int, bn: int, bk: int,
                 bytes_in: int = 2, bytes_out: int = 2,
                 smem: int = SMEM_BYTES, splits: int = 1,
-                route: Optional[str] = None
+                route: Optional[str] = None, tma: Optional[bool] = None
                 ) -> Optional[Tuple[float, float]]:
     """``(seconds, hbm_bytes)`` of ``C[m,n] = A[m,k] @ B[k,n]`` tiled
     ``(bm, bn, bk)`` with ``splits`` K ranges on ``route`` (by default
-    the route an aligned operand pair gets), or None if the kernel's
-    shared memory exceeds ``smem`` or a split would be empty.
+    the route an aligned operand pair gets; ``tma``: the f32 kernel's
+    ring filled by TMA, by default where an aligned pair allows it), or
+    None if the kernel's shared memory exceeds ``smem`` or a split would
+    be empty.
 
       outer multipliers m_m = ceil(m/bm), m_n, m_k               (Eq. 1)
       B traffic: each B tile once per k step and output column    (Eq. 4)
@@ -234,14 +325,18 @@ def matmul_cost(m: int, n: int, k: int, bm: int, bn: int, bk: int,
         range; with splits, each block writes a float32 partial
         tile and the reduction reads them all and writes C        (Eq. 9)
       per k step, one SM: the compute and the load of a tile at its
-        share of the card, overlapped by the ring on `wgmma` and
-        only across resident blocks on `mma`; the busiest SM runs
-        ceil(blocks / 132) blocks                                 (Eq. 18)
+        share of the card, overlapped by the ring on `wgmma` and on
+        f32 `mma` (its stages less one, times the resident blocks)
+        and only across resident blocks on bf16 `mma`; f32 compute
+        at ``f32_fma_share`` of the CUDA cores' peak; the busiest SM
+        runs ceil(blocks / 132) blocks                            (Eq. 18)
     """
     if route is None:
         route = matmul_route(n, k, bytes_in, (bm, bn, bk))
     need = kernel_smem(route, bm, bn, bk, bytes_in)
-    res = resident_blocks(route, bm, bn, bk, bytes_in)
+    if tma is None:
+        tma = f32_tma_ok(n, k)
+    res = resident_blocks(route, bm, bn, bk, bytes_in, tma)
     m_m, m_n, m_k = -(-m // bm), -(-n // bn), -(-k // bk)
     if need > smem or res < 1 or splits > m_k:
         return None
@@ -257,7 +352,14 @@ def matmul_cost(m: int, n: int, k: int, bm: int, bn: int, bk: int,
     load = smem_bytes(bm, bn, bk, bytes_in) / sm_bw
     blocks = m_m * m_n * splits
     per_sm = -(-blocks // SM_COUNT)
-    depth = (WGMMA_STAGES - 1 if route == "wgmma" else 1) * min(res, per_sm)
+    if route == "wgmma":
+        stages = WGMMA_STAGES - 1
+    elif bytes_in == 4:
+        stages = f32_stages(bm, bn, bk) - 1
+        compute /= f32_fma_share(bm, bn)
+    else:
+        stages = 1
+    depth = stages * min(res, per_sm)
     step = max(compute, load, (compute + load) / depth)
     store = bm * bn * (4 if splits > 1 else bytes_out) / sm_bw
     est = per_sm * (kt_split * step + store)
@@ -276,21 +378,22 @@ def select_matmul_block(m: int, n: int, k: int, bytes_in: int = 2,
     GEMM (ties go to less traffic, then to the earlier tile and fewer
     splits).  ``aligned``: both operands' bases are 16-byte aligned.  The
     candidates are the ``WGMMA_TILES`` where TMA can feed the GEMM (every
-    such GEMM runs on `wgmma`), else ``MATMUL_TILES``; ``tile`` fixes the
-    tile and leaves the split count to the model."""
+    such GEMM runs on `wgmma`), else ``compiled_tiles(bytes_in)``;
+    ``tile`` fixes the tile and leaves the split count to the model."""
     if min(m, n, k) <= 0:
         raise ValueError(f"no tile for a degenerate GEMM ({m}, {n}, {k})")
     tma = tma_ok(n, k, bytes_in) and aligned
     if tile is not None:
         tiles = (tuple(tile),)
     else:
-        tiles = WGMMA_TILES if tma else MATMUL_TILES
+        tiles = WGMMA_TILES if tma else compiled_tiles(bytes_in)
+    f32_tma = aligned and f32_tma_ok(n, k)
     best: Optional[MatmulBlock] = None
     for bm, bn, bk in tiles:
         route = "wgmma" if tma and (bm, bn, bk) in WGMMA_TILES else "mma"
         for splits in range(1, min(-(-k // bk), MAX_SPLITS) + 1):
             res = matmul_cost(m, n, k, bm, bn, bk, bytes_in, bytes_out,
-                              smem, splits, route)
+                              smem, splits, route, f32_tma)
             if res is None:
                 continue
             est, hbm = res

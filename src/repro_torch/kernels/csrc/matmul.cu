@@ -25,11 +25,27 @@
 //   bf16 and stages the tile in shared memory so that each thread stores
 //   16 bytes, masked at the ragged edge.  TMA needs 16-byte row strides
 //   and bases, so K or N not a multiple of 8, or an offset view, take:
-// * `mma`: the first kernel, kept: one block of 256 threads for each
-//   (bm x bn) output tile, single-buffered A and B tiles in shared memory,
-//   bf16 products as 16x16x16 WMMA (mma.sync) through a per-warp staging
-//   buffer, f32 as CUDA-core FMAs (each thread a strided (bm/16 x bn/16)
-//   sub-tile, no TF32); the ragged edge masked in the loads and stores.
+// * `mma`: one block of 256 threads for each (bm x bn) output tile.
+//   bf16: the first kernel, kept: single-buffered A and B tiles in shared
+//   memory, 16x16x16 WMMA (mma.sync) through a per-warp staging buffer;
+//   the ragged edge masked in the loads and stores.
+//   f32 (`mm_f32`, the tiles of F32_TILES; IEEE products, no TF32): a ring
+//   of 2 to 4 shared-memory stages filled ahead of the CUDA cores, so that
+//   the next tiles' loads are in flight while a tile is multiplied.  Where
+//   both operands' rows are multiples of 4 floats and both bases 16-byte
+//   aligned, one thread fills a stage with two TMA loads that complete the
+//   stage's mbarrier (zero outside the matrix); else every thread issues
+//   cp.async copies, 16 bytes for an operand that allows it and one float
+//   for the other (K = 147, offset views), zero-filled past the matrix and
+//   the split.  Either way the main loop has no mask.  A lands
+//   k-contiguous, as in memory, and is transposed 32 k rows at a time into
+//   a swizzled [32][bm] tile (16-byte loads and stores); B stays [bk][bn].
+//   Each thread owns (bm/16) x (bn/16) outputs (8 x 16 at 128 x 256) and
+//   reads, a k step, one 16-byte load of A per 4 rows and one of B per 4
+//   columns: 6 shared loads for 128 FMAs at 8 x 16.  No access to shared
+//   memory meets a bank conflict.  Each output keeps the first kernel's
+//   sum order (increasing k, one fmaf a product, from 0), so its bits do
+//   not depend on the tile.
 // Split-K, both routes and types: where the output tiles cannot fill the
 // SMs, grid dimension z cuts the ceil(k / bk) k tiles into `splits` even
 // ranges (split s: tiles [s*kt/splits, (s+1)*kt/splits), so no tile is
@@ -64,62 +80,353 @@ __device__ __forceinline__ void split_range(long long k, int bk, int splits,
   *k_hi = min((s + 1) * kt / splits * bk, k);
 }
 
-// ---- mma route, f32: CUDA-core FMAs ---------------------------------------
-// ws == nullptr: C gets the sum; else ws[blockIdx.z] gets a float32 partial.
+// ---- mma route, f32: CUDA-core FMAs fed by a TMA or cp.async ring -------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers and TMA loads (the f32 ring and the `wgmma` route)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// Spins until the phase of parity `parity` of `bar` has completed.  No
+// wait of these kernels lasts a second: one that outlasts about ten (2e10
+// cycles) traps, so a fault in the pipeline ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// TMA: the box at (c0, c1) (innermost first) of `map` into `dst`; its
+// bytes complete a transaction of `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// cp.async of `bytes` (16, or 0: zero-fill) from global `src` to shared
+// `dst`, through L2 only.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+// The same for one float (`bytes` 4 or 0).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The ring's depth: as many stages (2 to F32_MAX_STAGES) as fit beside the
+// transposed A rows and 128 bytes of alignment slack in F32_SMEM_BUDGET
+// bytes, half of a block's shared memory, where two blocks are to share an
+// SM, else in twice that.  gpu_model.py mirrors these constants and
+// formulas.
+constexpr int F32_MAX_STAGES = 4;
+constexpr int F32_SMEM_BUDGET = 116224;
+
+// A block of 256 threads computes a (BM x BN) tile; its threads form a
+// 16 x 16 grid (a warp: 4 ty by 8 tx), each TM x TN = (BM / 16) x (BN / 16)
+// outputs: rows VA ty + 16 VA g + {0..VA-1} (VA = 4, or 2 at BM 32) and
+// columns 4 tx + 64 j + {0..3}.  A ring stage holds A as it was loaded,
+// [BM][BK] (k contiguous, as in memory), and B as [BK][BN]; before the
+// products each KC k rows of a stage's A are transposed into `At`,
+// [KC][BM], whose 16-byte chunks are swizzled (chunk q of k row kk at
+// q ^ (kk / 4)), so that a thread reads its A values of a k step as one
+// 16-byte load.
+constexpr int KC = 32;
+
 template <int BM, int BN, int BK>
-__global__ void __launch_bounds__(kThreads)
-    mm_f32(const float* __restrict__ A, const float* __restrict__ B,
+struct F32Tile {
+  static constexpr int TM = BM / 16, TN = BN / 16, VA = TM < 4 ? TM : 4;
+  static constexpr int STAGE = BM * BK + BK * BN;            // floats
+  static constexpr int AT = KC * BM;                         // floats
+  // two blocks an SM (at most 128 registers a thread) up to 8 x 8 outputs
+  // where TMA fills the ring; the cp.async path's address arithmetic
+  // would spill there, so it is not bounded (one block an SM)
+  static constexpr int MIN_BLOCKS = TM * TN <= 64 ? 2 : 1;
+  static constexpr int BUDGET =
+      MIN_BLOCKS == 2 ? F32_SMEM_BUDGET : 2 * F32_SMEM_BUDGET;
+  static constexpr int FIT = (BUDGET - 4 * AT - 128) / (4 * STAGE);
+  static constexpr int STAGES =
+      FIT < 2 ? 2 : (FIT > F32_MAX_STAGES ? F32_MAX_STAGES : FIT);
+  static constexpr size_t SMEM = sizeof(float) * (STAGES * STAGE + AT) + 128;
+  static_assert(BM % 32 == 0 && BN % 64 == 0 && BK % 32 == 0,
+                "f32 tile: bm a multiple of 32, bn of 64, bk of 32");
+  static_assert((BM * BK / 4) % kThreads == 0 &&
+                    (BK * BN / 4) % kThreads == 0,
+                "f32 tile: whole 16-byte chunks for every thread");
+};
+
+// The cp.async path: issues the copies of k tile [k0, k0 + BK) into the
+// stage at `As`, 16 bytes a copy where `vec_a` / `vec_b` (row length a
+// multiple of 4, base 16-byte aligned), else one float a copy; whatever
+// lies at or past row m, column n or k_hi (the split's end) is
+// zero-filled.  Eight neighbouring threads fill 128 contiguous bytes of
+// one row.
+template <int BM, int BN, int BK>
+__device__ __forceinline__ void f32_load_stage(
+    float* As, const float* __restrict__ A, const float* __restrict__ B,
+    long long m, long long n, long long k, long long k_hi, long long row0,
+    long long col0, long long k0, bool vec_a, bool vec_b) {
+  float* Bs = As + BM * BK;
+  constexpr int CA = BK / 4, CB = BN / 4;
+#pragma unroll
+  for (int it = 0; it < BM * CA / kThreads; ++it) {
+    const int e = threadIdx.x + it * kThreads;
+    const int r = e / CA, c = (e % CA) * 4;
+    const long long gr = row0 + r, gc = k0 + c;
+    float* d = As + r * BK + c;
+    if (vec_a) {
+      const bool in = gr < m && gc < k_hi;
+      cp_async16(d, in ? A + gr * k + gc : A, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = gr < m && gc + i < k_hi;
+        cp_async4(d + i, in ? A + gr * k + gc + i : A, in ? 4 : 0);
+      }
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < BK * CB / kThreads; ++it) {
+    const int e = threadIdx.x + it * kThreads;
+    const int r = e / CB, c = (e % CB) * 4;
+    const long long gr = k0 + r, gc = col0 + c;
+    float* d = Bs + r * BN + c;
+    if (vec_b) {
+      const bool in = gr < k_hi && gc < n;
+      cp_async16(d, in ? B + gr * n + gc : B, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = gr < k_hi && gc + i < n;
+        cp_async4(d + i, in ? B + gr * n + gc + i : B, in ? 4 : 0);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float part_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// k rows [kc, kc + KC) of the stage's A, [BM][BK], into At, [KC][BM]
+// swizzled: a thread takes 4 rows by 4 k values (four 16-byte loads, the
+// neighbouring threads along k: one row's 128 bytes), and stores them as
+// 4 k rows of 4 rows (four 16-byte stores, the 8 neighbours' chunks on 8
+// bank groups by the swizzle).
+template <int BM, int BK>
+__device__ __forceinline__ void f32_transpose_a(float* __restrict__ At,
+                                                const float* __restrict__ As,
+                                                int kc) {
+  constexpr int CK = KC / 4, BLOCKS = (BM / 4) * CK;
+#pragma unroll
+  for (int it = 0; it < (BLOCKS + kThreads - 1) / kThreads; ++it) {
+    const int e = threadIdx.x + it * kThreads;
+    if (e < BLOCKS) {
+      const int b = e % CK, a = e / CK;
+      float4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = *reinterpret_cast<const float4*>(As + (4 * a + j) * BK +
+                                                kc + 4 * b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(At + (4 * b + i) * BM + 4 * (a ^ b)) =
+            make_float4(part_of(v[0], i), part_of(v[1], i), part_of(v[2], i),
+                        part_of(v[3], i));
+    }
+  }
+}
+
+// The A and B values of k step kk of At's KC rows: TM / VA loads of A and
+// TN / 4 of B, each 16 bytes (8 at BM 32).
+template <int BM, int BN>
+__device__ __forceinline__ void f32_frag(float* a, float4* b,
+                                         const float* At, const float* Bs,
+                                         int kk, int tx, int ty) {
+  constexpr int TM = BM / 16, TN = BN / 16, VA = TM < 4 ? TM : 4;
+  const int f = kk / 4;
+#pragma unroll
+  for (int g = 0; g < TM / VA; ++g) {
+    const float* p = At + kk * BM + 4 * (((VA * ty + 16 * VA * g) / 4) ^ f) +
+                     (VA * ty) % 4;
+    if constexpr (VA == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      a[4 * g] = v.x, a[4 * g + 1] = v.y, a[4 * g + 2] = v.z,
+      a[4 * g + 3] = v.w;
+    } else {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      a[2 * g] = v.x, a[2 * g + 1] = v.y;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < TN / 4; ++j)
+    b[j] = *reinterpret_cast<const float4*>(Bs + kk * BN + 4 * tx + 64 * j);
+}
+
+// acc[r][c] += a[r] * b[c], one fmaf each.
+template <int TM, int TN>
+__device__ __forceinline__ void f32_fma(float (&acc)[TM][TN], const float* a,
+                                        const float4* b) {
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int j = 0; j < TN / 4; ++j) {
+      acc[r][4 * j] = fmaf(a[r], b[j].x, acc[r][4 * j]);
+      acc[r][4 * j + 1] = fmaf(a[r], b[j].y, acc[r][4 * j + 1]);
+      acc[r][4 * j + 2] = fmaf(a[r], b[j].z, acc[r][4 * j + 2]);
+      acc[r][4 * j + 3] = fmaf(a[r], b[j].w, acc[r][4 * j + 3]);
+    }
+}
+
+// ws == nullptr: C gets the sum; else ws[blockIdx.z] gets a float32 partial.
+// Each output is one accumulator that takes one fmaf a product, in
+// increasing k over the split's range, from 0: the first kernel's order, so
+// the same bits for the same split bounds whatever the tile (and zero-filled
+// products add +0 to a sum that is never -0).  kTma: thread 0 fills each
+// stage with two TMA loads (`ta`, `tb`: A's and B's tensor maps, boxes of
+// BK x BM and BN x BK, zero outside the matrix) whose bytes complete the
+// stage's mbarrier; else every thread issues cp.async copies.
+template <int BM, int BN, int BK, bool kTma>
+__global__ void __launch_bounds__(kThreads,
+                                  kTma ? F32Tile<BM, BN, BK>::MIN_BLOCKS : 1)
+    mm_f32(const __grid_constant__ CUtensorMap ta,
+           const __grid_constant__ CUtensorMap tb,
+           const float* __restrict__ A, const float* __restrict__ B,
            float* __restrict__ C, float* __restrict__ ws, long long m,
-           long long n, long long k, int splits) {
-  constexpr int TM = BM / 16, TN = BN / 16, LDA = BM + 1;
+           long long n, long long k, int splits, bool vec_a, bool vec_b) {
+  using T = F32Tile<BM, BN, BK>;
+  constexpr int TM = T::TM, TN = T::TN, VA = T::VA, S = T::STAGES;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);  // [BK][BM + 1], A transposed
-  float* Bs = As + BK * LDA;                   // [BK][BN]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  __shared__ __align__(8) uint64_t full[S];
+  // TMA writes 128-byte aligned boxes: align the ring (SMEM has the slack)
+  float* ring = reinterpret_cast<float*>(
+      smem + ((128 - (smem_u32(smem) & 127)) & 127));
+  float* At = ring + S * T::STAGE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tx = (warp % 2) * 8 + lane % 8, ty = (warp / 2) * 4 + lane / 8;
   const long long row0 = static_cast<long long>(blockIdx.x) * BM;
   const long long col0 = static_cast<long long>(blockIdx.y) * BN;
   long long k_lo, k_hi;
   split_range(k, BK, splits, &k_lo, &k_hi);
+  const int tiles = static_cast<int>((k_hi - k_lo + BK - 1) / BK);
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (long long k0 = k_lo; k0 < k_hi; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += kThreads) {
-      const int r = e / BK, c = e % BK;
-      const long long gr = row0 + r, gc = k0 + c;
-      As[c * LDA + r] = (gr < m && gc < k_hi) ? A[gr * k + gc] : 0.f;
+  // k tile t of the split into stage t % S
+  auto issue = [&](int t) {
+    float* st = ring + (t % S) * T::STAGE;
+    const long long k0 = k_lo + static_cast<long long>(t) * BK;
+    if constexpr (kTma) {
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&full[t % S], T::STAGE * 4);
+        tma_load_2d(st, &ta, static_cast<int>(k0), static_cast<int>(row0),
+                    &full[t % S]);
+        tma_load_2d(st + BM * BK, &tb, static_cast<int>(col0),
+                    static_cast<int>(k0), &full[t % S]);
+      }
+    } else {
+      f32_load_stage<BM, BN, BK>(st, A, B, m, n, k, k_hi, row0, col0, k0,
+                                 vec_a, vec_b);
     }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN;
-      const long long gr = k0 + r, gc = col0 + c;
-      Bs[r * BN + c] = (gr < k_hi && gc < n) ? B[gr * n + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk * LDA + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk * BN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  };
+  if constexpr (kTma) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < S; ++i) mbar_init(&full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
   }
+  // S - 1 tiles in flight before the first product; on the cp.async path
+  // one commit group a tile (empty past the last), so that wait_group
+  // S - 2 means "tile i has landed"
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < tiles) issue(t);
+    if constexpr (!kTma) cp_async_commit();
+  }
+  for (int i = 0; i < tiles; ++i) {
+    if constexpr (kTma)
+      mbar_wait(&full[i % S], (i / S) & 1);
+    else
+      cp_async_wait<S - 2>();
+    __syncthreads();    // tile i landed; every thread is past tile i - 1
+    if (i + S - 1 < tiles) issue(i + S - 1);   // the stage tile i - 1 left
+    if constexpr (!kTma) cp_async_commit();
+    const float* As = ring + (i % S) * T::STAGE;
+    const float* Bs = As + BM * BK;
+#pragma unroll 1
+    for (int kc = 0; kc < BK; kc += KC) {
+      if (kc > 0) __syncthreads();    // every thread is past At's last rows
+      f32_transpose_a<BM, BK>(At, As, kc);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        float a[TM];
+        float4 b[TN / 4];
+        f32_frag<BM, BN>(a, b, At, Bs + kc * BN, kk, tx, ty);
+        f32_fma<TM, TN>(acc, a, b);
+      }
+    }
+  }
+
   float* out = ws == nullptr ? C : ws + blockIdx.z * m * n;
+  const bool vec_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long r = row0 + ty + 16 * i;
+  for (int r = 0; r < TM; ++r) {
+    const long long gr = row0 + VA * ty + 16 * VA * (r / VA) + r % VA;
+    if (gr >= m) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const long long c = col0 + tx + 16 * j;
-      if (r < m && c < n) out[r * n + c] = acc[i][j];
+    for (int j = 0; j < TN / 4; ++j) {
+      const long long gc = col0 + 4 * tx + 64 * j;
+      float* o = out + gr * n + gc;
+      if (vec_c && gc < n) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[r][4 * j], acc[r][4 * j + 1], acc[r][4 * j + 2],
+                        acc[r][4 * j + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (gc + e < n) o[e] = acc[r][4 * j + e];
+      }
     }
   }
 }
@@ -226,53 +533,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---- wgmma route: PTX helpers ---------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-
-// Spins until the phase of parity `parity` of `bar` has completed.  No
-// wait of this kernel lasts a second: one that outlasts about ten (2e10
-// cycles) traps, so a fault in the pipeline ends the launch with an error
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (!done && clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-// TMA: the box at (c0, c1) (innermost first) of `map` into `dst`; its
-// bytes complete a transaction of `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-        "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
-}
-
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile at `p`:
 // leading and stride byte offsets in 16-byte units, layout type 1 (B128).
 __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
@@ -552,19 +812,6 @@ __global__ void splitk_sum(const float* __restrict__ ws, T* __restrict__ c,
 
 // ---- launchers --------------------------------------------------------------
 template <int BM, int BN, int BK>
-int launch_f32(const void* a, const void* b, void* c, float* ws, long long m,
-               long long n, long long k, int splits, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BK * (BM + 1) + BK * BN);
-  cudaError_t err = repro::allow_smem(mm_f32<BM, BN, BK>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, splits);
-  mm_f32<BM, BN, BK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(c), ws, m, n, k, splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int BM, int BN, int BK>
 int launch_bf16(const void* a, const void* b, void* c, float* ws, long long m,
                 long long n, long long k, int splits, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (BM * (BK + 8) + BK * (BN + 8)) +
@@ -605,21 +852,57 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major bf16 (outer x inner) matrix at `base`, read in boxes of
-// (box_outer x box_inner) with the 128-byte swizzle, zero outside.
-bool encode_2d(CUtensorMap* map, const void* base, long long inner,
-               long long outer, unsigned box_inner, unsigned box_outer) {
+// A row-major (outer x inner) matrix at `base`, bf16 (read in boxes of
+// box_outer x box_inner with the 128-byte swizzle) or f32 (unswizzled),
+// zero outside.
+bool encode_2d(CUtensorMap* map, int dtype, const void* base,
+               long long inner, long long outer, unsigned box_inner,
+               unsigned box_outer) {
+  const bool f32 = dtype == REPRO_F32;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) *
+                                 (f32 ? 4 : 2)};
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(base), dims, strides, box, elem,
+  return encode_tiled()(map,
+                        f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        2, const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        f32 ? CU_TENSOR_MAP_SWIZZLE_NONE
+                            : CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// f32: TMA where both operands allow it, else cp.async
+// (gpu_model.py::f32_tma_ok and f32_vector_copies mirror the rule).
+template <int BM, int BN, int BK>
+int launch_f32(const void* a, const void* b, void* c, float* ws, long long m,
+               long long n, long long k, int splits, cudaStream_t stream) {
+  using T = F32Tile<BM, BN, BK>;
+  const bool vec_a = k % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const bool vec_b = n % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const bool tma = vec_a && vec_b;
+  CUtensorMap ta{}, tb{};
+  if (tma) {
+    const long long limit = 0x7fffffffLL;
+    if (encode_tiled() == nullptr)
+      return static_cast<int>(cudaErrorNotSupported);
+    if (m > limit || n > limit || k > limit ||
+        !encode_2d(&ta, REPRO_F32, a, k, m, BK, BM) ||
+        !encode_2d(&tb, REPRO_F32, b, n, k, BN, BK))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = tma ? mm_f32<BM, BN, BK, true> : mm_f32<BM, BN, BK, false>;
+  cudaError_t err = repro::allow_smem(kernel, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, splits);
+  kernel<<<grid, kThreads, T::SMEM, stream>>>(
+      ta, tb, static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(c), ws, m, n, k, splits, vec_a, vec_b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int BN>
@@ -628,8 +911,8 @@ int launch_wgmma(const void* a, const void* b, void* c, float* ws,
                  cudaStream_t stream) {
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap ta, tb;
-  if (!encode_2d(&ta, a, k, m, WG_BK, WG_BM) ||
-      !encode_2d(&tb, b, n, k, 64, WG_BK))
+  if (!encode_2d(&ta, REPRO_BF16, a, k, m, WG_BK, WG_BM) ||
+      !encode_2d(&tb, REPRO_BF16, b, n, k, 64, WG_BK))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = wgmma_smem<BN>();
   cudaError_t err = repro::allow_smem(mm_wgmma<BN>, smem);
@@ -668,6 +951,10 @@ int launch_sum(int dtype, const float* ws, void* c, long long mn, int splits,
 // gpu_model.py::WGMMA_TILES.
 #define WGMMA_TILES(X) X(128, 64, 64) X(128, 128, 64) X(128, 256, 64)
 
+// The tiles of the f32 kernel: every `mma` tile, so that an explicit tile
+// runs in either type, and its own.  Keep equal to gpu_model.py::F32_TILES.
+#define F32_TILES(X) MATMUL_TILES(X) X(128, 256, 32)
+
 enum { ROUTE_MMA = 0, ROUTE_WGMMA = 1 };
 
 // Launches C = A @ B for m, n, k > 0 on `stream` with tile (bm, bn, bk) on
@@ -705,13 +992,19 @@ extern "C" int matmul_launch(int dtype, int route, const void* a,
   }
     WGMMA_TILES(WGMMA_DISPATCH)
 #undef WGMMA_DISPATCH
+  } else if (route == ROUTE_MMA && dtype == REPRO_F32) {
+#define F32_DISPATCH(BM, BN, BK)                                           \
+  if (!found && bm == BM && bn == BN && bk == BK) {                        \
+    found = true;                                                          \
+    err = launch_f32<BM, BN, BK>(a, b, c, part, m, n, k, splits, s);       \
+  }
+    F32_TILES(F32_DISPATCH)
+#undef F32_DISPATCH
   } else if (route == ROUTE_MMA) {
 #define MATMUL_DISPATCH(BM, BN, BK)                                        \
   if (!found && bm == BM && bn == BN && bk == BK) {                        \
     found = true;                                                          \
-    err = dtype == REPRO_F32                                               \
-              ? launch_f32<BM, BN, BK>(a, b, c, part, m, n, k, splits, s)  \
-              : launch_bf16<BM, BN, BK>(a, b, c, part, m, n, k, splits, s); \
+    err = launch_bf16<BM, BN, BK>(a, b, c, part, m, n, k, splits, s);      \
   }
     MATMUL_TILES(MATMUL_DISPATCH)
 #undef MATMUL_DISPATCH

@@ -4,18 +4,24 @@ A's type.
 On CUDA tensors it launches the hand-written kernel ``csrc/matmul.cu``
 (the port of the JAX package's Pallas ``matmul_pallas``; the source says
 how it is laid out and what bounds it) with one of the tiles it is
-compiled for, ``core.gpu_model.MATMUL_TILES``, on the route
+compiled for (``core.gpu_model.compiled_tiles``: ``MATMUL_TILES`` in
+bf16, ``F32_TILES`` in float32), on the route
 ``core.gpu_model.matmul_route`` gives from the shape, type, pointers and
-tile: ``wgmma`` (bf16, TMA and wgmma) or ``mma`` (WMMA for bf16, CUDA-core
-FMAs for f32).  With ``splits > 1`` the kernel cuts K into that many
-ranges and writes float32 partials to a workspace this wrapper allocates;
-a second kernel sums them in split order.  On CPU tensors it runs
-``matmul_ref``, the plain version.  A GEMM with a zero dimension returns
-the empty matrix or, for ``k == 0``, zeros, without a launch.
+tile: ``wgmma`` (bf16, TMA and wgmma) or ``mma`` (WMMA for bf16; for f32
+CUDA-core FMAs fed by a ring of shared-memory stages that TMA or
+``cp.async`` fills).  With ``splits > 1`` the
+kernel cuts K into that many ranges and writes float32 partials to a
+workspace this wrapper allocates; a second kernel sums them in split
+order.  On CPU tensors it runs ``matmul_ref``, the plain version.  A GEMM
+with a zero dimension returns the empty matrix or, for ``k == 0``, zeros,
+without a launch.
 
 ``matmul.launches`` counts the calls that launch; ``matmul.routes``
 counts them by route, and those with a split-K reduction under
-``"splitk"``.
+``"splitk"``; ``matmul.f32_loads`` counts the float32 launches by how the
+kernel fills its ring (``core.gpu_model.f32_tma_ok``): ``"tma"``, or
+``"cp.async"`` for an operand TMA cannot read (a row not a multiple of 4
+floats, a base not 16-byte aligned).
 
 ``MatmulFn`` is the GEMM as a ``torch.autograd.Function``: its backward
 is two more GEMMs through the same entry point, ``dA = dC @ B^T`` and
@@ -29,7 +35,7 @@ import ctypes
 
 import torch
 
-from ..core.gpu_model import MATMUL_TILES, matmul_route
+from ..core.gpu_model import compiled_tiles, f32_tma_ok, matmul_route
 from ._dispatch import DTYPE_CODE, call, device_kind, library, same_dtype
 from .ref import matmul_ref
 
@@ -43,11 +49,14 @@ _ARGTYPES = (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 4 + (
 ROUTE_CODE = {"mma": 0, "wgmma": 1}
 
 
-def check_tile(bm: int, bn: int, bk: int) -> None:
-    """Raise ``ValueError`` unless ``(bm, bn, bk)`` is a compiled tile."""
-    if (bm, bn, bk) not in MATMUL_TILES:
+def check_tile(bm: int, bn: int, bk: int, bytes_in: int = 2) -> None:
+    """Raise ``ValueError`` unless ``(bm, bn, bk)`` is a tile compiled for
+    elements of ``bytes_in`` bytes."""
+    tiles = compiled_tiles(bytes_in)
+    if (bm, bn, bk) not in tiles:
         raise ValueError(f"matmul: tile ({bm}, {bn}, {bk}) is not compiled; "
-                         f"matmul.cu has {sorted(MATMUL_TILES)}")
+                         f"matmul.cu has {sorted(tiles)} for "
+                         f"{bytes_in}-byte elements")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
@@ -62,7 +71,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not multiply")
-    check_tile(bm, bn, bk)
+    check_tile(bm, bn, bk, a.element_size())
     (m, k), n = a.shape, b.shape[1]
     if not isinstance(splits, int) or isinstance(splits, bool) or \
             splits < 1 or splits > max(1, -(-k // bk)):
@@ -86,11 +95,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
     matmul.routes[route] += 1
     if splits > 1:
         matmul.routes["splitk"] += 1
+    if dtype == torch.float32:
+        tma = f32_tma_ok(n, k, a.data_ptr(), b.data_ptr())
+        matmul.f32_loads["tma" if tma else "cp.async"] += 1
     return out
 
 
 matmul.launches = 0
 matmul.routes = {"wgmma": 0, "mma": 0, "splitk": 0}
+matmul.f32_loads = {"tma": 0, "cp.async": 0}
 
 
 class MatmulFn(torch.autograd.Function):

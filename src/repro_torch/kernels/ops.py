@@ -10,7 +10,8 @@ other than float32 or bfloat16, or a non-contiguous input raises.
 The block arguments were the Pallas kernels' VMEM tiles.  On the card:
 
 * ``matmul``: ``bm``/``bn``/``bk`` name one of the tiles ``matmul.cu`` is
-  compiled for (``core.gpu_model.MATMUL_TILES``), else ``ValueError``; 0
+  compiled for (``core.gpu_model.compiled_tiles``: ``MATMUL_TILES``, and
+  in float32 ``F32_TILES``), else ``ValueError``; 0
   in any of them asks the port's tile model
   (``core.gpu_model.select_matmul_block``), as the JAX wrapper asks its
   TPU model.  The model also picks the K split, for an explicit tile
@@ -46,7 +47,7 @@ from types import SimpleNamespace
 
 import torch
 
-from ..core.gpu_model import MATMUL_TILES, select_matmul_block
+from ..core.gpu_model import MATMUL_TILES, compiled_tiles, select_matmul_block
 from . import bn as _bn
 from . import flash_attention as _fa
 from . import fused_addnorm as _an
@@ -71,7 +72,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 0, bn: int = 0,
             # serves (the JAX wrapper passes 1, 1, 1 for the same reason)
             if not explicit:
                 bm, bn, bk = MATMUL_TILES[0]
-        elif not explicit or (bm, bn, bk) in MATMUL_TILES:
+        elif not explicit or (bm, bn, bk) in compiled_tiles(
+                a.element_size()):
             size = a.element_size()      # C takes A's type
             blk = select_matmul_block(
                 m, n, k, bytes_in=size, bytes_out=size,

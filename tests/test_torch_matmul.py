@@ -309,7 +309,7 @@ def test_select_splits_long_k_and_not_the_projections(bytes_in):
                                              bytes_in).splits == 1
     for m, k, n in DW_SHAPES + QWEN3_GEMMS:
         blk = gpu_model.select_matmul_block(m, n, k, bytes_in, bytes_in)
-        assert (blk.bm, blk.bn, blk.bk) in MATMUL_TILES
+        assert (blk.bm, blk.bn, blk.bk) in gpu_model.compiled_tiles(bytes_in)
         assert gpu_model.kernel_smem(blk.route, blk.bm, blk.bn, blk.bk,
                                      bytes_in) <= gpu_model.SMEM_BYTES
         assert 1 <= blk.splits <= -(-k // blk.bk)
@@ -338,3 +338,187 @@ def test_split_runs_the_plain_version_on_the_cpu():
     np.testing.assert_array_equal(to_numpy(got), to_numpy(tmm.matmul_ref(
         from_numpy(a), from_numpy(b))))
     assert tmm.matmul.routes == counts
+
+
+# ---------------------------------------------------------------------------
+# the float32 kernel: its tiles, ring, residency and route rule
+# ---------------------------------------------------------------------------
+
+def _source():
+    return (CSRC / "matmul.cu").read_text()
+
+
+def _define(name):
+    src = _source()
+    body = src[src.index(f"#define {name}(X)"):]
+    return body[:body.index("\n\n")]
+
+
+def _constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         _source()).group(1))
+
+
+def test_f32_tiles_match_the_source():
+    """``F32_TILES`` lists exactly the f32 kernel's instantiations:
+    every `mma` tile (so an explicit tile runs in either type) and its
+    own ones, each of bm a multiple of 32, bn of 64, bk of 32 (the
+    kernel's static_assert)."""
+    body = _define("F32_TILES")
+    assert "MATMUL_TILES(X)" in body
+    own = [tuple(int(v) for v in t) for t in
+           re.findall(r"X\((\d+), (\d+), (\d+)\)", body)]
+    assert list(gpu_model.F32_TILES) == list(MATMUL_TILES) + own
+    assert own and not set(own) & set(MATMUL_TILES)
+    for bm, bn, bk in gpu_model.F32_TILES:
+        assert bm % 32 == 0 and bn % 64 == 0 and bk % 32 == 0
+    assert gpu_model.compiled_tiles(4) == gpu_model.F32_TILES
+    assert gpu_model.compiled_tiles(2) == MATMUL_TILES
+
+
+def test_f32_ring_matches_the_source():
+    """The model's stage depth, shared memory and register bound of the
+    f32 kernel follow ``F32Tile``: its constants read from the source,
+    its formulas written out here; every tile fits a block's shared
+    memory, and a two-block tile's ring fits half of it."""
+    src = _source()
+    for text in ("static constexpr int STAGE = BM * BK + BK * BN;",
+                 "static constexpr int AT = KC * BM;",
+                 "MIN_BLOCKS = TM * TN <= 64 ? 2 : 1;",
+                 "MIN_BLOCKS == 2 ? F32_SMEM_BUDGET : 2 * F32_SMEM_BUDGET;",
+                 "FIT = (BUDGET - 4 * AT - 128) / (4 * STAGE);",
+                 "SMEM = sizeof(float) * (STAGES * STAGE + AT) + 128;",
+                 "kTma ? F32Tile<BM, BN, BK>::MIN_BLOCKS : 1"):
+        assert text in src, text
+    max_stages, budget = _constant("F32_MAX_STAGES"), \
+        _constant("F32_SMEM_BUDGET")
+    kc = _constant("KC")
+    assert (max_stages, budget, kc) == (gpu_model.F32_MAX_STAGES,
+                                        gpu_model.F32_SMEM_BUDGET,
+                                        gpu_model.F32_KC)
+    assert gpu_model.F32_TWO_BLOCK_OUTPUTS == 64
+    for bm, bn, bk in gpu_model.F32_TILES:
+        tm, tn = bm // 16, bn // 16
+        two = tm * tn <= 64
+        stage, at = bm * bk + bk * bn, kc * bm
+        fit = ((budget if two else 2 * budget) - 4 * at - 128) // (4 * stage)
+        stages = max(2, min(max_stages, fit))
+        smem = 4 * (stages * stage + at) + 128
+        assert gpu_model.f32_two_blocks(bm, bn) == two
+        assert gpu_model.f32_stages(bm, bn, bk) == stages
+        assert gpu_model.kernel_smem("mma", bm, bn, bk, 4) == smem
+        assert smem <= gpu_model.SMEM_BYTES, (bm, bn, bk)
+        if two and fit >= 2:
+            assert smem <= budget
+        for tma in (True, False):
+            regs = gpu_model.f32_regs(bm, bn, tma)
+            assert regs <= (128 if two and tma else 255)
+            assert gpu_model.resident_blocks("mma", bm, bn, bk, 4, tma) == \
+                min(gpu_model.SMEM_PER_SM // smem,
+                    gpu_model.THREADS_PER_SM // 256,
+                    gpu_model.REGS_PER_SM // (256 * regs))
+
+
+@pytest.mark.parametrize("tile,share", [
+    ((128, 128, 32), 64 / 68), ((128, 64, 64), 32 / 48),
+    ((128, 256, 32), 128 / 134), ((32, 64, 32), 8 / 24),
+    ((64, 64, 64), 16 / 32)])
+def test_f32_fma_share(tile, share):
+    """A k step's FMAs against the longer of its issue (FMAs and shared
+    loads) and its shared-memory cycles, four warps to an SM."""
+    assert gpu_model.f32_fma_share(tile[0], tile[1]) == pytest.approx(share)
+
+
+def _smollm_gemms():
+    """(m, k, n) of SmolLM-360M's training step at 8 x 1024 tokens: fwd,
+    dX and dW of each forward GEMM."""
+    from repro_torch.configs import get_config
+    cfg = get_config("smollm-360m")
+    rows, d, f = 8 * 1024, cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    fwd = [(rows, d, q), (rows, d, kv), (rows, q, d), (rows, d, f),
+           (rows, f, d), (8 * 1023, d, cfg.vocab_size)]
+    return sorted({g for m, k, n in fwd
+                   for g in ((m, k, n), (m, n, k), (k, m, n))})
+
+
+def test_f32_route_rule():
+    """TMA fills the f32 ring when both operands' rows are multiples of 4
+    floats and both bases 16-byte aligned, else cp.async (16 bytes for
+    the operand that allows it, a float for the other); float32 always
+    takes the `mma` route.  Every GEMM of SmolLM's step and of
+    recurrentgemma's RG-LRU goes to TMA; of ResNet-50's f32 step only
+    the stem's forward (K = 147) goes to cp.async."""
+    vec, tma = gpu_model.f32_vector_copies, gpu_model.f32_tma_ok
+    assert vec(64, 64) == (True, True) and tma(64, 64, 4096, 16)
+    assert vec(64, 147) == (False, True) and not tma(64, 147)
+    assert vec(17, 64) == (True, False) and not tma(17, 64)
+    assert vec(17, 65) == (False, False)
+    assert vec(128, 7) == (False, True)               # (1, 7) @ (7, 128)
+    assert vec(64, 64, a_ptr=4) == (False, True)      # offset views
+    assert vec(64, 64, b_ptr=8) == (True, False)
+    assert not tma(64, 64, a_ptr=4) and not tma(64, 64, b_ptr=8)
+    for tile in gpu_model.F32_TILES:
+        assert gpu_model.matmul_route(64, 64, 4, tile) == "mma"
+    for m, k, n in _smollm_gemms() + [(8192, 4096, 4096)]:
+        assert tma(n, k), (m, k, n)
+    resnet = [tma(n, k) for _, (m, k, n) in _resnet50_gemms()]
+    assert len(resnet) == 161 and resnet.count(False) == 1
+
+
+def test_select_f32_picks_a_compiled_tile_that_fits():
+    """At SmolLM's and recurrentgemma's shapes the model picks a compiled
+    f32 tile whose kernel fits shared memory and is resident, the least
+    modelled time over every f32 tile and split, and its estimate is the
+    Eq. 18 step written out with the ring's depth: (stages - 1) x the
+    resident blocks (a load overlapped by the stages in flight)."""
+    for m, k, n in _smollm_gemms() + [(8192, 4096, 4096)]:
+        blk = gpu_model.select_matmul_block(m, n, k, 4, 4)
+        tile = (blk.bm, blk.bn, blk.bk)
+        assert blk.route == "mma" and tile in gpu_model.F32_TILES
+        assert gpu_model.kernel_smem("mma", *tile, 4) <= \
+            gpu_model.SMEM_BYTES
+        assert gpu_model.resident_blocks("mma", *tile, 4) >= 1
+        costs = [gpu_model.matmul_cost(m, n, k, *t, 4, 4, splits=s)
+                 for t in gpu_model.F32_TILES
+                 for s in range(1, min(-(-k // t[2]),
+                                       gpu_model.MAX_SPLITS) + 1)]
+        assert blk.est_s == min(c[0] for c in costs if c is not None)
+    m, n, k, (bm, bn, bk) = 8192, 960, 2560, (128, 128, 32)
+    stages = gpu_model.f32_stages(bm, bn, bk)
+    res = gpu_model.resident_blocks("mma", bm, bn, bk, 4)
+    assert (stages, res) == (3, 2)
+    per_sm = -(-(-(-m // bm) * -(-n // bn)) // gpu_model.SM_COUNT)
+    sm_bw = gpu_model.HBM_BW / gpu_model.SM_COUNT
+    compute = 2.0 * bm * bn * bk / (gpu_model.PEAK_FLOPS_F32
+                                    / gpu_model.SM_COUNT) \
+        / gpu_model.f32_fma_share(bm, bn)
+    load = (bm * bk + bk * bn) * 4 / sm_bw
+    step = max(compute, load,
+               (compute + load) / ((stages - 1) * min(res, per_sm)))
+    want = per_sm * (-(-k // bk) * step + bm * bn * 4 / sm_bw)
+    est, _ = gpu_model.matmul_cost(m, n, k, bm, bn, bk, 4, 4, splits=1)
+    assert est == pytest.approx(want, rel=1e-12)
+
+
+def test_f32_only_tile():
+    """The f32 kernel's own tile runs in float32 (on the CPU, the plain
+    version) and is refused in bf16, whose kernels lack it."""
+    own = [t for t in gpu_model.F32_TILES if t not in MATMUL_TILES]
+    a, b = _operands(3, 40, 24, 300)
+    for tile in own:
+        got = tops.matmul(from_numpy(a), from_numpy(b), *tile)
+        np.testing.assert_array_equal(to_numpy(got), to_numpy(
+            tmm.matmul_ref(from_numpy(a), from_numpy(b))))
+        with pytest.raises(ValueError, match="not compiled"):
+            tops.matmul(torch.zeros((8, 8), dtype=torch.bfloat16),
+                        torch.zeros((8, 8), dtype=torch.bfloat16), *tile)
+
+
+def test_f32_loads_count_only_launches():
+    """On the CPU nothing launches, so the f32 ring counters stay."""
+    a, b = _operands(4, 40, 24, 300)
+    before = dict(tmm.matmul.f32_loads)
+    tmm.matmul(from_numpy(a), from_numpy(b), 128, 128, 32)
+    assert tmm.matmul.f32_loads == before == {
+        "tma": before["tma"], "cp.async": before["cp.async"]}

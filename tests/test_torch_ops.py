@@ -294,7 +294,7 @@ def test_select_matmul_block_is_compiled_and_fits(m, n, k, bytes_in):
     count."""
     blk = gpu_model.select_matmul_block(m, n, k, bytes_in=bytes_in,
                                         bytes_out=bytes_in)
-    assert (blk.bm, blk.bn, blk.bk) in gpu_model.MATMUL_TILES
+    assert (blk.bm, blk.bn, blk.bk) in gpu_model.compiled_tiles(bytes_in)
     assert blk.route == gpu_model.matmul_route(n, k, bytes_in,
                                                (blk.bm, blk.bn, blk.bk))
     assert gpu_model.smem_bytes(blk.bm, blk.bn, blk.bk, bytes_in) \
@@ -304,7 +304,7 @@ def test_select_matmul_block_is_compiled_and_fits(m, n, k, bytes_in):
     assert gpu_model.resident_blocks(blk.route, blk.bm, blk.bn, blk.bk,
                                      bytes_in) >= 1
     tiles = gpu_model.WGMMA_TILES if blk.route == "wgmma" \
-        else gpu_model.MATMUL_TILES
+        else gpu_model.compiled_tiles(bytes_in)
     costs = [gpu_model.matmul_cost(m, n, k, *t, bytes_in=bytes_in,
                                    bytes_out=bytes_in, splits=s,
                                    route=blk.route)
@@ -314,10 +314,18 @@ def test_select_matmul_block_is_compiled_and_fits(m, n, k, bytes_in):
 
 
 def test_select_matmul_block_respects_a_smaller_budget():
-    smem = 24 * 1024
+    """A budget below the unconstrained pick's shared memory gives a tile
+    whose whole kernel fits it (the f32 ring holds at least two stages,
+    25,600 bytes at its smallest tile, so the budget is 56 KB)."""
+    smem = 56 * 1024
+    free = gpu_model.select_matmul_block(4096, 4096, 1024, bytes_in=4)
+    assert gpu_model.kernel_smem(free.route, free.bm, free.bn, free.bk,
+                                 4) > smem
     blk = gpu_model.select_matmul_block(4096, 4096, 1024, bytes_in=4,
                                         smem=smem)
     assert gpu_model.smem_bytes(blk.bm, blk.bn, blk.bk, 4) <= smem
+    assert gpu_model.kernel_smem(blk.route, blk.bm, blk.bn, blk.bk,
+                                 4) <= smem
     with pytest.raises(ValueError, match="fits"):
         gpu_model.select_matmul_block(64, 64, 64, smem=1024)
     with pytest.raises(ValueError, match="degenerate"):
