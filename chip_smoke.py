@@ -194,22 +194,39 @@ what ran):
     tokens/s, device time by part and idle share, peak memory) and the
     plain prefill; and runs ``serve_loop(arch, use_reduced=False)`` on
     each (float32, every GEMM on `mma`, launches held);
-19. trains granite-moe-1b-a400m (24 layers, batch 4 x 1024) and
-    mamba2-130m (24 layers, 8 x 1024) through ``train_loop`` and
-    recurrentgemma-9b at one period of its pattern (3 layers, 4 x 2048)
-    through ``make_train_step``, float32, 4 AdamW steps each, on
-    ``Model(cfg, impl=ops.differentiable())``: every counter set to 0
-    before each run or step and held after it (``train_launches``:
-    7,275 / 49 / 24, 147 / 25 / 0 and 72 / 7 / 1 a step, every GEMM on
-    `mma`), finite losses; mamba2 stopped after 2 steps and resumed from
-    its checkpoint against the uninterrupted run, the checkpoint read
-    back bit for bit; one step of each against the plain route from
-    ``conditioned`` weights (``LLM_STEP_REL``, granite on the kernel
-    route's MoE choices through ``Model.loss(routing=...)``, printing
-    how many choices differ unpinned) with a bf16-GEMM control failing
-    each limit; each kernel on the step's inputs against its plain
-    version; and both routes' warm steps timed (events, the slower of 2
-    after one, tokens/s, device time by phase, idle share, peak memory);
+19. trains granite-moe-1b-a400m (24 layers, batch 8 x 1024, under
+    ``remat_policy="full"``: each layer checkpointed, its recompute in
+    the backward) through ``make_train_step``, 2 AdamW steps, its peak
+    memory held under the card's 80 GB and printed beside the meta
+    reckoning (``dry_reckoning``, in a process of its own on the CPU);
+    mamba2-130m (24 layers, 8 x 1024) through ``train_loop``, 4 steps;
+    and recurrentgemma-9b at one period of its pattern (3 layers, 4 x
+    2048) through ``make_train_step``, 4 steps; float32, on ``Model(cfg,
+    impl=ops.differentiable())``: every counter set to 0 before each run
+    or step and held after it (``train_launches``: 9,699 / 97 / 48,
+    147 / 25 / 0 and 72 / 7 / 1 a step, every GEMM on `mma`), finite
+    losses; mamba2 stopped after 2 steps and resumed from its
+    checkpoint against the uninterrupted run, the checkpoint read back
+    bit for bit; one step of each against the plain route from
+    ``conditioned`` weights (``LLM_STEP_REL``, granite under ``full`` on
+    both routes, on the kernel route's MoE choices through
+    ``Model.loss(routing=...)``, printing how many choices differ
+    unpinned) with a bf16-GEMM control failing each limit; each kernel
+    on the step's inputs against its plain version; granite without
+    remat at 4 x 1024 (``REMAT_OFF_BATCH``): 2 steps through
+    ``train_loop`` (7,275 / 49 / 24 launches a step held) and one
+    kernel-route step with remat off and one under ``full`` from the
+    same weights, every gradient bit-equal (``hold_remat_off``);
+    granite's step under each of ``full``, ``save_dots`` and
+    ``save_mixer`` at 8 x 1024 from the same weights and batch
+    (``hold_policies``: two steps a policy on one model and state,
+    launches held on each, 9,699 / 9,579 / 9,675 GEMMs, the first
+    step's gradients bit-equal to ``full``'s; the warm second step's
+    ms, its recomputes' ms by CUDA events, its peak memory); and both
+    routes' warm steps timed (events, the median of 2 after one, one
+    after one for granite; tokens/s, peak memory; the kernel route's
+    device time by phase and the recompute's share, idle share; the
+    plain routes by events alone);
 20. serves gemma3-27b (batch 2 x 2048, 4 steps: the 5:1 local:global
     schedule with window 1024), pixtral-12b (4 x 2048 after 64 stub
     patches, 4 steps), stablelm-1.6b (4 x 2048, 8 steps: LayerNorm, no
@@ -255,8 +272,10 @@ what ran):
     depth (bf16, seed 2026, ``conditioned`` weights) on three cells of
     ``launch/shapes.py`` cut in batch only (``DRY_CELLS``: ``train_4k``
     at 2 x 4096, ``prefill_32k`` at 1 x 32,768, ``decode_32k`` at 8 over
-    a 32,768-row cache), each reckoned on the meta device first
-    (``dry_reckoning``); for each, the walker's roofline on one card
+    a 32,768-row cache; ``train_4k`` under the configs' default
+    ``remat_policy="full"``, as the reference's cell), each reckoned on
+    the meta device first (``dry_reckoning``); for each, the walker's
+    roofline on one card
     (plain route, and for train and prefill after the hill-climb's flash
     substitution with block skipping), the walker's GEMM FLOPs equal to
     ``FlopCounterMode``'s over the same traces, the kernel route on the
@@ -2557,9 +2576,12 @@ def profile_step(step, groups=STEP_KERNELS) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
+    from repro_torch.models.remat import RECOMPUTE_SPAN
     by_name, parts, records = {}, {}, {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a remat step's recompute spans have device-side records too
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.name == RECOMPUTE_SPAN:
             continue
         ms = evt.device_time_total / 1e3
         t, n = by_name.get(evt.name, (0.0, 0))
@@ -2848,9 +2870,64 @@ def train_launches(cfg) -> dict:
     inputs ``train_loop`` gives: each of a prefill's GEMMs forward, and
     its dX and dW in the backward (every GEMM input needs a gradient: the
     first layer's through the embedding); a prefill's add+norms and flash
-    attentions forward only, their backwards being plain PyTorch."""
+    attentions forward only, their backwards being plain PyTorch; and
+    under ``cfg.remat`` the backward's recompute (``recompute_launches``).
+    """
     out = serve_launches(cfg, True)
-    return {**out, "matmul": 3 * out["matmul"]}
+    out = {**out, "matmul": 3 * out["matmul"]}
+    for name, n in recompute_launches(cfg).items():
+        out[name] += n
+    return out
+
+
+def recompute_launches(cfg) -> dict:
+    """The launches a rematerialised step's backward adds
+    (``cfg.remat``, ``models/remat.py``): each group of ``cfg.pattern``
+    (the remainder layers are not wrapped) and each encoder layer (under
+    ``full``) runs again, its add+norms and flash attentions all, its
+    GEMMs less those its policy keeps -- ``save_dots`` every GEMM but the
+    experts', ``save_mixer`` each mixer's output projection -- and, under
+    every policy, less the group's last GEMM where that GEMM's output is
+    the group's output (a dense FFN's down projection; without an FFN
+    the last projection).  A MoE group's last product is its combine
+    einsum, before whose saved inputs the recompute stops.  The two
+    rules are made in one place each, ``models/remat.py``'s
+    ``Tape.keep`` of the group's output and ``models/moe.py``'s aux
+    loss ahead of the dispatch (the module docstring of
+    ``models/remat.py`` states both)."""
+    out = dict.fromkeys(("matmul", "fused_add_rmsnorm", "flash_attention"),
+                        0)
+    if not cfg.remat:
+        return out
+    mixer = {"attn": 4, "mamba2": 2, "rglru": 5}
+    rms = int(cfg.norm_type == "rmsnorm")
+    cross = 4 * (cfg.encoder_layers > 0)
+    dense = bool(cfg.d_ff)
+
+    def group(entries, policy):
+        for j, entry in enumerate(entries):
+            kind, moe = entry.split("+")[0], entry.endswith("+moe")
+            experts = 3 * cfg.n_experts if moe else 0
+            ffn = (1 + experts + 3 * cfg.shared_expert if moe else 3) \
+                if dense else 0
+            last = j == len(entries) - 1 and not moe
+            if policy == "save_dots":
+                gemms = experts
+            else:
+                gemms = mixer[kind] + cross + ffn - last
+                if policy == "save_mixer" and (dense or cross or not last):
+                    gemms -= 1
+            out["matmul"] += gemms
+            out["fused_add_rmsnorm"] += rms * (1 + bool(cross) + dense)
+            out["flash_attention"] += int(kind == "attn")
+    for _ in range(cfg.n_layers // len(cfg.pattern)):
+        group(cfg.pattern, cfg.remat_policy)
+    if cross:
+        for _ in range(cfg.encoder_layers):
+            out["matmul"] += 4 + 3 * dense - 1
+            out["fused_add_rmsnorm"] += rms * (1 + dense)
+            out["flash_attention"] += 1
+    return out
 
 
 def counted(what: str, fn, want: dict, route):
@@ -2937,18 +3014,16 @@ def teacher_forced(model, params, prompts, tokens, max_len, routing=None,
 
 
 def time_route(prefill, step, params, prompts, steps: int,
-               extras=None) -> dict:
-    """Warm times of one route: prefill ms (events, a fresh cache each),
-    decode ms a step and tokens/s over ``steps`` greedy steps (events
-    around the host loop), and the device time of a prefill and of a
-    decode step from the profiler's trace, hence their busy and idle
-    shares."""
+               extras=None, traced: bool = True) -> dict:
+    """Warm times of one route: prefill ms (events, the mean of 2 after
+    one, a fresh cache each), decode ms a step and tokens/s over
+    ``steps`` greedy steps (events around the host loop), and
+    (``traced``) the device time of a prefill and of a decode step from
+    the profiler's trace, hence their busy and idle shares."""
     batch = {"tokens": prompts, **(extras or {})}
-    prefill_ms = cuda_ms(lambda: prefill(params, batch), iters=3,
+    # 2 timed prefills and 1 traced, for the command's time limit
+    prefill_ms = cuda_ms(lambda: prefill(params, batch), iters=2,
                          warmup=1)
-    pprof = profile_device_ms(lambda: prefill(params, batch), iters=2)
-    pbusy = None if pprof["device_ms"] is None else \
-        pprof["device_ms"] / prefill_ms
     last, cache = prefill(params, batch)
     tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
@@ -2961,18 +3036,30 @@ def time_route(prefill, step, params, prompts, steps: int,
     stop.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(stop) / steps
+    out = {"prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
+           "tokens_per_s": prompts.shape[0] * 1e3 / step_ms}
+    if not traced:
+        return out
+    pprof = profile_device_ms(lambda: prefill(params, batch), iters=1)
     # the trace of 4 more steps (and 1 before it) on a fresh prefill's cache
     _, cache = prefill(params, batch)
     prof = profile_device_ms(lambda: step(params, cache, tok), iters=4)
-    busy = None if prof["device_ms"] is None else prof["device_ms"] / step_ms
-    return {"prefill_ms": prefill_ms, "prefill_device_ms": pprof["device_ms"],
-            "prefill_idle": None if pbusy is None else 1.0 - pbusy,
-            "decode_ms_per_step": step_ms,
-            "tokens_per_s": prompts.shape[0] * 1e3 / step_ms,
-            "decode_device_ms": prof["device_ms"],
-            "decode_trace_records": prof["records"],
-            "decode_busy": busy,
-            "decode_idle": None if busy is None else 1.0 - busy}
+    traced_shares(out, pprof["device_ms"], prof["device_ms"])
+    out["decode_trace_records"] = prof["records"]
+    return out
+
+
+def traced_shares(times: dict, prefill_device_ms, decode_device_ms) -> None:
+    """A prefill's and a decode step's device ms from a trace into
+    ``time_route``'s ``times``, with their busy and idle shares."""
+    pbusy = None if prefill_device_ms is None else \
+        prefill_device_ms / times["prefill_ms"]
+    busy = None if decode_device_ms is None else \
+        decode_device_ms / times["decode_ms_per_step"]
+    times.update(prefill_device_ms=prefill_device_ms,
+                 prefill_idle=None if pbusy is None else 1.0 - pbusy,
+                 decode_device_ms=decode_device_ms, decode_busy=busy,
+                 decode_idle=None if busy is None else 1.0 - busy)
 
 
 def serving_slice(device, card, report) -> dict:
@@ -3207,8 +3294,9 @@ def llm_adamw():
 
 def held_step(cfg, impl, params, batch, count=False, routing=None):
     """One ``make_train_step`` step of ``Model(cfg, impl=impl)`` from
-    ``params`` (``llm_adamw``): the loss, gradient norm, gradients and
-    updated parameters; with ``count`` the launches and GEMM routes of
+    ``params`` (``llm_adamw``): the loss, gradient norm, step ms by
+    events, gradients and updated parameters; with ``count`` the
+    launches and GEMM routes of
     the step, every counter set to 0 just before it.  ``routing``
     records or replays the MoE choices (``Model.loss``)."""
     from functools import partial
@@ -3223,10 +3311,15 @@ def held_step(cfg, impl, params, batch, count=False, routing=None):
     step = train.make_train_step(model, opt, None)
     if count:
         zero_counters()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
     new, metrics = step(state, batch)
+    stop.record()
     torch.cuda.synchronize()
     out = {"loss": float(metrics["loss"]),
-           "grad_norm": float(metrics["grad_norm"])}
+           "grad_norm": float(metrics["grad_norm"]),
+           "ms": start.elapsed_time(stop)}
     if count:
         out["launches"] = {n: c.launches for n, c in _counters().items()}
         out["routes"] = dict(_routes())
@@ -3298,11 +3391,7 @@ def hold_step(cfg, params, batch, per_step: dict, label: str) -> tuple:
     kern = on_host(held_step(cfg, ops.differentiable(rec), params, batch,
                              count=True, routing=chosen))
     rec.model = None
-    for name, c in kern["launches"].items():
-        check(c == per_step.get(name, 0), f"{label}: {name} launched {c} "
-              f"times, expected {per_step.get(name, 0)}")
-    check(kern["routes"]["mma"] == per_step["matmul"], f"{label}: matmul "
-          f"routes {kern['routes']}, expected every GEMM on mma")
+    held_launches(label, kern, per_step)
     out = {"launches": kern["launches"]}
     pinned = chosen.pinned if moe else (lambda: None)
     plain = held_step(cfg, F.PLAIN, params, batch, routing=pinned())
@@ -3350,14 +3439,23 @@ def profile_phases(fn) -> dict:
     """Device ms of one call of ``fn`` from the profiler's trace, by
     phase (the records between ``spin_kernel``s, in start order: forward,
     backward, update) and by kernel group within each (``LLM_KERNELS``
-    and the rest); the sleeps themselves excluded."""
+    and the rest), the sleeps themselves excluded; and the device ms of
+    the kernels inside the layer groups' recomputes (``models/remat.py``'s
+    span; 0 without remat)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    from repro_torch.models.remat import RECOMPUTE_SPAN
+    cuda = torch.autograd.DeviceType.CUDA
+    # the layer groups' recomputes (a remat step): the kernels launched
+    # inside their spans; the spans' own device-side records are not
+    # kernels
+    recompute = sum(e.device_time_total for e in prof.events()
+                    if e.name == RECOMPUTE_SPAN and e.device_type != cuda)
     evts = sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                   if e.device_type == cuda and e.name != RECOMPUTE_SPAN),
                   key=lambda e: e.time_range.start)
     phases, records = [{}], [0]
     for evt in evts:
@@ -3373,10 +3471,12 @@ def profile_phases(fn) -> dict:
     names = ("forward", "backward", "update")
     if len(phases) != 3:       # the sleeps were not in the trace
         return {"device_ms": sum(sum(p.values()) for p in phases),
-                "phases": None, "records": records}
+                "phases": None, "records": records,
+                "recompute_device_ms": recompute / 1e3}
     return {"device_ms": sum(sum(p.values()) for p in phases),
             "phases": dict(zip(names, phases)),
-            "records": dict(zip(names, records))}
+            "records": dict(zip(names, records)),
+            "recompute_device_ms": recompute / 1e3}
 
 
 def llm_gemm_shapes(cfg, batch: int, seq: int) -> list:
@@ -3444,11 +3544,13 @@ def time_plain_backwards(cfg, device) -> dict:
             "add+norm": (2 * n + 1) * queued_ms(addnorm, iters=5, warmup=1)}
 
 
-def time_llm_route(cfg, impl, params, batch, timed: int = 3) -> dict:
+def time_llm_route(cfg, impl, params, batch, timed: int = 3,
+                   profiled: bool = True) -> dict:
     """Warm steps of one route from ``params``: each step's ms by CUDA
     events (the median of ``timed`` after one; of 2, the slower),
-    tokens/s, the peak memory of those steps, and one phased step's
-    device time from the profiler's trace, hence the idle share."""
+    tokens/s, the peak memory of those steps, and (``profiled``) one
+    phased step's device time from the profiler's trace, hence the idle
+    share."""
     from repro_torch.launch import train
     from repro_torch.models.transformer import Model
     model = Model(cfg, impl=impl)
@@ -3471,6 +3573,8 @@ def time_llm_route(cfg, impl, params, batch, timed: int = 3) -> dict:
     out = {"step_ms": step_ms, "steps_ms": ms,
            "tokens_per_s": batch["tokens"].numel() * 1e3 / step_ms,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not profiled:
+        return out
     trace = profile_phases(lambda: phased_step(model, opt, state, batch))
     out.update(trace)
     out["idle_share"] = 1.0 - trace["device_ms"] / out["step_ms"] \
@@ -3625,10 +3729,14 @@ def print_route_times(times: dict, card: str) -> None:
               f"{t['steps_ms']}), {t['tokens_per_s']} tokens/s"
               + (f", model FLOPs {t['flop_share_of_f32_peak']} of the "
                  f"float32 peak" if "flop_share_of_f32_peak" in t else "")
-              + f"; one step's device time {t['device_ms']} ms, idle "
-              f"{t['idle_share']}; peak memory {t['peak_memory_gb']} GB  "
-              f"[{card}]")
-        print(f"    by phase (ms): {t['phases']}; records {t['records']}")
+              + (f"; one step's device time {t['device_ms']} ms (the "
+                 f"layers' recompute {t['recompute_device_ms']}), idle "
+                 f"{t['idle_share']}" if "device_ms" in t else
+                 "; not profiled")
+              + f"; peak memory {t['peak_memory_gb']} GB  [{card}]")
+        if "phases" in t:
+            print(f"    by phase (ms): {t['phases']}; records "
+                  f"{t['records']}")
 
 
 def step_batch(cfg, batch: int, seq: int, device) -> dict:
@@ -3709,25 +3817,215 @@ def training_llm_slice(device, card, report) -> dict:
 # recurrentgemma-9b through launch/train.py on the card
 # ---------------------------------------------------------------------------
 
-# (arch, layers (None: all), batch, seq), each in float32 for
-# MIXER_TRAIN_STEPS AdamW steps at LLM_LR from seed LLM_SEED.  granite at
-# 4 x 1024: at 8 x 1024 its step keeps 65 GB of activations for the
-# backward (2.7 GB a layer: the expert products and the one-hot dispatch
-# and combine; scripts/saved_activations.py) beside 21 GB of parameters,
-# gradients and moments, past the card.  recurrentgemma at one period of
-# its pattern, (rglru, rglru, attn): 1.705 B parameters, 27 GB of AdamW
-# state (the 38 layers' 9.396 B would take 150 GB), at 4 x 2048, so that a
-# sequence spans its whole window.
-MIXER_TRAIN = (("granite-moe-1b-a400m", None, 4, 1024),
-               ("mamba2-130m", None, 8, 1024),
-               ("recurrentgemma-9b", 3, 4, 2048))
+# (arch, layers (None: all), batch, seq, remat policy (None: remat off)),
+# each in float32 at LLM_LR from seed LLM_SEED.  granite at 8 x 1024 under
+# remat_policy "full": without remat its step keeps 63 GB of activations
+# (2.7 GB a layer: the expert products and the one-hot dispatch and
+# combine) beside its 21 GB of parameters, gradients and moments, 79 GB
+# by the meta reckoning, past the card; with it the layers keep their
+# (x, pending) carries and one layer's recompute.  recurrentgemma at one
+# period of its pattern, (rglru, rglru, attn): 1.705 B parameters, 27 GB
+# of AdamW state (the 38 layers' 9.396 B would take 150 GB), at 4 x 2048,
+# so that a sequence spans its whole window.
+MIXER_TRAIN = (("granite-moe-1b-a400m", None, 8, 1024, "full"),
+               ("mamba2-130m", None, 8, 1024, None),
+               ("recurrentgemma-9b", 3, 4, 2048, None))
 MIXER_TRAIN_STEPS = 4
 # mamba2's run is stopped after MIXER_STOP_AFTER steps and resumed from
-# its checkpoint (1.5 GB a save; granite's would be 16 GB, and
-# recurrentgemma runs make_train_step directly: train_loop takes no depth)
+# its checkpoint (1.5 GB a save; granite's would be 16 GB, and granite
+# and recurrentgemma run make_train_step directly: train_loop takes no
+# depth and sets remat off)
 MIXER_RESUMED, MIXER_STOP_AFTER = "mamba2-130m", 2
 # warm steps each route is timed over (after one), where phase 17 takes 3
 MIXER_TIMED_STEPS = 2
+# the policies a remat model's step runs under, two steps each from the
+# same weights and batch (``hold_policies``); the first is its run's
+REMAT_POLICIES = ("full", "save_dots", "save_mixer")
+# a remat model's rows where its step without remat fits the card too
+# (granite at 4 x 1024: its batch before it trained under remat), for
+# the run through ``train_loop`` (which sets remat off) and the
+# gradients held bit-equal with and without remat (``hold_remat_off``)
+REMAT_OFF_BATCH, REMAT_OFF_STEPS = 4, 2
+CARD_GB = 80.0
+
+
+def start_train_reckoning(arch: str, policy: str, batch: int, seq: int,
+                          out_path: str):
+    """``dry_reckoning`` of a float32 training step of ``arch`` under
+    ``policy`` at ``batch`` x ``seq`` on the meta device, in a process of
+    its own that sees no card (granite's takes about 20 s of CPU, which
+    it spends while the card trains); its JSON to ``out_path``."""
+    code = ("import json, sys, torch; sys.path.insert(0, 'src'); "
+            "import chip_smoke as S; "
+            "from repro_torch.configs import get_config; "
+            "arch, policy, b, s, path = sys.argv[1:]; "
+            "cfg = get_config(arch).replace(dtype=torch.float32, "
+            "remat=True, remat_policy=policy); "
+            "open(path, 'w').write(json.dumps(S.dry_reckoning("
+            "cfg, 'train', int(b), int(s))))")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, arch, policy, str(batch), str(seq),
+         out_path], cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def train_reckoning(proc, out_path: str) -> dict:
+    """The reckoning ``start_train_reckoning`` started, waited for."""
+    _, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"the meta reckoning failed: {err[-2000:]}")
+    return json.loads(Path(out_path).read_text())
+
+
+class RecomputeEvents:
+    """A ``Model.recompute_span``: ``models.remat``'s profiler span with a
+    pair of CUDA events around it, one pair a layer group's recompute;
+    ``ms()`` is their summed stream time."""
+
+    def __init__(self):
+        self.pairs = []
+
+    @contextmanager
+    def span(self):
+        from repro_torch.models import remat
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        with remat.recompute_span():
+            pair[0].record()
+            try:
+                yield
+            finally:
+                pair[1].record()
+                self.pairs.append(pair)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def held_launches(label: str, step: dict, want: dict) -> None:
+    """``held_step(count=True)``'s launches equal to ``want``, every GEMM
+    on `mma`."""
+    for name, n in step["launches"].items():
+        check(n == want.get(name, 0), f"{label}: {name} launched {n} "
+              f"times, expected {want.get(name, 0)}")
+    check(step["routes"]["mma"] == want["matmul"], f"{label}: matmul "
+          f"routes {step['routes']}, expected every GEMM on mma")
+
+
+def grads_differ(got: dict, want: dict) -> list:
+    return [k for k, v in got.items() if not torch.equal(v, want[k])]
+
+
+def hold_policies(cfg, params, batch, card) -> dict:
+    """Two steps of the kernel route under each of ``REMAT_POLICIES``, on
+    one model and state from ``params``, both on ``batch`` (``counted``:
+    each step's launches held to that policy's ``train_launches``, every
+    GEMM on `mma`): the first step's gradients bit-equal to the first
+    policy's (the LLM kernels have no atomics; those are kept on the
+    card), the second timed warm: its ms by events, its recomputes'
+    summed ms (``RecomputeEvents``), and its peak memory less the kept
+    gradients."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import Model
+    out, first, kept = {}, None, 0
+    for policy in REMAT_POLICIES:
+        c = cfg.replace(remat=True, remat_policy=policy)
+        want = train_launches(c)
+        label = f"{cfg.name} step under {policy}"
+        timer = RecomputeEvents()
+        opt = KeepGrads(llm_adamw())
+        p = train.trainable(params)
+        state = {"params": p, "opt": opt.init(p)}
+        del p
+        step = train.make_train_step(Model(c, impl=ops.differentiable(),
+                                           recompute_span=timer.span),
+                                     opt, None)
+        torch.cuda.empty_cache()
+        (state, metrics), got, _ = counted(
+            label, lambda: step(state, batch), want, "mma")
+        grads, opt.grads = dict(leaf_items(opt.grads)), None
+        rec = {"loss": float(metrics["loss"]), "launches": got}
+        if first is None:
+            first = grads
+            kept = sum(g.numel() * g.element_size() for g in first.values())
+        else:
+            differ = grads_differ(grads, first)
+            rec["grads_bit_equal"] = not differ
+            check(not differ, f"{label}: {len(differ)} of {len(first)} "
+                  f"gradients differ from {REMAT_POLICIES[0]}'s, e.g. "
+                  f"{differ[:3]}")
+        del grads, metrics
+        timer.pairs.clear()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+
+        def warm():
+            start.record()
+            res = step(state, batch)
+            stop.record()
+            return res
+        (state, _), again, _ = counted(f"{label}, warm", warm, want, "mma")
+        add_launches(rec["launches"], again)
+        torch.cuda.synchronize()
+        rec.update(step_ms=start.elapsed_time(stop),
+                   recompute_ms=timer.ms(), recomputes=len(timer.pairs),
+                   peak_memory_gb=(torch.cuda.max_memory_allocated()
+                                   - kept) / 1e9)
+        check(rec["recomputes"] == cfg.n_layers // len(cfg.pattern),
+              f"{label}: {rec['recomputes']} group recomputes")
+        del step, state, opt
+        out[policy] = rec
+        print(f"  {label}: launches {want} held on each of two steps; the "
+              f"warm step {rec['step_ms']} ms, recompute "
+              f"{rec['recompute_ms']} ms by events over "
+              f"{rec['recomputes']} groups, peak {rec['peak_memory_gb']} GB"
+              + (f"; the first step's gradients bit-equal to "
+                 f"{REMAT_POLICIES[0]}'s: {rec['grads_bit_equal']}"
+                 if "grads_bit_equal" in rec else "") + f"  [{card}]")
+    del first
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_remat_off(cfg, params, batch, card) -> dict:
+    """One step of the kernel route with remat off and one under
+    ``cfg.remat_policy``, from ``params`` on ``batch``'s first
+    ``REMAT_OFF_BATCH`` rows (``held_step``): each step's launches held
+    to its ``train_launches``, every GEMM on `mma`, and every gradient
+    bit-equal across the two (the recompute makes the forward's values
+    again; a fault of ``models/remat.py`` that moved the kernel route
+    and its plain reference alike, which ``hold_step`` runs under the
+    same policy, shows here)."""
+    from repro_torch.kernels import ops
+    rows = {"tokens": batch["tokens"][:REMAT_OFF_BATCH]}
+    out, first = {}, None
+    for name, c in (("off", cfg.replace(remat=False)),
+                    (cfg.remat_policy, cfg)):
+        label = f"{cfg.name} step at {REMAT_OFF_BATCH} rows, remat {name}"
+        want = train_launches(c)
+        step = held_step(c, ops.differentiable(), params, rows, count=True)
+        held_launches(label, step, want)
+        out[name] = {"launches": step["launches"], "ms": step["ms"],
+                     "loss": step["loss"]}
+        if first is None:
+            first = step["grads"]
+        else:
+            differ = grads_differ(step["grads"], first)
+            out["grads_bit_equal"] = not differ
+            check(not differ, f"{label}: {len(differ)} of {len(first)} "
+                  f"gradients differ from the step without remat, e.g. "
+                  f"{differ[:3]}")
+        del step
+    del first
+    torch.cuda.empty_cache()
+    print(f"  {cfg.name} at {REMAT_OFF_BATCH} x "
+          f"{rows['tokens'].shape[1]}: one step with remat off (launches "
+          f"{out['off']['launches']}) and one under {cfg.remat_policy} "
+          f"(launches {out[cfg.remat_policy]['launches']}), held; every "
+          f"gradient bit-equal: {out['grads_bit_equal']}  [{card}]")
+    return out
 
 
 def train_steps(cfg, batch: int, seq: int, steps: int, per_step: dict,
@@ -3752,9 +4050,10 @@ def train_steps(cfg, batch: int, seq: int, steps: int, per_step: dict,
     step = train.make_train_step(model, opt, None)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
                          global_batch=batch, seed=LLM_SEED)
-    losses, norms = [], []
+    losses, norms, secs = [], [], []
     t0 = time.perf_counter()
     for i in range(steps):
+        t1 = time.perf_counter()
         tokens = {"tokens": torch.from_numpy(pipe.batch_at(i)["tokens"])
                   .to(device)}
         (state, metrics), _, _ = counted(
@@ -3762,57 +4061,71 @@ def train_steps(cfg, batch: int, seq: int, steps: int, per_step: dict,
             "mma")
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
+        secs.append(time.perf_counter() - t1)
     wall = time.perf_counter() - t0
     check(all(np.isfinite(losses)), f"{cfg.name}: losses {losses}")
-    return {"losses": losses, "grad_norms": norms}, wall
+    return {"losses": losses, "grad_norms": norms, "steps_s": secs}, wall
 
 
-def train_mixer(arch, layers, batch, seq, device, card, held) -> dict:
-    """Phase 19 for one model: ``MIXER_TRAIN_STEPS`` steps (``train_loop``
-    at full depth, with a resumed run for ``MIXER_RESUMED``; else
-    ``make_train_step``), one step held against the plain route with a
-    control, each kernel on the step's inputs, and both routes timed."""
+def train_mixer(arch, layers, batch, seq, policy, device, card,
+                held) -> dict:
+    """Phase 19 for one model: its training run (``train_loop`` at full
+    depth with a resumed run for ``MIXER_RESUMED``; else
+    ``make_train_step``, under ``policy``'s remat where it has one, with
+    the peak beside the meta reckoning), one step held against the plain
+    route with a control, each kernel on the step's inputs, a remat
+    model's step under each of ``REMAT_POLICIES``, and both routes
+    timed."""
+    import tempfile
     from repro_torch.configs import get_config
     from repro_torch.kernels import forward as F
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
-    cfg = get_config(arch).replace(dtype=torch.float32, remat=False)
+    cfg = get_config(arch).replace(dtype=torch.float32,
+                                   remat=policy is not None,
+                                   remat_policy=policy or "full")
     if layers:
         cfg = cfg.replace(n_layers=layers)
     per_step = train_launches(cfg)
-    steps = MIXER_TRAIN_STEPS
+    # a remat model's run (granite: 8 x 1024 with its recompute) takes 2
+    # steps and its routes one timed step each, for the command's limit
+    steps = 2 if policy else MIXER_TRAIN_STEPS
+    timed = 1 if policy else MIXER_TIMED_STEPS
+    remat = f", remat {policy}" if policy else ""
     out = {"config": f"{arch}, {cfg.n_layers} layers, d {cfg.d_model}, "
                      f"float32, batch {batch} x {seq}, {steps} AdamW steps "
-                     f"at lr {LLM_LR}",
-           "params": Model(cfg).n_params(), "launches_per_step": per_step}
+                     f"at lr {LLM_LR}{remat}",
+           "params": Model(cfg).n_params(), "launches_per_step": per_step,
+           "steps": steps}
     kw = dict(use_reduced=False, steps=steps, batch=batch, seq=seq,
               lr=LLM_LR, seed=LLM_SEED, device=device)
     launches = {}
     out["seconds"] = {}
+    proc = tmp = None
     t0 = time.perf_counter()
     if arch == MIXER_RESUMED:
         add_launches(launches, train_and_resume(
             arch, per_step, kw, MIXER_STOP_AFTER, MIXER_STOP_AFTER, card,
             out))
     else:
+        # the meta reckoning runs on the CPU while the card trains and
+        # holds the step; it is read before the policies are timed
+        tmp = tempfile.TemporaryDirectory()
+        path = str(Path(tmp.name) / "reckoning.json")
+        proc = policy and start_train_reckoning(arch, policy, batch, seq,
+                                                path)
         torch.cuda.reset_peak_memory_stats()
-        if layers is None:
-            res, wall, got, _ = train_run(f"{arch} train_loop", arch, steps,
-                                          per_step, kw)
-            del res["state"]
-            add_launches(launches, got)
-            how = "train_loop"
-        else:
-            res, wall = train_steps(cfg, batch, seq, steps, per_step, device)
-            add_launches(launches, {k: steps * n
-                                    for k, n in per_step.items()})
-            how = "make_train_step"
-        out.update(train_s=wall,
+        res, wall = train_steps(cfg, batch, seq, steps, per_step, device)
+        out.update(train_s=wall, steps_s=res["steps_s"],
                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        add_launches(launches, {k: steps * n for k, n in per_step.items()})
         print(f"training {out['config']} ({out['params']} parameters) "
-              f"through {how} on the kernels: {wall} s, peak memory "
-              f"{out['peak_memory_gb']} GB; launches a step {per_step} held "
+              f"through make_train_step on the kernels: {wall} s (steps "
+              f"{res['steps_s']} s), peak memory {out['peak_memory_gb']} "
+              f"GB (card {CARD_GB} GB); launches a step {per_step} held "
               f"on every step, every GEMM on mma  [{card}]")
+        check(out["peak_memory_gb"] < CARD_GB, f"{arch}: peak "
+              f"{out['peak_memory_gb']} GB")
         report_losses(out, res)
         del res
     torch.cuda.empty_cache()
@@ -3824,7 +4137,7 @@ def train_mixer(arch, layers, batch, seq, device, card, held) -> dict:
         torch.Generator(device=device).manual_seed(LLM_SEED)))
     tokens = step_batch(cfg, batch, seq, device)
     step, rec = hold_step(cfg, params, tokens, per_step,
-                          f"{arch} training step f32")
+                          f"{arch} training step f32{remat}")
     out["seconds"]["held_step"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     add_launches(launches, step["launches"])
@@ -3839,12 +4152,53 @@ def train_mixer(arch, layers, batch, seq, device, card, held) -> dict:
     torch.cuda.empty_cache()
     out["seconds"]["kernel_holds"] = time.perf_counter() - t0
 
+    if proc:
+        t0 = time.perf_counter()
+        out["reckoning"] = r = train_reckoning(proc, path)
+        out["seconds"]["reckoning_wait"] = time.perf_counter() - t0
+        print(f"  {arch}'s training peak {out['peak_memory_gb']} GB beside "
+              f"its meta reckoning {r['total_gb']} GB (state "
+              f"{r['state_gb']}, step {r['step_peak_gb']}): peak less "
+              f"reckoning {out['peak_memory_gb'] - r['total_gb']} GB")
+    if tmp is not None:
+        tmp.cleanup()
+    if policy:
+        # without remat: train_loop's run and the gradients held
+        # bit-equal, at the rows where such a step fits the card
+        t0 = time.perf_counter()
+        off = cfg.replace(remat=False)
+        res, wall, got, _ = train_run(
+            f"{arch} train_loop, remat off", arch, REMAT_OFF_STEPS,
+            train_launches(off), {**kw, "batch": REMAT_OFF_BATCH,
+                                  "steps": REMAT_OFF_STEPS})
+        add_launches(launches, got)
+        out["remat_off"] = {"train_loop_s": wall, "losses": res["losses"],
+                            "launches": got}
+        print(f"  {arch} through train_loop (remat off) at "
+              f"{REMAT_OFF_BATCH} x {seq}, {REMAT_OFF_STEPS} steps: {wall} "
+              f"s, losses {res['losses']}, launches a step "
+              f"{train_launches(off)} held  [{card}]")
+        del res
+        torch.cuda.empty_cache()
+        out["remat_off"]["steps"] = both = hold_remat_off(cfg, params,
+                                                          tokens, card)
+        for name in ("off", policy):
+            add_launches(launches, both[name]["launches"])
+        out["seconds"]["remat_off"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["policies"] = hold_policies(cfg, params, tokens, card)
+        for rec_ in out["policies"].values():
+            add_launches(launches, rec_["launches"])
+        out["seconds"]["policies"] = time.perf_counter() - t0
+
+    # the plain routes by events alone (granite's profiled plain step, at
+    # 48,000 device records, took about 30 s; the command's time limit)
     t0 = time.perf_counter()
     out["times"] = {
         "kernels": time_llm_route(cfg, ops.differentiable(), params, tokens,
-                                  MIXER_TIMED_STEPS),
-        "plain": time_llm_route(cfg, F.PLAIN, params, tokens,
-                                MIXER_TIMED_STEPS)}
+                                  timed),
+        "plain": time_llm_route(cfg, F.PLAIN, params, tokens, timed,
+                                profiled=False)}
     out["seconds"]["timing"] = time.perf_counter() - t0
     print_route_times(out["times"], card)
     print(f"  seconds by part: {out['seconds']}")
@@ -3855,13 +4209,15 @@ def train_mixer(arch, layers, batch, seq, device, card, held) -> dict:
 
 
 def training_mixers_slice(device, card, report) -> dict:
-    """Phase 19: granite-moe-1b, mamba2-130m and recurrentgemma-9b (one
-    period) trained on the card (``train_mixer``).  Returns the
-    main-path launches and the kernel checks by kernel."""
+    """Phase 19: granite-moe-1b (under remat), mamba2-130m and
+    recurrentgemma-9b (one period) trained on the card
+    (``train_mixer``).  Returns the main-path launches and the kernel
+    checks by kernel."""
     held = Held()
     out, launches = {}, {}
-    for arch, layers, batch, seq in MIXER_TRAIN:
-        out[arch] = train_mixer(arch, layers, batch, seq, device, card, held)
+    for arch, layers, batch, seq, policy in MIXER_TRAIN:
+        out[arch] = train_mixer(arch, layers, batch, seq, policy, device,
+                                card, held)
         add_launches(launches, out[arch]["launches"])
     report["training_mixers"] = out
     print(f"mixers' training: main-path launches {launches}")
@@ -4250,14 +4606,18 @@ def serve_model(spec: Served, device, card, held, more=None) -> dict:
 
     # times of the kernel route, where its device time goes, and the
     # plain route's prefill
-    out["times"] = time_route(prefill, step, params, prompts, gen, extras)
+    out["times"] = time_route(prefill, step, params, prompts, gen, extras,
+                              traced=False)
     batch = {"tokens": prompts, **extras}
     last, cache = prefill(params, batch)
     tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    # one trace of each, read for the device time by part and the idle
     out["trace"] = {"prefill": profile_step(lambda: prefill(params, batch),
                                             SERVE_KERNELS),
                     "decode step": profile_step(
                         lambda: step(params, cache, tok), SERVE_KERNELS)}
+    traced_shares(out["times"], out["trace"]["prefill"]["device_ms"],
+                  out["trace"]["decode step"]["device_ms"])
     del last, cache, prefill, step, model, rec
     plain = Model(cfg, impl=F.PLAIN)
     out["plain_prefill_ms"] = cuda_ms(    # warm: it ran teacher-forced

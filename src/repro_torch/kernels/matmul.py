@@ -110,15 +110,17 @@ class MatmulFn(torch.autograd.Function):
     """``impl.matmul(a, b)``, ``kernels.ops`` by default (which picks the
     tile), whose backward is ``impl.matmul(dC, B^T)`` for ``a`` and
     ``impl.matmul(A^T, dC)`` for ``b``, each made only where that input
-    needs a gradient."""
+    needs a gradient.  ``kept``: the output a rematerialised layer
+    group's forward kept for its recompute (``models/remat.py``),
+    returned in place of a launch."""
 
     @staticmethod
-    def forward(ctx, a, b, impl=None):
+    def forward(ctx, a, b, impl=None, kept=None):
         if impl is None:
             from . import ops as impl
         ctx.save_for_backward(a, b)
         ctx.impl = impl
-        return impl.matmul(a, b)
+        return impl.matmul(a, b) if kept is None else kept
 
     @staticmethod
     def backward(ctx, dc):
@@ -129,4 +131,4 @@ class MatmulFn(torch.autograd.Function):
             da = ctx.impl.matmul(dc, b.t().contiguous())
         if ctx.needs_input_grad[1]:
             db = ctx.impl.matmul(a.t().contiguous(), dc)
-        return da, db, None
+        return da, db, None, None

@@ -95,7 +95,8 @@ def launch_counters() -> dict:
 def differentiable(impl=None) -> SimpleNamespace:
     """``impl``'s ``matmul``, ``fused_add_rmsnorm`` and
     ``flash_attention`` (this module's by default) through their autograd
-    functions, with the signatures a model calls them by."""
+    functions, with the signatures a model calls them by; ``base`` is
+    ``impl`` (``models/remat.py`` runs its products on it)."""
     impl = sys.modules[__name__] if impl is None else impl
 
     def fused_add_rmsnorm(x, resid, scale):
@@ -106,4 +107,5 @@ def differentiable(impl=None) -> SimpleNamespace:
                                           window, impl)
     return SimpleNamespace(
         matmul=lambda a, b: _mm.MatmulFn.apply(a, b, impl),
-        fused_add_rmsnorm=fused_add_rmsnorm, flash_attention=flash_attention)
+        fused_add_rmsnorm=fused_add_rmsnorm, flash_attention=flash_attention,
+        base=impl)

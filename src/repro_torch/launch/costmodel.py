@@ -38,10 +38,15 @@ Where the count differs from the JAX walker's:
   * an in-place update writes what it stores: ``index_copy_`` into a KV
     cache counts the new rows, where the reference's
     ``dynamic_update_slice`` counts the whole buffer as written;
-  * the port has no remat (``models/transformer.py`` ignores
-    ``cfg.remat``), so a training step carries no layer recompute; the
-    chunked cross-entropy's ``checkpoint`` recompute is counted, as the
-    reference counts its ``jax.checkpoint``;
+  * under ``cfg.remat`` each layer group's recompute is counted, as the
+    reference counts its ``jax.checkpoint`` (and the chunked
+    cross-entropy's, as before): a product its ``remat_policy`` keeps
+    does not run again (``models/remat.py``), and the recompute stops
+    at the group's last saved tensor, where the reference's partial
+    evaluation drops what the backward does not read.  The GEMM FLOPs
+    agree but for ``save_dots``' one-hot MoE dispatch, which the port
+    batches over the token blocks and recomputes, and the reference
+    maps block by block with no batch dimension and keeps;
   * the plain route's attention is dense over the whole sequence
     (``kernels/ref.py::flash_attention_ref``), where the reference walks
     its chunked attention: GEMM FLOPs agree, bytes do not.

@@ -15,18 +15,16 @@ HBM traffic is q/k/v/o (+do, dq/dk/dv in a backward).  Both sides of the
 substitution are counted by the SAME walker: the plain attention's
 walker bytes per layer (``attention_bytes_per_layer``) are replaced with
 the kernel-true bytes, which keep the reference's formula (a training
-layer's kernel reads the forward twice: the port's backward recomputes
-it, ``kernels/flash_attention.py::FlashAttentionFn``, as the
-reference's remat does).
+layer's kernel reads the forward twice, for the layer's recompute).
 
 Where it differs from the reference: it walks the attention the port's
-``Model`` traces (dense, one forward and one backward a training layer:
-the port has no remat), not the reference's chunked attention; and it
-counts every layer whose mixer is attention, MoE ones too, where the
-reference's ``kind == "attn"`` leaves out the ``attn+moe`` layers of
-granite and llama4.  The port ignores ``cfg.remat`` and
-``remat_policy``, so the ``save_dots`` / ``save_mixer`` variants count
-what ``flash`` counts, and their records say so.
+``Model`` traces (dense: a forward, and a training layer's backward with
+the recompute every remat policy makes of the attention), not the
+reference's chunked attention; and it counts every layer whose mixer is
+attention, MoE ones too, where the reference's ``kind == "attn"`` leaves
+out the ``attn+moe`` layers of granite and llama4.  The ``save_dots``
+and ``save_mixer`` variants trace their own policy
+(``models/remat.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell qwen3_decode
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --all
@@ -51,11 +49,6 @@ from .shapes import SHAPES, adjust_config
 ART = (pathlib.Path(__file__).resolve().parents[3] / "artifacts"
        / "hillclimb_torch")
 
-REMAT_IGNORED = ("the port ignores cfg.remat and remat_policy "
-                 "(models/transformer.py keeps every activation), so this "
-                 "variant counts what the flash variant counts")
-
-
 # ---------------------------------------------------------------------------
 # flash-attention byte substitution
 # ---------------------------------------------------------------------------
@@ -65,7 +58,9 @@ def attention_bytes_per_layer(cfg: ModelConfig, batch: int, seq: int,
     """Walker bytes of one layer's plain self-attention with window
     ``cfg.window``, as the port's ``Model`` traces it (``ATT._flash`` on
     ``kernels.forward.PLAIN``), vs the CUDA kernel's true HBM traffic, at
-    global shapes."""
+    global shapes.  A training layer under ``cfg.remat`` walks a second
+    forward, its recompute (the reference's ``fwd.bytes +
+    grad.bytes``)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = (torch.empty((batch, seq, n, hd), dtype=cfg.dtype,
                            device="meta", requires_grad=training)
@@ -79,6 +74,8 @@ def attention_bytes_per_layer(cfg: ModelConfig, batch: int, seq: int,
             out = attn(q, k, v).float().sum()
             return out, torch.autograd.grad(out, (q, k, v))
         walked = graph_cost(value_and_grad, q, k, v)
+        if cfg.remat:
+            walked += graph_cost(attn, q, k, v)
     else:
         walked = graph_cost(attn, q, k, v)
 
@@ -229,8 +226,6 @@ def run_cell(name: str, out_dir: pathlib.Path = ART) -> None:
                     cfg = cfg.replace(**v["cfg"])
                 rec = apply_flash_substitution(rec, cfg, spec["shape"],
                                                skip=v.get("skip", False))
-            if "remat_policy" in v.get("cfg", {}):
-                rec["remat"] = REMAT_IGNORED
         except Exception as exc:   # pragma: no cover
             rec = {"status": "error", "error": f"{type(exc).__name__}: {exc}"}
         out = out_dir / f"{name}.{vname}.json"

@@ -12,7 +12,9 @@ gates are the top-k probabilities renormalised over all k, and the
 router keeps the Switch auxiliary load-balancing loss.
 
 Products: the router, every expert's three products and the shared
-expert go through ``impl.matmul`` (``layers.linear``), one launch each.
+expert go through ``impl.matmul`` (``layers.linear``), one launch each;
+the experts' on ``remat.unkept(impl)`` (in a rematerialised group, the
+products no remat policy keeps).
 The blocks are independent and share their weights, so the router runs
 once over every token and each expert once over the rows dispatched to
 it from every block (``(nblk, E, C, d)`` -> ``E x (nblk * C, d)``) where
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import remat
 from .common import ModelConfig, ParamDef, Rules, shard
 from .layers import _act, linear
 
@@ -133,6 +136,9 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                          stable=True).indices[..., :k]
     if routing is not None:
         idx = routing(idx)
+    # the experts' products are one batched einsum in the reference, which
+    # no remat policy keeps
+    experts = remat.unkept(impl)
     gate_vals = probs.gather(-1, idx)                         # (n, blk, k)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(-1, keepdim=True), 1e-9)
@@ -142,6 +148,11 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     ranks = torch.cumsum(flat, dim=1) - flat                  # (n,blk*k,E)
     rank = (ranks * flat).sum(-1).reshape(nblk, blk, k)
     keep = rank < cap
+    # Switch aux loss a block: E * sum_e (frac_tokens_e * mean_prob_e),
+    # before the dispatch, so that the combine is the layer's last
+    # product (a rematerialised group's recompute stops before it)
+    frac = onehot.sum(2).float().mean(1)                      # (n, E)
+    auxs = e * torch.sum(frac * probs.mean(1), dim=-1)        # (n,)
     if cfg.moe_dispatch == "scatter":
         # gather/scatter dispatch: each (expert, slot) of a block takes at
         # most one row; overflowed choices go to a last, discarded slot
@@ -158,7 +169,7 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         xe = xe_flat.reshape(nblk, e * cap + 1, d)[:, :e * cap] \
             .reshape(nblk, e, cap, d)
         xe = shard(xe, rules, None, "experts", None, None)
-        ye = _experts(cfg, p, xe, impl)                       # (n,E,C,d)
+        ye = _experts(cfg, p, xe, experts)                    # (n,E,C,d)
         ye_flat = torch.cat([ye.reshape(nblk, e * cap, d),
                              torch.zeros((nblk, 1, d), dtype=ye.dtype,
                                          device=x.device)], dim=1)
@@ -173,13 +184,10 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         disp = torch.einsum("nbke,nbkc->nbec", oh_e, oh_c)    # (n,blk,E,C)
         xe = torch.einsum("nbec,nbd->necd", disp, xt)         # (n,E,C,d)
         xe = shard(xe, rules, None, "experts", None, None)
-        ye = _experts(cfg, p, xe, impl)
+        ye = _experts(cfg, p, xe, experts)
         combine = torch.einsum(
             "nbke,nbkc->nbec", oh_e * gate_vals[..., None].to(x.dtype), oh_c)
         y = torch.einsum("nbec,necd->nbd", combine, ye)
-    # Switch aux loss a block: E * sum_e (frac_tokens_e * mean_prob_e)
-    frac = onehot.sum(2).float().mean(1)                      # (n, E)
-    auxs = e * torch.sum(frac * probs.mean(1), dim=-1)        # (n,)
     y = y.reshape(-1, d)[:n].reshape(b, s, d)
     if cfg.shared_expert:
         h = _act(cfg, linear(impl, x, p["shared_wg"])) \

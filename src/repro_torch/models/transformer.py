@@ -9,10 +9,19 @@ parameters (``params['blk<gi>']``) carry a leading ``(groups,)`` axis, and
 the remainder ``n_layers % len(pattern)`` layers (``rem<j>``) are
 unrolled.  Where the JAX package scans the groups, this module loops over
 the stacked slices in Python (``torch.unbind``, so that the backward
-stacks each leaf's layer gradients once).  ``cfg.remat`` is ignored:
-it changes memory, not values, and the port keeps every activation for
-the backward (``launch/train.py`` sets it False, as the JAX trainer
-does).
+stacks each leaf's layer gradients once).
+
+``cfg.remat`` (on by default, as in the JAX package; ``launch/train.py``
+and ``launch/serve.py`` turn it off, as the JAX trainer and server do):
+while autograd records and no cache is given, each group -- one period
+of ``cfg.pattern``, the reference's ``group_step`` -- runs through
+``torch.utils.checkpoint`` with ``cfg.remat_policy`` (``models/remat.py``:
+``full``, ``save_dots``, ``save_mixer``; any other name is ``full``), its
+carry ``(x, pending)`` and the summed aux loss; the remainder layers run
+unwrapped, and each encoder layer is checkpointed with ``full``, as
+there.  It changes memory and work, not values: a step's gradients are
+bit-equal with and without it.  Serving (grad off, or a cache) is
+never wrapped.
 
 Caches mirror the parameter structure: ``cache['blk<i>']`` holds the
 stacked per-layer state of pattern position i (KV buffer and position
@@ -61,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels import ops
 from . import attention as ATT
 from . import moe as MOE
+from . import remat as REMAT
 from . import rglru as RG
 from . import ssm as SSM
 from .common import (ModelConfig, ParamDef, Rules, TensorSpec,
@@ -137,13 +147,16 @@ def _apply_block(cfg: ModelConfig, entry: str, p: Dict, x: torch.Tensor,
                  causal: Optional[bool] = None, impl=ops,
                  routing: Optional[MOE.Routing] = None,
                  fresh: bool = False,
+                 tape: Optional[REMAT.Tape] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict],
                             Optional[torch.Tensor]]:
     """One block on the residual stream ``x + pending``.  Returns ``(x,
     pending, cache, aux)``: the stream is again ``x + pending``, the
     block's last residual not yet added (``add_norm`` of the next norm
     adds it); ``aux`` is the MoE aux loss, None for a dense FFN;
-    ``fresh`` as in ``attention.attention``."""
+    ``fresh`` as in ``attention.attention``; ``tape``: the
+    rematerialised group's (``models/remat.py``), told the mixer's
+    output."""
     _check_entry(entry)
     kind = _mixer_kind(entry)
     aux = None
@@ -161,6 +174,8 @@ def _apply_block(cfg: ModelConfig, entry: str, p: Dict, x: torch.Tensor,
         mix, cache = RG.apply_rglru(cfg, p["rglru"], h, rules, state=cache,
                                     impl=impl)
     pending = mix
+    if tape is not None:
+        tape.mixer_out(mix)
     if "xattn" in p:
         hx, x = add_norm(cfg, p["xnorm"], x, pending, impl)
         if cross_kv is not None:
@@ -203,6 +218,9 @@ def _unbind(tree, n: int) -> List:
 class Model:
     cfg: ModelConfig
     impl: Any = field(default=ops, compare=False)
+    # the context each rematerialised group's recompute runs in
+    recompute_span: Any = field(default=REMAT.recompute_span,
+                                compare=False, repr=False)
     # the tied head's contiguous (d, vocab) copy: (embedding, version, copy)
     _tied: Dict = field(default_factory=dict, init=False, compare=False,
                         repr=False)
@@ -290,10 +308,22 @@ class Model:
         x = frames.to(cfg.dtype)
         x = x + params["enc"]["pos_emb"][:x.shape[1]].to(cfg.dtype)
         pending = None
+        remat = REMAT.wanted(cfg, None)
         for p in _unbind(params["enc"]["blk"], cfg.encoder_layers):
-            x, pending, _, _ = _apply_block(cfg, "attn", p, x, rules,
-                                            pending=pending, causal=False,
-                                            impl=self.impl)
+            def layer(impl, tape, x, pending, p=p):
+                x, pending, _, _ = _apply_block(cfg, "attn", p, x, rules,
+                                                pending=pending,
+                                                causal=False, impl=impl)
+                if tape is not None:
+                    tape.keep(pending)
+                return x, pending
+            if remat:
+                # each layer, whatever the policy, as the reference does
+                x, pending = REMAT.checkpointed(
+                    layer, "full", self.impl, None, x, pending,
+                    span=self.recompute_span)
+            else:
+                x, pending = layer(self.impl, None, x, pending)
         return add_norm(cfg, params["enc"]["norm"], x, pending,
                         self.impl)[0]
 
@@ -307,7 +337,9 @@ class Model:
                               Optional[Dict], torch.Tensor]:
         """The layers on ``x``; returns ``(x, pending, cache, aux)`` (the
         stream is ``x + pending``; ``aux``: the MoE aux losses summed in
-        layer order, a float32 0 without MoE)."""
+        layer order, a float32 0 without MoE).  Rematerialised
+        (``REMAT.wanted``), each group runs through
+        ``REMAT.checkpointed``."""
         cfg = self.cfg
         wins = self._windows()
         plen = len(self.pat)
@@ -315,21 +347,39 @@ class Model:
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         stacks = [_unbind(params[f"blk{gi}"], self.groups)
                   for gi in range(plen if self.groups else 0)]
-        layers = [(entry, stacks[gi][g], g * plen + gi,
-                   None if cache is None else _index(cache[f"blk{gi}"], g))
-                  for g in range(self.groups)
-                  for gi, entry in enumerate(self.pat)]
+
+        def run(layers, impl, routing, tape, x, pending, aux_total):
+            for entry, p, i, csl in layers:
+                x, pending, _, aux = _apply_block(
+                    cfg, entry, p, x, rules, pending=pending,
+                    window=wins[i], cache=csl, enc_out=enc_out, impl=impl,
+                    routing=routing, fresh=fresh, tape=tape)
+                if aux is not None:
+                    aux_total = aux_total + aux
+            return x, pending, aux_total
+
+        groups = [[(entry, stacks[gi][g], g * plen + gi,
+                    None if cache is None else _index(cache[f"blk{gi}"], g))
+                   for gi, entry in enumerate(self.pat)]
+                  for g in range(self.groups)]
         base = self.groups * plen
-        layers += [(self.pat[j], params[f"rem{j}"], base + j,
-                    None if cache is None else cache[f"rem{j}"])
-                   for j in range(self.remainder)]
-        for entry, p, i, csl in layers:
-            x, pending, _, aux = _apply_block(
-                cfg, entry, p, x, rules, pending=pending, window=wins[i],
-                cache=csl, enc_out=enc_out, impl=self.impl,
-                routing=routing, fresh=fresh)
-            if aux is not None:
-                aux_total = aux_total + aux
+        rest = [(self.pat[j], params[f"rem{j}"], base + j,
+                 None if cache is None else cache[f"rem{j}"])
+                for j in range(self.remainder)]
+        if not REMAT.wanted(cfg, cache):
+            x, pending, aux_total = run(sum(groups, []) + rest, self.impl,
+                                        routing, None, x, pending, aux_total)
+            return x, pending, cache, aux_total
+        for layers in groups:
+            def group(impl, tape, *carry, layers=layers):
+                out = run(layers, impl, tape, tape, *carry)
+                tape.keep(out[1])
+                return out
+            x, pending, aux_total = REMAT.checkpointed(
+                group, cfg.remat_policy, self.impl, routing, x, pending,
+                aux_total, span=self.recompute_span)
+        x, pending, aux_total = run(rest, self.impl, routing, None, x,
+                                    pending, aux_total)
         return x, pending, cache, aux_total
 
     # ---- forward -------------------------------------------------------------

@@ -10,9 +10,14 @@ JAX package's (``repro.launch.costmodel.jaxpr_cost``) and against
 * ``tests/test_simulator_vs_jax.py``'s three cases on the port: SimDIT's
   conv, FC and Table V backward MACs against the walker's FLOPs;
 * for each of the ten configs at ``reduced`` size, over a train step, a
-  prefill and a decode step of the plain route: the walker's GEMM FLOPs
-  equal ``FlopCounterMode``'s over the same trace, and equal the JAX
-  step's ``dot_general`` FLOPs, each difference named by op (below);
+  prefill and a decode step of the plain route (remat off on both
+  sides): the walker's GEMM FLOPs equal ``FlopCounterMode``'s over the
+  same trace, and equal the JAX step's ``dot_general`` FLOPs, each
+  difference named by op (below);
+* a train step of qwen3-0.6b and granite-moe-1b under each
+  ``remat_policy``, both sides alike: the same equalities, the
+  recompute included, and the policies ordered as the reference's (off
+  < ``save_dots`` < ``save_mixer`` < ``full``);
 * ``dryrun.depth_cost`` (two traces, extrapolated) equals the full trace
   at a reduced depth of several periods;
 * an in-place KV-cache write counts the rows it stores.
@@ -29,7 +34,10 @@ Where the two walkers' GEMM FLOPs differ, by op:
   difference of ``ssd_chunked``'s gradient alone, once a layer;
 * a training step of llama4: the MoE layer's backward (the combine
   einsum's gradient for the top-1 gate), held equal to the difference of
-  ``apply_moe``'s gradient alone, once a MoE layer.
+  ``apply_moe``'s gradient alone, once a MoE layer;
+* a training step of a MoE model under ``save_dots``: the one-hot
+  dispatch einsum, which the reference keeps and the port recomputes
+  (``models/remat.py``), once a MoE layer.
 
 Tolerances: every comparison is exact (FLOP counts are integers).
 """
@@ -231,10 +239,11 @@ def _jax_dot_flops(jaxpr, mult=1.0) -> float:
     return total
 
 
-def _jax_step(arch, kind):
-    """The JAX step of ``kind`` on the reduced config (remat off, as the
-    port has none): its jaxpr, and its ``jaxpr_cost``."""
-    cfg = jreduced(jget_config(arch)).replace(remat=False)
+def _jax_step(arch, kind, remat=False, policy="full"):
+    """The JAX step of ``kind`` on the reduced config (remat off unless
+    asked): its jaxpr, and its ``jaxpr_cost``."""
+    cfg = jreduced(jget_config(arch)).replace(remat=remat,
+                                              remat_policy=policy)
     model = JModel(cfg)
     params = model.abstract()
     batch = {"tokens": sds(B, S, dtype=jnp.int32), **jfis(cfg, B)}
@@ -252,8 +261,9 @@ def _jax_step(arch, kind):
     return jax.make_jaxpr(fn)(*args).jaxpr, JC.jaxpr_cost(fn, *args)
 
 
-def _port_step(arch, kind):
-    cfg = reduced(get_config(arch))
+def _port_step(arch, kind, remat=False, policy="full"):
+    cfg = reduced(get_config(arch)).replace(remat=remat,
+                                            remat_policy=policy)
     specs = None
     if kind != "decode":
         specs = {"tokens": TensorSpec((B, S), torch.int32),
@@ -338,6 +348,68 @@ def test_gemm_flops_of_every_config(arch, kind, capsys):
         print(f"\n{arch} {kind} (reduced, {B} x {S}): port FLOPs "
               f"{got.flops:.0f} bytes {got.bytes:.0f}; JAX jaxpr_cost "
               f"FLOPs {jcost.flops:.0f} bytes {jcost.bytes:.0f}")
+
+
+# ---- a training step under each remat policy ------------------------------------------
+
+REMAT = ("off", "save_dots", "save_mixer", "full")
+_remat_walks = {}
+
+
+def _remat_walk(arch, policy):
+    """``(port GEMM FLOPs, FlopCounterMode's, JAX dot FLOPs)`` of a train
+    step of the reduced config under ``policy`` (``off``: no remat), both
+    packages alike; each traced once a module."""
+    key = (arch, policy)
+    if key not in _remat_walks:
+        kw = dict(remat=policy != "off",
+                  policy="full" if policy == "off" else policy)
+        _, fn, args = _port_step(arch, "train", **kw)
+        gm = trace(fn, *args)
+        with FlopCounterMode(display=False) as counter:
+            gm(*args)
+        jaxpr, _ = _jax_step(arch, "train", **kw)
+        _remat_walks[key] = (walk(gm.graph).gemm_flops,
+                             counter.get_total_flops(),
+                             _jax_dot_flops(jaxpr))
+    return _remat_walks[key]
+
+
+def _dispatch_flops(cfg) -> float:
+    """The one-hot dispatch einsum (``nbec,nbd->necd``) of a MoE layer's
+    forward at the test's B x S: ``save_dots`` keeps it in the reference
+    (no batch dimension inside its map over the token blocks) and the
+    port recomputes it (batched over the blocks)."""
+    tokens = B * S
+    blk = min(cfg.moe_block, tokens)
+    nblk = -(-tokens // blk)
+    return 2.0 * nblk * blk * cfg.n_experts * MOE._capacity(cfg) \
+        * cfg.d_model
+
+
+@pytest.mark.parametrize("policy", REMAT[1:])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-1b-a400m"])
+def test_gemm_flops_of_a_train_step_under_remat(arch, policy):
+    """The recompute each policy leaves counted as the reference counts
+    it: the port's GEMM FLOPs equal ``FlopCounterMode``'s and the JAX
+    step's dots, less the dispatch einsum ``save_dots`` recomputes in
+    the port alone, once a MoE layer."""
+    got, counted, jax_dots = _remat_walk(arch, policy)
+    assert got == counted
+    cfg = reduced(get_config(arch))
+    moe_layers = sum(1 for k in cfg.layer_kinds() if k.endswith("+moe"))
+    delta = -moe_layers * _dispatch_flops(cfg) \
+        if moe_layers and policy == "save_dots" else 0.0
+    assert jax_dots - got == delta
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-1b-a400m"])
+def test_remat_policies_order_the_recompute_as_the_reference(arch):
+    """off < save_dots < save_mixer < full, in both walkers."""
+    walks = [_remat_walk(arch, p) for p in REMAT]
+    for side in (0, 2):
+        flops = [w[side] for w in walks]
+        assert flops == sorted(set(flops)), (side, flops)
 
 
 # ---- the dry run's depth extrapolation ------------------------------------------------

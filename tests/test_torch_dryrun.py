@@ -277,9 +277,11 @@ def test_period_and_depth_of_the_ten_configs():
 
 # ---- chip_smoke.py's phase 22 helpers ---------------------------------------------------
 
-def test_chunked_train_launches_equal_the_calls():
+@pytest.mark.parametrize("remat", [False, True])
+def test_chunked_train_launches_equal_the_calls(remat):
+    """Without remat, and under ``full`` as phase 22's ``train_4k``."""
     cfg = reduced(get_config("qwen3-0.6b")).replace(
-        dtype=torch.float32, remat=False, ce_chunk=8)
+        dtype=torch.float32, remat=remat, ce_chunk=8)
     seq = 33                  # 32 targets: 4 chunks of 8
     params = train.trainable(Model(cfg).init(
         torch.Generator().manual_seed(0)))

@@ -17,9 +17,12 @@ JAX package's (``repro.launch.hillclimb``), on the CPU:
   layer; on granite and llama4 the port substitutes every attention
   layer where the reference's ``kind == "attn"`` leaves out the
   ``attn+moe`` ones (the named difference);
+* a training layer's walked attention under remat holding the recompute
+  forward (the reference's ``fwd.bytes + grad.bytes``);
 * ``CELLS`` with the reference's cells and variant names; ``run_cell``
-  over gemma3's variants with the dry run stubbed (the remat variants
-  count what ``flash`` counts, and say so), and ``main`` over
+  over gemma3's variants with the dry run stood in for by the reduced
+  config's walk (the remat variants give records of their own, ordered
+  as the reference's policies), and ``main`` over
   ``qwen3_decode`` on the ``fake`` backend in a subprocess (the 2-D
   cache and int8 KV cut the bytes a device holds, as they should).
 
@@ -46,7 +49,7 @@ from repro.models import attention as JATT  # noqa: E402
 
 from repro_torch.configs import ARCHS, get_config, reduced  # noqa: E402
 from repro_torch.kernels.forward import PLAIN  # noqa: E402
-from repro_torch.launch import hillclimb  # noqa: E402
+from repro_torch.launch import dryrun, hillclimb  # noqa: E402
 from repro_torch.launch.costmodel import graph_cost  # noqa: E402
 from repro_torch.models import attention as ATT  # noqa: E402
 
@@ -216,10 +219,21 @@ def test_cells_and_variants_equal_the_reference(jhill):
             assert sorted(body) == sorted(want["variants"][v])
 
 
-def test_run_cell_marks_the_remat_variants(monkeypatch, tmp_path):
+def test_run_cell_gives_the_remat_variants_records_of_their_own(
+        monkeypatch, tmp_path):
+    """``flash+save_dots`` and ``flash+save_mixer`` trace their own
+    policy: with the dry run's trace stood in for by the walk of the
+    reduced config's train step under each variant's overrides, their
+    FLOPs differ from ``flash``'s (the default ``full``) in the
+    reference's order, save_dots < save_mixer < full, and no record
+    carries a ``remat`` tag."""
     def stub(arch, shape, multi_pod, rules_override=None,
              cfg_override=None):
-        return _record(), None
+        cfg = reduced(get_config(arch)).replace(**(cfg_override or {}))
+        fn, args = dryrun.step_program(cfg, "train", 2, 32)
+        rec = _record()
+        rec["roofline"]["flops"] = graph_cost(fn, *args).flops
+        return rec, None
     monkeypatch.setattr(hillclimb, "lower_cell", stub)
     hillclimb.run_cell("gemma3_train", tmp_path)
     recs = {p.name.split(".")[1]: json.loads(p.read_text())
@@ -227,11 +241,35 @@ def test_run_cell_marks_the_remat_variants(monkeypatch, tmp_path):
     assert sorted(recs) == sorted(hillclimb.CELLS["gemma3_train"]
                                   ["variants"])
     assert "flash_substitution" not in recs["baseline"]["roofline"]
-    for v in ("flash+save_dots", "flash+save_mixer"):
-        assert recs[v]["remat"] == hillclimb.REMAT_IGNORED
-        assert recs[v]["roofline"] == recs["flash"]["roofline"]
+    assert not any("remat" in rec for rec in recs.values())
+    flops = {v: recs[v]["roofline"]["flops"] for v in recs}
+    assert flops["flash+save_dots"] < flops["flash+save_mixer"] < \
+        flops["flash"] == flops["baseline"]
     assert recs["flash+skip"]["roofline"]["flops"] < \
         recs["flash"]["roofline"]["flops"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-27b"])
+def test_attention_bytes_count_the_recompute_forward(arch):
+    """A training layer under remat (every policy recomputes attention)
+    walks one forward more than without: the reference's ``fwd.bytes +
+    grad.bytes``; the kernel's bytes do not move."""
+    cfg = reduced(get_config(arch))
+    on = hillclimb.attention_bytes_per_layer(cfg, 2, 64, True)
+    off = hillclimb.attention_bytes_per_layer(cfg.replace(remat=False), 2,
+                                              64, True)
+
+    def attn(q, k, v):
+        return ATT._flash(PLAIN, q, k, v, True, int(cfg.window))
+    fwd = graph_cost(attn, *(torch.empty((2, 64, n, cfg.hd),
+                                         dtype=cfg.dtype, device="meta")
+                             for n in (cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.n_kv_heads)))
+    assert on["xla_bytes"] == off["xla_bytes"] + fwd.bytes > off["xla_bytes"]
+    assert on["xla_flops"] == off["xla_flops"] + fwd.flops
+    assert on["kernel_bytes"] == off["kernel_bytes"]
+    inference = hillclimb.attention_bytes_per_layer(cfg, 2, 64, False)
+    assert inference["xla_bytes"] == fwd.bytes
 
 
 CLIMB = r"""

@@ -12,7 +12,8 @@ training entry points give them):
   gradients: three times each forward GEMM, the norms and flash
   attentions of a prefill forward only;
 * the full-size counts that phases 16-21 hold on the card (llama4 at
-  one period of its pattern, 2 layers);
+  one period of its pattern, 2 layers; granite's training step under
+  each remat policy);
 * ``--phases`` selects whole groups of phases.
 """
 import pytest
@@ -86,8 +87,8 @@ def test_full_size_launches(arch):
     for prefill, want in zip((True, False), FULL[arch]):
         assert SMOKE.serve_launches(cfg, prefill) == dict(zip(names, want))
     prefill = dict(zip(names, FULL[arch][0]))
-    assert SMOKE.train_launches(cfg) == {**prefill,
-                                         "matmul": 3 * prefill["matmul"]}
+    assert SMOKE.train_launches(cfg.replace(remat=False)) == {
+        **prefill, "matmul": 3 * prefill["matmul"]}
 
 
 def test_full_size_launches_of_llama4s_period():
@@ -104,19 +105,29 @@ def test_full_size_launches_of_llama4s_period():
 
 
 def test_full_size_training_launches_of_the_trained_models():
-    """Phases 17 and 19: SmolLM-360M (3(7n+1) / 2n+1 / n)
-    and the three mixers, recurrentgemma at one period."""
+    """Phases 17 and 19: SmolLM-360M (3(7n+1) / 2n+1 / n) and mamba2
+    through ``train_loop`` (remat off), recurrentgemma at one period
+    (remat off), and granite under each remat policy (``full`` in its
+    run: every layer's 101 forward GEMMs, 2 add+norms and its attention
+    again; ``save_dots`` its 96 expert GEMMs; ``save_mixer`` all but the
+    output projection) beside its 7,275 / 49 / 24 without."""
     want = {"smollm-360m": (675, 65, 32),
-            "granite-moe-1b-a400m": (7275, 49, 24),
             "mamba2-130m": (147, 25, 0)}
     for arch, (mm, norms, attn) in want.items():
-        assert SMOKE.train_launches(get_config(arch)) == {
-            "matmul": mm, "fused_add_rmsnorm": norms,
-            "flash_attention": attn}
-    rg = get_config("recurrentgemma-9b").replace(n_layers=3)
+        assert SMOKE.train_launches(get_config(arch).replace(
+            remat=False)) == {"matmul": mm, "fused_add_rmsnorm": norms,
+                              "flash_attention": attn}
+    rg = get_config("recurrentgemma-9b").replace(n_layers=3, remat=False)
     assert SMOKE.train_launches(rg) == {"matmul": 3 * 24,
                                         "fused_add_rmsnorm": 7,
                                         "flash_attention": 1}
+    granite = get_config("granite-moe-1b-a400m")
+    for policy, mm in (("off", 7275), ("full", 9699), ("save_dots", 9579),
+                       ("save_mixer", 9675)):
+        cfg = granite.replace(remat=policy != "off", remat_policy=policy)
+        assert SMOKE.train_launches(cfg) == {
+            "matmul": mm, "fused_add_rmsnorm": 49 + 48 * (policy != "off"),
+            "flash_attention": 24 + 24 * (policy != "off")}
 
 
 @pytest.mark.parametrize("text, want", [

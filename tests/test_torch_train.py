@@ -64,7 +64,8 @@ F32 = torch.float32
 
 def configs(arch, **kw):
     """The reduced float32 configuration in both packages; the port's
-    keeps ``remat`` at its default (True), which it ignores."""
+    keeps ``remat`` at its default (True, ``full``), whose values are
+    those without it (``tests/test_torch_remat.py``)."""
     jcfg = jreduced(jget_config(arch)).replace(dtype=jnp.float32,
                                                remat=False, **kw)
     tcfg = reduced(get_config(arch)).replace(dtype=F32, **kw)
