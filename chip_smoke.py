@@ -19,14 +19,21 @@ what ran):
 3. drives the DSE main path -- ``Study(hw).search(Workload("resnet50"[,
    training=True]), 2048, 2048, objective=...)`` at the 64x64 presets on
    the Table VIII power-of-two lattice (cycles through the fused kernel,
-   energy and EDP through the torch reductions), the same searches
-   for cycles on the 128-step lattice (5.5M candidates), and
+   energy and EDP through the torch reductions, scored on the card), the
+   same searches for cycles on the 128-step lattice (5.5M candidates),
+   EDP on that lattice for inference, and on the Table VIII lattice for
+   inference ``CyclesUnderPowerCap`` at 0.93 W (``POWER_CAP_W``) and
+   a custom objective in numpy alone (``EnergyNanEnds``), and
    ``search_many`` over every CNN of the registry -- with the
-   ``grid_minmax`` launch count (and its launches by route) set to 0
-   before each path and read after;
+   ``grid_minmax`` launch count (and its launches by route) and the
+   energy reports' devices (``Recorder`` around ``_EnergyFields.grids``)
+   set to 0 before each path and read after: a cycles search launches,
+   any other launches nothing and builds its report once, from a CUDA
+   tensor;
 4. holds every result bit-identical to the port's numpy engine (best,
-   worst, frontiers, Pareto set, cost and score grids) and the training
-   grids past 2**31;
+   worst, frontiers, Pareto set, cost and score grids, energy report)
+   and the training grids past 2**31, the power cap with candidates on
+   both sides, the custom objective's two NaN scores masked;
 5. holds ``grid_minmax`` exactly equal to ``grid_minmax_ref`` on the card
    on seeded random, tie, extreme and degenerate grids, on the 128-step
    lattice's sorted projections with equal minima and maxima across a run
@@ -35,20 +42,24 @@ what ran):
    past flat index 2**31) and on the inputs the main path gave it: each
    case on the route it should take and with the same bits on a second
    call, and every main-path launch on the shared route;
-6. times the kernel, its plain version and the warm searches with CUDA
-   events (the kernel also on the device alone, queued behind a device
-   sleep, and from the profiler's trace, which must hold one kernel a
-   call), beside its bound on this card;
+6. times the kernel, its plain version and the warm searches (every
+   search of phase 3 by ``time_scored``, the 128-step lattice's with one
+   call a backend)
+   with CUDA events (the kernel also on the device alone, queued behind
+   a device sleep, and from the profiler's trace, which must hold one
+   kernel a call), beside its bound on this card, and each search's
+   device busy time and idle share;
 7. drives the LLM searches through the same entry points: Qwen3-0.6B
    (``Workload("qwen3_0_6b", batch=2, seq=2048)``, the prefill's tokens)
    for inference and training, and gemma3-27b training at 512 tokens, at
    the 64x64 presets on the Table VIII lattice, for cycles (through the
-   kernel), energy and EDP; the counters set to 0 before each search and
-   read after it (one ``grid_minmax`` launch a cycles search, on the
-   shared route, and no call of the plain version); holds each result
-   bit-identical to the numpy engine and the kernel's LLM inputs against
-   the plain version, and prints how many candidates tie at each grid's
-   minimum and maximum;
+   kernel), energy and EDP (scored on the card); the counters set to 0
+   before each search and read after it (one ``grid_minmax`` launch a
+   cycles search, on the shared route, and no call of the plain
+   version; an energy or EDP search's report built once from a CUDA
+   tensor); holds each result bit-identical to the numpy engine and the
+   kernel's LLM inputs against the plain version, and prints how many
+   candidates tie at each grid's minimum and maximum;
 8. runs ``method="refine"`` for Qwen3 training and ResNet-50 inference on
    a CUDA study, held equal to the same refine on a numpy study (best,
    evaluations, archive, trajectory) and never worse than the grid;
@@ -57,13 +68,14 @@ what ran):
    through refine, a duplicate, a misspelt name) from 4 client threads
    through one ``DSEService`` over a CUDA study, holding one failure
    (``InvalidRequest``), a dedup hit, coalescing, one launch for each
-   workload of a grid cycles group and every answer bit-identical to a
-   direct search; and arms ``service_request_hang`` once so that an
+   workload of a grid cycles group, the EDP answer's report built on the
+   card and every answer bit-identical to a direct search; and arms ``service_request_hang`` once so that an
    abandoned pricing thread prices beside its serial retry, holding the
    launch counts, the answers of both and one kernel workspace;
 9. times the LLM searches (warm, and with the frontier and Pareto set
-   read) beside the numpy engine, and the service burst (wall time,
-   latency percentiles, coalescing);
+   read; the energy and EDP ones scored on the card) beside the numpy
+   engine, with each search's idle share, and the service burst (wall
+   time, latency percentiles, coalescing);
 10. drives the kernel entry points ``repro_torch.kernels.ops`` at the full
    width of two models, every launch counter set to 0 before each model
    and read after it: a Qwen3-0.6B prefill of 2 x 2048 tokens in bf16
@@ -436,10 +448,35 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # main path
 # ---------------------------------------------------------------------------
 
-def main_path_searches(device):
+class EnergyNanEnds:
+    """A custom objective written in numpy alone, as the JAX package's test
+    objective ``_NanBait`` is: E_total read through ``np.asarray``, NaN at
+    the grid's fastest and slowest candidates, which the search must mask
+    on both sides.  On the card its metrics are CUDA tensors that numpy
+    reads by copying them to the host."""
+    name = "energy_nan_ends"
+    needs_energy = True
+
+    def score(self, m):
+        e = np.array(m.energy, dtype=float)
+        c = np.asarray(m.cycles)
+        e.flat[c.argmin()] = np.nan
+        e.flat[c.argmax()] = np.nan
+        return e
+
+
+# The power-capped search's cap: between the least and greatest P_avg of the
+# Table VIII inference grid at INFER_PRESETS[64] (its median is 0.93286 W),
+# so that about half its candidates are infeasible; ``hold_against_numpy``
+# checks that some are and some are not.
+POWER_CAP_W = 0.93
+
+
+def main_path_searches():
     """``(label, study_kwargs, workload_kwargs, objective)`` of every
     search on the main path."""
     from repro_torch.core import INFER_PRESETS, TRAIN_PRESETS
+    from repro_torch.core.objectives import CyclesUnderPowerCap
     out = []
     for phase, presets in (("inference", INFER_PRESETS),
                            ("training", TRAIN_PRESETS)):
@@ -457,6 +494,15 @@ def main_path_searches(device):
                          sizes=LATTICE_128, bws=LATTICE_128),
                     dict(net="resnet50", training=phase == "training"),
                     "cycles"))
+    hw, wl = INFER_PRESETS[64], dict(net="resnet50")
+    out.append(("lattice128/inference/edp",
+                dict(hw=hw, backend="torch-fused", sizes=LATTICE_128,
+                     bws=LATTICE_128), wl, "edp"))
+    out.append(("table8/inference/power_cap",
+                dict(hw=hw, backend="torch-fused"), wl,
+                CyclesUnderPowerCap(cap_w=POWER_CAP_W)))
+    out.append(("table8/inference/energy_nan_ends",
+                dict(hw=hw, backend="torch"), wl, EnergyNanEnds()))
     return out
 
 
@@ -479,20 +525,25 @@ def run_search_many(device, backend):
 
 class Recorder:
     """Wraps ``gridtorch.grid_minmax`` to keep, per path, the inputs the
-    main path gives the kernel, and ``reduce.grid_minmax_ref`` to count
+    main path gives the kernel, ``reduce.grid_minmax_ref`` to count
     calls of the plain version (none may come from the main path on the
-    card).  ``zero()`` sets the launch counters and the count of plain
-    calls to 0 just before a path; ``read()`` reads them just after.  The
-    wrappers may run on a service's pricing threads."""
+    card), and ``dse._EnergyFields.grids`` to keep where each energy
+    report was built (the device of the cycles grid it was handed, or
+    the type of a host array).  ``zero()`` sets the launch counters, the
+    count of plain calls and the reports to 0 just before a path;
+    ``read()`` and ``reports()`` read them just after.  The wrappers may
+    run on a service's pricing threads."""
 
     def __init__(self):
-        from repro_torch.core import gridtorch
+        from repro_torch.core import dse, gridtorch
         from repro_torch.kernels import reduce
         self.gridtorch, self.reduce = gridtorch, reduce
         self.kernel, self.ref = gridtorch.grid_minmax, reduce.grid_minmax_ref
+        self.fields, self.grids = dse._EnergyFields, dse._EnergyFields.grids
         self.label = None
         self.inputs = {}
         self.ref_calls = 0
+        self.built_on = []
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -505,20 +556,37 @@ class Recorder:
             with self._lock:
                 self.ref_calls += 1
             return self.ref(*args)
+
+        def grids(fields, l_total):
+            with self._lock:
+                self.built_on.append(
+                    l_total.device.type if isinstance(l_total, torch.Tensor)
+                    else type(l_total).__name__)
+            return self.grids(fields, l_total)
         self.gridtorch.grid_minmax = kernel
         self.reduce.grid_minmax_ref = ref
+        self.fields.grids = grids
         return self
 
     def __exit__(self, *exc):
         self.gridtorch.grid_minmax = self.kernel
         self.reduce.grid_minmax_ref = self.ref
+        self.fields.grids = self.grids
 
     def zero(self, label=None) -> None:
         kernel = self.reduce.grid_minmax
         kernel.launches = 0
         kernel.routes = dict.fromkeys(kernel.routes, 0)
-        self.ref_calls = 0
+        with self._lock:
+            self.ref_calls = 0
+            self.built_on = []
         self.label = label
+
+    def reports(self) -> list:
+        """Where each energy report since ``zero`` was built: ``"cuda"``
+        for a report built on the card."""
+        with self._lock:
+            return list(self.built_on)
 
     def read(self) -> tuple:
         """``(launches, launches by route, plain calls)`` since ``zero``."""
@@ -526,25 +594,44 @@ class Recorder:
         return kernel.launches, dict(kernel.routes), self.ref_calls
 
 
+def check_scored(label, objective, launches, reports) -> None:
+    """A cycles search builds no energy report (its ``grid_minmax``
+    launches are held by its caller, by backend); any other search
+    launches nothing and builds its report once, from the cycles grid on
+    the card."""
+    on = torch.device(CARD).type
+    if objective == "cycles":
+        check(reports == [], f"{label}: a cycles search built energy "
+              f"reports on {reports}")
+    else:
+        check(launches == 0, f"{label}: {launches} grid_minmax launches, "
+              f"expected none")
+        check(reports == [on], f"{label}: energy reports built on "
+              f"{reports}, expected one from a {on} tensor")
+
+
 def drive_main_path(device, rec):
     """Run every main-path search once.  Returns the results, per path the
     launches of ``grid_minmax`` and its launches by route (set to 0 just
-    before the path, read just after), the wall seconds, and the first
-    kernel inputs of each path."""
-    paths = [(label, lambda s=s, w=w, o=o: run_search(s, w, o, device))
-             for label, s, w, o in main_path_searches(device)]
-    paths.append(("search_many/torch",
+    before the path, read just after), the wall seconds, the first kernel
+    inputs of each path, and where each path's energy reports were
+    built."""
+    paths = [(label, o, lambda s=s, w=w, o=o: run_search(s, w, o, device))
+             for label, s, w, o in main_path_searches()]
+    paths.append(("search_many/torch", "cycles",
                   lambda: run_search_many(device, "torch")))
-    results, launches, routes, wall_s = {}, {}, {}, {}
-    for label, fn in paths:
+    results, launches, routes, wall_s, built_on = {}, {}, {}, {}, {}
+    for label, obj, fn in paths:
         rec.zero(label)
         t0 = time.perf_counter()
         results[label] = fn()
         wall_s[label] = time.perf_counter() - t0
         launches[label], routes[label], ref_calls = rec.read()
+        built_on[label] = rec.reports()
         check(ref_calls == 0, f"{label}: plain grid_minmax_ref ran "
               f"{ref_calls} times on the main path on the card")
-    return results, launches, routes, wall_s, dict(rec.inputs)
+        check_scored(label, obj, launches[label], built_on[label])
+    return results, launches, routes, wall_s, dict(rec.inputs), built_on
 
 
 # ---------------------------------------------------------------------------
@@ -579,17 +666,28 @@ def compare(label, got, want) -> int:
     if want.grid_scores is None:
         check(got.grid_scores is None, f"{label}: unexpected score grid")
     else:
-        check(got.grid_scores.dtype == np.float64
-              and np.array_equal(got.grid_scores, want.grid_scores),
+        check(same_bits(got.grid_scores, want.grid_scores),
               f"{label}: score grid differs from the numpy engine")
-    return len(checks) + 2
+    report, want_report = got._grid_energy(), want._grid_energy()
+    check(report.keys() == want_report.keys() and all(
+        same_bits(report[k], want_report[k]) for k in report),
+        f"{label}: energy report differs from the numpy engine")
+    return len(checks) + 3
+
+
+def same_bits(a, b) -> bool:
+    """Two float64 numpy grids with the same shape and the same bits."""
+    return (type(a) is type(b) is np.ndarray
+            and a.dtype == b.dtype == np.float64 and a.shape == b.shape
+            and np.array_equal(a.view(np.int64), b.view(np.int64)))
 
 
 def hold_against_numpy(results, device) -> dict:
-    n_checks = 0
-    for label, study_kw, wl_kw, obj in main_path_searches(device):
+    n_checks, objectives = 0, {}
+    for label, study_kw, wl_kw, obj in main_path_searches():
         want = run_search(study_kw, wl_kw, obj, device, backend="numpy")
         n_checks += compare(label, results[label], want)
+        objectives[label] = obj
     many = run_search_many(device, "numpy")
     for name, want in many.items():
         n_checks += compare(f"search_many/{name}",
@@ -598,7 +696,20 @@ def hold_against_numpy(results, device) -> dict:
                 for label in results if "training/cycles" in label}
     for label, m in grid_max.items():
         check(m > 2 ** 31, f"{label}: training grid max {m} not past 2**31")
-    return {"checks": n_checks, "training_grid_max": grid_max}
+    capped = results["table8/inference/power_cap"]
+    cap_w = objectives["table8/inference/power_cap"].cap_w
+    infeasible = int(np.isinf(capped.grid_scores).sum())
+    check(0 < infeasible < capped.grid_scores.size
+          and capped.power_of() <= cap_w,
+          f"power cap: {infeasible} of {capped.grid_scores.size} candidates "
+          f"infeasible, best at {capped.power_of()} W")
+    nan_ends = int(np.isnan(
+        results["table8/inference/energy_nan_ends"].grid_scores).sum())
+    check(nan_ends == 2, f"custom objective: {nan_ends} NaN scores")
+    return {"checks": n_checks, "training_grid_max": grid_max,
+            "power_cap_w": cap_w,
+            "power_cap_infeasible": infeasible,
+            "custom_nan_scores": nan_ends}
 
 
 # ---------------------------------------------------------------------------
@@ -895,34 +1006,51 @@ def _search_and_read(study_kw, wl_kw, obj, device, backend):
     return len(res.points), len(res.pareto())
 
 
+def time_scored(label, study_kw, wl_kw, obj, device, backends, iters=3,
+                read_iters=None, warmup=1) -> dict:
+    """One warm search's row (its tables cached by an earlier search): per
+    backend of ``backends``, CUDA events around ``iters`` calls of the
+    search after ``warmup`` calls, and around ``read_iters`` (default
+    ``iters``) calls of the search followed by reading its frontier and
+    Pareto set (the search ends in host copies, so the events bracket all
+    of its device work); then the device's busy time in one read search
+    on the first backend from the profiler, and so its idle share.  On
+    the 128-step lattice every count is 1, and a scored search there is
+    not warmed again (the drive and the hold have warmed it) nor read on
+    the numpy engine, whose reading walks 5.5M candidates' Pareto set on
+    the host for seconds."""
+    lattice = label.startswith("lattice128")
+    if lattice:
+        iters = read_iters = 1
+        if obj != "cycles":
+            warmup = 0
+    row = {}
+    for backend in backends:
+        row[f"{backend} search_ms"] = cuda_ms(
+            lambda b=backend: run_search(study_kw, wl_kw, obj, device,
+                                         backend=b),
+            iters=iters, warmup=warmup)
+        if lattice and obj != "cycles" and backend == "numpy":
+            continue
+        row[f"{backend} search+read_ms"] = cuda_ms(
+            lambda b=backend: _search_and_read(study_kw, wl_kw, obj,
+                                               device, b),
+            iters=read_iters or iters, warmup=0)
+    prof = profile_device_ms(lambda: _search_and_read(
+        study_kw, wl_kw, obj, device, backends[0]), iters=1)
+    row["device_busy_ms"] = prof["device_ms"]
+    row["idle_share"] = None if prof["device_ms"] is None \
+        else 1.0 - prof["device_ms"] / prof["wall_ms"]
+    return row
+
+
 def time_searches(device) -> dict:
     """Warm searches (tables cached by the first drive), per main-path
-    search: the torch backend it runs on against the numpy engine, for the
-    search call alone and for the search followed by reading its frontier
-    and Pareto set; CUDA events around each call (the search ends in host
-    copies, so the events bracket all of its device work).  For the torch
-    backend, also the device's busy time in one read search from the
-    profiler, and so its idle share."""
-    out = {}
-    for label, study_kw, wl_kw, obj in main_path_searches(device):
-        row = {}
-        iters = 1 if label.startswith("lattice128") else 3
-        for backend in (study_kw["backend"], "numpy"):
-            row[f"{backend} search_ms"] = cuda_ms(
-                lambda b=backend: run_search(study_kw, wl_kw, obj, device,
-                                             backend=b),
-                iters=iters, warmup=1)
-            row[f"{backend} search+read_ms"] = cuda_ms(
-                lambda b=backend: _search_and_read(study_kw, wl_kw, obj,
-                                                   device, b),
-                iters=iters, warmup=0)
-        prof = profile_device_ms(lambda: _search_and_read(
-            study_kw, wl_kw, obj, device, study_kw["backend"]), iters=1)
-        row["device_busy_ms"] = prof["device_ms"]
-        row["idle_share"] = None if prof["device_ms"] is None \
-            else 1.0 - prof["device_ms"] / prof["wall_ms"]
-        out[label] = row
-    return out
+    search: the torch backend it runs on against the numpy engine
+    (``time_scored``)."""
+    return {label: time_scored(label, study_kw, wl_kw, obj, device,
+                               (study_kw["backend"], "numpy"))
+            for label, study_kw, wl_kw, obj in main_path_searches()}
 
 
 # ---------------------------------------------------------------------------
@@ -961,7 +1089,8 @@ def llm_searches():
 def drive_llm(device, rec) -> dict:
     """Each LLM search once, the counters set to 0 just before it and read
     just after: one ``grid_minmax`` launch a cycles search, on the shared
-    route, none for energy and EDP, and no call of the plain version.
+    route, none for energy and EDP, whose energy report is built once,
+    from the cycles grid on the card, and no call of the plain version.
     Then each result held bit-identical to the numpy engine's, each cycles
     search's kernel inputs held against the plain version (twice the same
     bits), and the candidates tied at each grid's minimum and maximum."""
@@ -973,15 +1102,18 @@ def drive_llm(device, rec) -> dict:
         results[label] = run_search(study_kw, wl_kw, obj, device)
         secs = time.perf_counter() - t0
         launches, routes, ref_calls = rec.read()
+        built_on = rec.reports()
         want = 1 if obj == "cycles" else 0
         check(launches == want and routes["shared"] == launches,
               f"{label}: {launches} grid_minmax launches by route {routes}, "
               f"expected {want} on shared")
         check(ref_calls == 0, f"{label}: grid_minmax_ref ran {ref_calls} "
               f"times on the card")
+        check_scored(label, obj, launches, built_on)
         costs = results[label].grid.costs
         out[label] = {"first_search_s": secs, "launches": launches,
-                      "routes": routes, "candidates": int(costs.size),
+                      "routes": routes, "reports_built_on": built_on,
+                      "candidates": int(costs.size),
                       "layers": len(Workload(**wl_kw).layers()),
                       "grid_min": int(costs.min()),
                       "grid_max": int(costs.max()),
@@ -1088,7 +1220,8 @@ def drive_service(device, rec) -> dict:
     client threads, then ``start()``.  Held: one request fails, as
     ``InvalidRequest``; a dedup hit and coalescing; one ``grid_minmax``
     launch for each workload of a grid cycles group (all on shared), no
-    plain call; every answer bit-identical to a direct search."""
+    plain call; the EDP request's energy report built from its cycles grid
+    on the card; every answer bit-identical to a direct search."""
     from repro_torch.core import INFER_PRESETS, Study, Workload
     from repro_torch.serve import (DSEClient, DSERequest, DSEService,
                                    InvalidRequest)
@@ -1120,11 +1253,17 @@ def drive_service(device, rec) -> dict:
     wall = time.perf_counter() - t0
     svc.close(timeout=60)
     launches, routes, ref_calls = rec.read()
+    built_on = rec.reports()
     stats = svc.stats()
 
     priced = {r.dedup_key: r for r, e in zip(reqs, errors) if e is None}
     want_launches = sum(1 for r in priced.values()
                         if r.method == "grid" and r.objective == "cycles")
+    scored = sum(1 for r in priced.values()
+                 if r.method == "grid" and r.objective != "cycles")
+    check(scored >= 1 and built_on == [torch.device(CARD).type] * scored,
+          f"service: energy reports built on {built_on}, expected "
+          f"{scored} from tensors on the card")
     failed = [(r.tag, e) for r, e in zip(reqs, errors) if e is not None]
     check(len(failed) == 1 and failed[0][0] == "misspelt"
           and isinstance(failed[0][1], InvalidRequest),
@@ -1143,6 +1282,7 @@ def drive_service(device, rec) -> dict:
                          _direct(device, req))
     return {"wall_s": wall, "launches": launches, "routes": routes,
             "expected_launches": want_launches,
+            "reports_built_on": built_on,
             "failed": [f"{tag}: {type(e).__name__}" for tag, e in failed],
             "stats": {k: getattr(stats, k) for k in (
                 "submitted", "completed", "failed", "dedup_hits", "batches",
@@ -1229,32 +1369,18 @@ def drive_hung_service(device, rec) -> dict:
             "workspaces": [list(w) for w in workspaces]}
 
 
+# ``time_scored``'s counts for an LLM search: the search 2 calls and the
+# read search 1, no warm-up
+LLM_TIMING = dict(iters=2, read_iters=1, warmup=0)
+
+
 def time_llm_searches(device) -> dict:
     """Warm LLM searches (tables cached, and each engine run once, by
     ``drive_llm``), as ``time_searches`` times the ResNet-50 ones but with
-    fewer calls: the search (2 calls), and the search followed by reading
-    its frontier and Pareto set (1 call), by CUDA events, on its torch
-    backend and on the numpy engine; and the device's busy time in one
-    read search from the profiler."""
-    out = {}
-    for label, study_kw, wl_kw, obj in llm_searches():
-        row = {}
-        for backend in (study_kw["backend"], "numpy"):
-            row[f"{backend} search_ms"] = cuda_ms(
-                lambda b=backend: run_search(study_kw, wl_kw, obj, device,
-                                             backend=b),
-                iters=2, warmup=0)
-            row[f"{backend} search+read_ms"] = cuda_ms(
-                lambda b=backend: _search_and_read(study_kw, wl_kw, obj,
-                                                   device, b),
-                iters=1, warmup=0)
-        prof = profile_device_ms(lambda: _search_and_read(
-            study_kw, wl_kw, obj, device, study_kw["backend"]), iters=1)
-        row["device_busy_ms"] = prof["device_ms"]
-        row["idle_share"] = None if prof["device_ms"] is None \
-            else 1.0 - prof["device_ms"] / prof["wall_ms"]
-        out[label] = row
-    return out
+    fewer calls (``LLM_TIMING``)."""
+    return {label: time_scored(label, study_kw, wl_kw, obj, device,
+                               (study_kw["backend"], "numpy"), **LLM_TIMING)
+            for label, study_kw, wl_kw, obj in llm_searches()}
 
 
 def llm_slice(device, card, report, rec, results) -> int:
@@ -6055,16 +6181,18 @@ def dse_phases(device, card, report) -> dict:
     the service on the card; returns ``grid_minmax``'s kernels-line
     entry."""
     with Recorder() as rec:
-        results, launches, routes, wall_s, inputs = drive_main_path(device,
-                                                                    rec)
+        results, launches, routes, wall_s, inputs, built_on = \
+            drive_main_path(device, rec)
     report["launches"] = launches
     report["routes"] = routes
     report["first_search_s"] = wall_s
+    report["reports_built_on"] = built_on
     print(f"main path launches of grid_minmax: {launches}; by route: "
           f"{routes}")
+    print(f"energy reports built on: {built_on}")
     for label, s in wall_s.items():
         print(f"  first search {label}: {s} s")
-    fused = [lab for lab, _, _, _ in main_path_searches(device)
+    fused = [lab for lab, _, _, _ in main_path_searches()
              if lab.endswith("/cycles")]
     for label in fused:
         check(launches[label] >= 1,
@@ -6077,7 +6205,11 @@ def dse_phases(device, card, report) -> dict:
     report["parity"] = hold_against_numpy(results, device)
     print(f"parity with the numpy engine: {report['parity']['checks']} "
           f"checks passed; training grid max "
-          f"{report['parity']['training_grid_max']}")
+          f"{report['parity']['training_grid_max']}; power cap "
+          f"{report['parity']['power_cap_w']} W with "
+          f"{report['parity']['power_cap_infeasible']} candidates "
+          f"infeasible; the custom objective's NaN scores "
+          f"{report['parity']['custom_nan_scores']}")
 
     cases = {name: tuple(torch.from_numpy(a).to(device) for a in arrs)
              for name, arrs in kernel_cases().items()}

@@ -158,6 +158,9 @@ DEFAULT_MANIFEST = Manifest(
     x64_modules=(
         "repro_torch/core/gridtorch.py",
         "repro_torch/kernels/reduce.py",
+        # the float64 energy report and objective scores on the device
+        "repro_torch/core/energy.py",
+        "repro_torch/core/objectives.py",
     ),
     determinism_modules=(
         "repro_torch/core/dse.py",

@@ -1032,7 +1032,10 @@ class _EnergyFields:
 
     def grids(self, l_total: np.ndarray) -> Dict[str, np.ndarray]:
         """The full vectorized energy report, shaped like ``l_total``
-        ([n_size_tuples x n_bw_tuples] cycles)."""
+        ([n_size_tuples x n_bw_tuples] cycles): numpy for a numpy grid,
+        torch tensors on its device for the torch backends' device grid
+        (the columns below are gathered on the host and moved once by
+        ``compute_energy_batch``)."""
         def col(v: np.ndarray) -> np.ndarray:
             return v[:, None]
 

@@ -21,6 +21,7 @@ which are insensitive to uniform constant scaling.
 """
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 from typing import Dict, Mapping, Union
 
@@ -29,12 +30,42 @@ import numpy as np
 from .hardware import HardwareSpec
 
 
+class _TorchNamespace:
+    """The array functions the batched energy/objective math calls, in
+    torch on one device (``array_namespace`` of a tensor).  ``asarray``
+    moves host values there; numpy's ``dtype=float`` is ``torch.float64``,
+    and without a dtype a host value keeps the dtype numpy gives it
+    (float64 for a Python float, where torch would make float32)."""
+
+    def __init__(self, device):
+        import torch
+        self._torch = torch
+        self.device = device
+
+    def asarray(self, x, dtype=None):
+        torch = self._torch
+        if dtype is float:
+            dtype = torch.float64
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def where(self, cond, x, y):
+        return self._torch.where(cond, x, y)
+
+    def zeros_like(self, x):
+        return self._torch.zeros_like(x)
+
+
 def array_namespace(x) -> object:
-    """The array module for the batched energy/objective math: always
-    ``numpy``.  The grid backends of this package compose costs on the
-    device and score them on the host (``core.gridtorch.reduce_scored``),
-    so every grid that reaches here is a numpy array."""
-    del x
+    """A torch namespace on ``x``'s device if ``x`` is a torch tensor,
+    else ``numpy``.  Keeps the batched energy/objective math on whichever
+    device composed the cycles grid (the torch DSE backends score there)
+    without importing torch on the numpy path -- if ``x`` is a tensor,
+    torch is necessarily already in ``sys.modules``."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(x, torch.Tensor):
+        return _TorchNamespace(x.device)
     return np
 
 PJ = 1e-12
@@ -125,13 +156,22 @@ def compute_energy_batch(hw: HardwareSpec, *,
     an entire design-space grid.  Term structure and accumulation order
     mirror the scalar function exactly (Eqs. 29-32).
 
-    ``l_total`` is a numpy array on every backend (the device backends
-    score on the host), so the report is the same IEEE operations in the
-    same order whichever backend composed the grid."""
+    ``l_total`` may be a torch tensor (the torch DSE backends): every
+    term over it is elementwise, so the report stays on its device with
+    the same IEEE operations in the same order -- bit-identical to the
+    numpy path.  The per-candidate columns that do not involve it
+    (``c_sa * P_SA_dyn``, ``c_simd * P_SIMD_dyn``, E_S, E_D) are computed
+    on the host as on the numpy path, then moved to the device once.
+    ``l_total`` turns float64 before it is scaled: torch scales an int64
+    tensor by a Python float in float32, numpy converts it to float64
+    first -- the conversion made here.  No division by a Python scalar
+    (CUDA multiplies by its reciprocal) and no fused multiply-add."""
     xp = array_namespace(l_total)
-    e_sa = (c_sa * em.p_sa_dyn(hw) + l_total * em.p_sa_leak(hw)) * em.t_clk_s
-    e_simd = (c_simd * em.p_simd_dyn(hw)
-              + l_total * em.p_simd_leak(hw)) * em.t_clk_s
+    cycles = xp.asarray(l_total, dtype=float)
+    e_sa = (xp.asarray(c_sa * em.p_sa_dyn(hw))
+            + cycles * em.p_sa_leak(hw)) * em.t_clk_s
+    e_simd = (xp.asarray(c_simd * em.p_simd_dyn(hw))
+              + cycles * em.p_simd_leak(hw)) * em.t_clk_s
 
     e_s = 0.0
     for buf in SRAM_BUFFER_ORDER:
@@ -142,10 +182,11 @@ def compute_energy_batch(hw: HardwareSpec, *,
         if buf not in SRAM_BUFFER_ORDER:
             e_s = e_s + (sram_bits[buf]
                          * em.e_sram_pj_per_bit(sram_sizes[buf]) * PJ)
-    e_d = dram_bits * em.e_dram_pj_per_bit * PJ
+    e_s = xp.asarray(e_s)
+    e_d = xp.asarray(dram_bits * em.e_dram_pj_per_bit * PJ)
 
     e_total = e_sa + e_simd + e_s + e_d
-    runtime_s = xp.asarray(l_total, dtype=float) * em.t_clk_s
+    runtime_s = cycles * em.t_clk_s
     with np.errstate(divide="ignore", invalid="ignore"):
         p_avg = xp.where(runtime_s > 0, e_total / runtime_s, 0.0)
     return {

@@ -23,10 +23,13 @@ Bit-identity contract (pinned against the numpy engine, the scalar
   * **First-occurrence ties.**  ``torch.argmin``/``argmax`` return the
     first occurrence, as numpy's do; the CUDA kernel merges
     lexicographically on (value, flat index) for the same contract.
-  * **Scoring on the host.**  ``energy.array_namespace`` knows only
-    numpy, so general objectives score the device-composed cost grid in
-    numpy (the same IEEE operations as the numpy engine); the masked
-    best/worst and the frontier then run on the device.
+  * **Scoring on the device.**  General objectives score the
+    device-composed cost grid where it lies: ``energy.array_namespace``
+    gives a torch namespace for a tensor, and the energy report and the
+    shipped objectives are eager float64 torch ops, the same IEEE
+    operations in the same order as the numpy engine (no op that fuses a
+    multiply into an add, no division by a Python scalar).  The masked
+    best/worst and the frontier follow on the device.
 
 Results return as numpy arrays: the ``DSEGrid``/``DSEResult`` machinery
 downstream is shared with the numpy backend.
@@ -126,6 +129,27 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+class HostReadable(torch.Tensor):
+    """A tensor that numpy reads by copying it to the host, as it reads a
+    jax array: what a ``MetricBatch`` of the torch backends hands an
+    objective, so that a numpy-only objective (``np.asarray(m.cycles)``)
+    keeps working on a CUDA grid.  Torch ops on it stay on its device."""
+
+    def __array__(self, dtype=None, copy=None):
+        a = _host(self.as_subclass(torch.Tensor).detach())
+        return a if dtype is None else a.astype(dtype, copy=False)
+
+
+def _readable(x):
+    return x.as_subclass(HostReadable) if isinstance(x, torch.Tensor) else x
+
+
+def _plain_host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return _host(x.as_subclass(torch.Tensor))
+    return np.asarray(x)
+
+
 # ---------------------------------------------------------------------------
 # Public entry points (numpy in, numpy out)
 # ---------------------------------------------------------------------------
@@ -191,26 +215,36 @@ def reduce_scored(conv: np.ndarray, simd: np.ndarray,
                                    Optional[Dict[str, np.ndarray]],
                                    int, int, bool, np.ndarray]:
     """The general-objective reduction for one network: compose the cost
-    grid on the device, score it on the host through ``objective``
-    (energy grids, if the objective pulls them, come from
-    ``energy_grids_fn(costs)``), then the non-finite-masked best/worst
-    and the frontier mask on the device.
+    grid on the device, score it there through ``objective`` (energy
+    grids, if the objective pulls them, come from
+    ``energy_grids_fn(costs)`` on the device tensor -- the torch-aware
+    ``compute_energy_batch`` keeps them there), then the
+    non-finite-masked best/worst and the frontier mask.  The objective
+    sees ``HostReadable`` tensors; a numpy score is taken back to the
+    device.
 
     Returns ``(costs, scores, energy_report_or_None, best_idx,
     worst_idx, any_feasible, frontier_mask)`` — all numpy."""
     from .objectives import MetricBatch
     t = from_numpy_tables([conv], [simd], s3_of, b3_of, v_of, w_of, device)
-    costs = _host(t.costs()[0])
-    mb = MetricBatch(costs, lambda c=costs: energy_grids_fn(c))
-    scores = np.asarray(objective.score(mb), dtype=float)
-    flat = torch.from_numpy(np.ascontiguousarray(scores).ravel()).to(device)
+    costs = t.costs()[0]
+    mb = MetricBatch(_readable(costs), lambda: {
+        k: _readable(v) for k, v in energy_grids_fn(costs).items()})
+    scores = objective.score(mb)
+    if not isinstance(scores, torch.Tensor):     # numpy's own conversion
+        scores = np.ascontiguousarray(scores, dtype=float)
+    scores = torch.as_tensor(scores, dtype=torch.float64,
+                             device=device).as_subclass(torch.Tensor)
+    flat = scores.reshape(-1)
     finite = torch.isfinite(flat)
     # mask both sides: a NaN (or +-inf) score marks an infeasible
     # candidate and must poison neither argmin nor argmax
     bi = torch.where(finite, flat, float("inf")).argmin()
     wi = torch.where(finite, flat, float("-inf")).argmax()
     fm = _frontier(flat, bi, frontier_mult)
-    return (costs, scores, mb._report, int(bi), int(wi),
+    report = None if mb._report is None else \
+        {k: _plain_host(v) for k, v in mb._report.items()}
+    return (_host(costs), _host(scores), report, int(bi), int(wi),
             bool(finite.any()), _host(fm))
 
 

@@ -29,6 +29,13 @@ Custom objectives: subclass ``Objective`` (or any object with ``name``,
 ``needs_energy`` and ``score``) and either pass the instance directly to
 ``Study.search`` or ``register_objective`` a zero-arg factory for a
 string name.
+
+On the torch DSE backends a ``MetricBatch`` carries the device grid:
+every metric is a torch tensor on the search's device, and the shipped
+objectives score it there (``energy.array_namespace``).  A numpy-only
+objective keeps working, as it does on a jax grid: ``np.asarray`` of a
+metric copies it to the host (``gridtorch.HostReadable``), and a numpy
+score goes back to the device.
 """
 from __future__ import annotations
 
@@ -45,7 +52,9 @@ class MetricBatch:
 
     ``cycles`` is eager; the energy report — the dict ``compute_energy``
     returns, vectorized per candidate — is produced lazily by the
-    engine-supplied thunk and cached across metric accesses.
+    engine-supplied thunk and cached across metric accesses.  Both are
+    numpy arrays on the host engines and torch tensors on the device
+    grid of the torch backends.
     """
 
     def __init__(self, cycles: np.ndarray,
@@ -144,8 +153,8 @@ class CyclesUnderPowerCap(Objective):
     needs_energy = True
 
     def score(self, m: MetricBatch) -> np.ndarray:
-        # xp dispatch keeps jnp metric batches (the device DSE backend)
-        # on device; the numpy path is byte-for-byte the legacy one
+        # xp dispatch keeps torch metric batches (the torch DSE backends)
+        # on their device; the numpy path is byte-for-byte the legacy one
         xp = array_namespace(m.cycles)
         return xp.where(xp.asarray(m.power) <= self.cap_w,
                         xp.asarray(m.cycles, dtype=float), np.inf)

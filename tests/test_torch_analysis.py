@@ -425,6 +425,30 @@ def test_x64_flags_defaults_narrowing_and_ctypes(tmp_path):
     ]
 
 
+@pytest.mark.parametrize("rel", ["repro_torch/core/energy.py",
+                                 "repro_torch/core/objectives.py"])
+def test_x64_scans_the_device_scoring_modules(tmp_path, rel):
+    """The energy report and the objectives score on the device, so the
+    x64 pass scans them: each is clean as committed, and a float32
+    factory or cast added to a copy of it is flagged there."""
+    assert rel in DEFAULT_MANIFEST.x64_modules
+    source = (PORT.parent / rel).read_text()
+    p = tmp_path / "src" / rel
+    p.parent.mkdir(parents=True)
+    p.write_text(source)
+    files = collect_sources([p], root=tmp_path)
+    assert run_passes(files, DEFAULT_MANIFEST, only=("x64",)) == []
+    p.write_text(source + textwrap.dedent('''
+        def narrowed(cycles):
+            return torch.zeros(3), cycles.float()
+    '''))
+    files = collect_sources([p], root=tmp_path)
+    got = [(f.path, f.code, f.symbol)
+           for f in run_passes(files, DEFAULT_MANIFEST, only=("x64",))]
+    assert got == [(f"src/{rel}", "X64001", "narrowed:torch.zeros"),
+                   (f"src/{rel}", "X64002", "narrowed:.float()")]
+
+
 def test_x64_scopes_narrowing_to_its_modules(tmp_path):
     """Outside ``x64_modules`` narrowing is legal (the models compute in
     bf16); a default-dtype change is flagged in every scanned file."""
