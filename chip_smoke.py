@@ -264,9 +264,8 @@ what ran):
     400/5/0 a step held, the bf16 logits against the plain route on the
     kernel route's MoE choices, each kernel on the model's inputs), with
     no float32 whole-model hold and no ``serve_loop`` (74.2 GB in
-    float32); the same prefill once more with ``with_axis_sizes(
-    PROD_RULES, mesh)`` over a one-rank (1, 1) ``("data", "model")``
-    mesh on NCCL, its logits bit-equal to ``rules=None``'s; the gradient
+    float32); over a one-rank (1, 1) ``("data", "model")`` mesh on NCCL,
+    the gradient
     compression (``optim/compression.py``) over a float32 tree shaped as
     Qwen3-0.6B's parameters: ``quantize`` and ``dequantize`` bit-equal
     to the same calls on the CPU (each leaf's first and last 2**20
@@ -316,7 +315,28 @@ what ran):
     run as a user runs them, on the card, each with rc 0
     (``torch_train_resume`` holding its own drift, the serving examples
     serving on cuda, ``torch_simulate_accelerator`` printing on the card
-    the lines it prints with ``--device cpu``).
+    the lines it prints with ``--device cpu``);
+24. runs the partitioned route (``kernels.ops.partitioned``: the kernels
+    on the local shards of ``DTensor``s) on the card.  (a) Over a
+    one-rank (1, 1) ``("data", "model")`` NCCL mesh, Qwen3-0.6B at full
+    width and depth (bf16, seed 2026, ``conditioned`` weights; the
+    state placed by ``make_state_shardings``, the batch by
+    ``batch_shardings``): a prefill of 2 x 2048, 4 greedy decode steps
+    and one AdamW step at 2 x 1024 under remat ``full``, each held bit
+    for bit against the unpartitioned kernel route from the same weights
+    (logits, tokens and cache; loss, every gradient, the new parameters
+    and moments), with each kernel's launches equal to that route's.
+    (b) On PyTorch's ``fake`` process group at world 256, as rank 0 of
+    the 16 x 16 mesh, rank 0's local program of Qwen3's ``train_4k``
+    (16 x 4096 local), ``prefill_32k`` (2 x 32,768) and ``decode_32k``
+    (8 over 32,768 rows) with the real kernels (``launch/program.py``'s
+    ``local_program``; a fake collective moves nothing, so its values
+    are not held): the allocator's peak within ``PART_PEAK_MARGIN_GB``
+    of the dry run's ``argument_bytes + temp_bytes`` for the cell (the
+    record from ``python -m repro_torch.launch.dryrun`` in a process of
+    its own), the collectives' bytes by kind read on the card equal to
+    the dry run's, a warm step's ms by events and device ms from the
+    profiler.
 
 Each phase group's seconds are printed, with its float32 GEMM launches by
 how the kernel's ring was filled (TMA or cp.async; phase 17's all on
@@ -4937,86 +4957,6 @@ def one_rank_mesh(device):
             dist.destroy_process_group()
 
 
-def ruled_prefill(mesh):
-    """``serve_model``'s ``more``: the rules on ``mesh``.  The kernel
-    route's prefill once with ``rules=None`` and once with
-    ``PROD_RULES`` sized to ``mesh``: on plain tensors ``shard`` returns
-    its input, so the logits must be the same bits.  Then the rules on
-    ``DTensor``s, where they do act: every parameter leaf placed by
-    ``make_state_shardings`` (AdamW's moments placed as their
-    parameters), held bit-equal through ``full_tensor``; and the
-    prefill's embedded hidden state taken through ``shard`` twice, each
-    time redistributed to the placements its spec resolves to."""
-    def more(cfg, params, batch, max_len):
-        import torch.distributed as dist
-        from torch.distributed.tensor import (DTensor, Replicate, Shard,
-                                              distribute_tensor)
-        from repro_torch.launch import serve
-        from repro_torch.launch.train import make_state_shardings
-        from repro_torch.models.common import (PROD_RULES, placements, shard,
-                                               spec, with_axis_sizes)
-        from repro_torch.models.layers import embed_tokens
-        from repro_torch.models.transformer import Model
-        from repro_torch.optim import AdamW
-        rules = with_axis_sizes(PROD_RULES, mesh)
-        model = Model(cfg)
-        want = serve.make_prefill_step(model, None, max_len)(params, batch)[0]
-        got = serve.make_prefill_step(model, rules, max_len)(params, batch)[0]
-        check(torch.equal(got, want), f"{cfg.name}: the prefill's logits "
-              f"with PROD_RULES on a one-rank mesh differ from rules=None's")
-        out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-               "backend": dist.get_backend(mesh.get_group("data")),
-               "logits": list(got.shape), "bit_equal": True}
-        del want, got
-
-        pairs = make_state_shardings(model, AdamW(schedule=lambda _: 0.0),
-                                     rules, mesh)
-        placed = {"leaves": 0, "sharded": 0}
-        for (name, leaf), (_, (m, pl)) in zip(leaf_items(params),
-                                              leaf_items(pairs["params"])):
-            dt = distribute_tensor(leaf, m, pl)
-            check(list(dt.placements) == pl
-                  and dt.to_local().shape == leaf.shape
-                  and torch.equal(dt.full_tensor(), leaf),
-                  f"{cfg.name}{name}: placed at {pl} on the one-rank mesh, "
-                  f"its local shard or full tensor differs from the leaf")
-            placed["leaves"] += 1
-            placed["sharded"] += any(isinstance(q, Shard) for q in pl)
-            del dt
-        for moment in ("m", "v"):
-            check([pl for _, (_, pl) in leaf_items(pairs["opt"][moment])]
-                  == [pl for _, (_, pl) in leaf_items(pairs["params"])],
-                  f"{cfg.name}: AdamW's {moment} placed otherwise than the "
-                  f"parameters")
-        check(placed["sharded"] > 0, f"{cfg.name}: PROD_RULES shard none "
-              f"of the {placed['leaves']} parameter leaves")
-        out["placed"] = placed
-
-        x = embed_tokens(params["embed"], batch["tokens"], None, cfg.dtype)
-        xd = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
-        out["hidden"] = []
-        for axes in (("batch", "seq_resid", "act_embed"),
-                     ("batch", "seq", "act_embed")):
-            pl = placements(spec(rules, *axes, shape=tuple(x.shape)), mesh)
-            before = list(xd.placements)
-            xd = shard(xd, rules, *axes)
-            check(isinstance(xd, DTensor) and list(xd.placements) == pl
-                  and pl != before and torch.equal(xd.full_tensor(), x),
-                  f"{cfg.name}: shard of the hidden state by {axes} did not "
-                  f"redistribute {before} to {pl} with the same values")
-            out["hidden"].append(f"{before} -> {pl}")
-        del x, xd
-        print(f"  the prefill with with_axis_sizes(PROD_RULES, mesh) over a "
-              f"one-rank {out['mesh']} mesh ({out['backend']}): logits "
-              f"{out['logits']} bit-equal to rules=None's (shard passes "
-              f"plain tensors); make_state_shardings placed "
-              f"{placed['leaves']} parameter leaves ({placed['sharded']} "
-              f"sharded), each full_tensor bit-equal; shard redistributed "
-              f"the hidden state {'; '.join(out['hidden'])}, values equal")
-        return out
-    return more
-
-
 def _quant_slices(size: int) -> list:
     """``(start, stop)`` of a leaf's first and last ``QUANT_SLICE``
     elements, the last from a block boundary (the whole leaf if small)."""
@@ -5098,78 +5038,22 @@ def hold_compression(device, card) -> dict:
     return out
 
 
-# Ops whose CUDA kernel holds, beside its output, a temporary as large
-# as the output times this, unseen by a dispatch mode: read on an H100 by
-# ``scripts/op_temporaries.py`` over Qwen3-0.6B's training step at 2 x
-# 4096 (``_softmax_backward_data`` at rows of 4096 float32: 2.147 GB over
-# its 2.147 GB output, each of its 28 calls; the step's peak is there).
-CUDA_OP_TEMPORARIES = {torch.ops.aten._softmax_backward_data.default: 1}
-
-
-def meta_peak_bytes(fn) -> int:
-    """The most bytes ``fn()``'s ops hold at once on the meta device:
-    every storage an op makes (an output on none of its inputs'
-    storages), from its making until it is freed (a storage autograd
-    keeps for the backward stays counted), and the temporaries of
-    ``CUDA_OP_TEMPORARIES`` while their op runs; tensors made before the
-    call are not.  Storages, not schemas, decide: under inference mode
-    ``aten.to`` and ``aten.reshape`` reach the mode undecomposed, and may
-    copy."""
-    import weakref
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_leaves
-    live = {"now": 0, "peak": 0}
-
-    def free(n):
-        live["now"] -= n
-
-    def storages(tree):
-        return {t.untyped_storage()._cdata for t in tree_leaves(tree)
-                if isinstance(t, torch.Tensor)}
-
-    class Live(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            # under inference mode a composite op (``einsum``) reaches
-            # the mode whole: its parts, and the copies they make, come
-            # back through the mode by its decomposition
-            with self:
-                res = func.decompose(*args, **(kwargs or {}))
-            if res is not NotImplemented:
-                return res
-            res = func(*args, **(kwargs or {}))
-            seen, made = storages((args, kwargs)), 0
-            for t in tree_leaves(res):
-                if not isinstance(t, torch.Tensor):
-                    continue
-                st = t.untyped_storage()
-                if st._cdata in seen:
-                    continue
-                seen.add(st._cdata)
-                n = st.nbytes()
-                made += n
-                live["now"] += n
-                weakref.finalize(st, free, n)
-            live["peak"] = max(live["peak"], live["now"] + made
-                               * CUDA_OP_TEMPORARIES.get(func, 0))
-            return res
-
-    with Live():
-        fn()
-    return live["peak"]
-
-
 def moe_f32_reckoning(cfg, tokens: int) -> dict:
     """The float32 MoE layer hold's bytes, counted on the meta device (no
     memory, no card): its weights, and the most the plain route of
-    ``apply_moe`` on (1, tokens, d) holds at once (``meta_peak_bytes``)."""
+    ``apply_moe`` on (1, tokens, d) holds at once (``launch.program.
+    StepReader``'s peak)."""
     from repro_torch.kernels import forward as F
+    from repro_torch.launch.program import StepReader
     from repro_torch.models import moe
     from repro_torch.models.common import param_count, tree_map
     defs = moe.moe_defs(cfg)
     params = tree_map(lambda d: torch.empty(d.shape, device="meta"), defs)
     x = torch.empty((1, tokens, cfg.d_model), device="meta")
-    made = meta_peak_bytes(lambda: moe.apply_moe(cfg, params, x, None,
-                                                 impl=F.PLAIN))
+    reader = StepReader()
+    with reader:
+        moe.apply_moe(cfg, params, x, None, impl=F.PLAIN)
+    made = reader.peak
     n = param_count(defs)
     return {"params": n, "weights_gb": 4 * n / 1e9,
             "activations_gb": made / 1e9, "input_gb": 4 * x.numel() / 1e9,
@@ -5266,8 +5150,7 @@ def llama4_slice(device, card, report) -> dict:
     out, secs = {}, {}
     with one_rank_mesh(device) as mesh:
         t0 = time.perf_counter()
-        out["serve"] = serve_model(LLAMA4, device, card, held,
-                                   more=ruled_prefill(mesh))
+        out["serve"] = serve_model(LLAMA4, device, card, held)
         secs["serve"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -5314,31 +5197,6 @@ DRY_GEMMA = dict(arch="gemma3-27b", shape="train_4k", batch=1,
                  windows=(1024, 0))
 
 
-def kernel_shaped():
-    """The kernel route's memory on the meta device: what each wrapper
-    allocates.  ``matmul`` its output in A's type and, where the tile
-    model splits K, the float32 workspace of the partial sums, freed on
-    return; ``fused_add_rmsnorm`` its two outputs; attention its output
-    alone (the plain version's S x S scores never exist on the kernel
-    route's forward; its backward, ``FlashAttentionFn``, recomputes
-    them)."""
-    from repro_torch.core.gpu_model import select_matmul_block
-
-    def matmul(a, b):
-        (m, k), n, size = a.shape, b.shape[1], a.element_size()
-        out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-        splits = select_matmul_block(m, n, k, bytes_in=size,
-                                     bytes_out=size).splits
-        if splits > 1:
-            torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-        return out
-    return SimpleNamespace(
-        matmul=matmul,
-        fused_add_rmsnorm=lambda x, r, s: (torch.empty_like(x),
-                                           torch.empty_like(x)),
-        flash_attention=lambda q, k, v, *a, **kw: torch.empty_like(q))
-
-
 def kv_group(q, k, v, n_heads: int, n_kv: int, j: int = 0) -> tuple:
     """Attention's arguments cut to KV head ``j`` and its group of query
     heads: ``(q, k, v, group, 1)`` in the kernels' layout."""
@@ -5377,6 +5235,7 @@ def dry_inputs(cfg, kind: str, batch: int, seq: int, device, impl=None):
     ``pos`` set ``DRY_DECODE_STEPS`` rows short of the end."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
+    from repro_torch.launch.program import kernel_shaped
     from repro_torch.models.common import tree_map
     from repro_torch.models.transformer import Model
     from repro_torch.optim import AdamW, constant_schedule
@@ -5592,17 +5451,17 @@ def dry_reckoning(cfg, kind: str, batch: int, seq: int) -> dict:
     and the most held at once while it is made and two kernel-shaped
     steps run from it, so that what a first step leaves (the tied head's
     kept copy) is held through the second, as on the card."""
-    made = {}
-
-    def two_steps():
+    from repro_torch.launch.program import StepReader
+    reader = StepReader()
+    with reader:
         step, state, x = dry_inputs(cfg, kind, batch, seq,
                                     torch.device("meta"))
-        made["state"] = state_bytes(state)
+        made = state_bytes(state)
         for _ in range(2):
             state, _ = step(state, x)
-    peak = meta_peak_bytes(two_steps)
-    return {"state_gb": made["state"] / 1e9,
-            "step_peak_gb": (peak - made["state"]) / 1e9,
+    peak = reader.peak
+    return {"state_gb": made / 1e9,
+            "step_peak_gb": (peak - made) / 1e9,
             "total_gb": peak / 1e9}
 
 
@@ -6176,6 +6035,276 @@ def analysis_slice(device, card, report) -> dict:
     return {"launches": {"grid_minmax": witness["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the partitioned route
+# ---------------------------------------------------------------------------
+
+PART_ARCH = "qwen3-0.6b"
+PART_SEED = 2026
+PART_PREFILL = (2, 2048)          # (a)'s prefill: batch, tokens
+PART_DECODE_STEPS = 4
+PART_TRAIN = (2, 1024)            # (a)'s AdamW step: batch, tokens
+PART_LR = 1e-3
+# (b)'s cells of launch/shapes.py, each at its full global shape
+PART_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# the card's peak allocated bytes of a cell, less the dry run's
+# argument_bytes + temp_bytes, in GB (phase 22's limit for its peak)
+PART_PEAK_MARGIN_GB = 0.1
+
+
+def _whole(t):
+    from repro_torch.models.common import is_placed
+    return t.full_tensor() if is_placed(t) else t
+
+
+def same_tree(label: str, got, want) -> int:
+    """Every leaf of ``got`` (``DTensor``s gathered) the same bits as
+    ``want``'s; returns the leaves held."""
+    items = list(leaf_items(want))
+    got_items = dict(leaf_items(got))
+    for name, w in items:
+        g = _whole(got_items[name])
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and torch.equal(g, w), f"{label}{name}: the partitioned "
+              f"route differs from the unpartitioned one on one rank")
+    return len(items)
+
+
+def one_rank_partitioned(device, mesh) -> dict:
+    """Phase 24 (a): Qwen3-0.6B's prefill, decode steps and AdamW step on
+    the partitioned route over the one-rank ``mesh``, each held bit-equal
+    to the unpartitioned kernel route from the same weights (on one rank
+    every shard is the whole tensor): the prefill's logits and cache,
+    each decode step's logits (``Model.decode_step`` on a copy of the
+    cache) and the tokens and cache of ``make_serve_step``, the loss,
+    every gradient and the updated state.  The unpartitioned route runs
+    first; the partitioned route's launches are counted alone and held
+    equal to the unpartitioned route's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models.common import (PROD_RULES, place, tree_map,
+                                           with_axis_sizes)
+    from repro_torch.models.layers import greedy
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamW, constant_schedule
+    cfg = get_config(PART_ARCH)               # bf16; remat "full"
+    rules = with_axis_sizes(PROD_RULES, mesh)
+    gen = torch.Generator(device=device).manual_seed(PART_SEED)
+    params = conditioned(Model(cfg).init(gen))
+    (b, s), (tb, ts) = PART_PREFILL, PART_TRAIN
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=device, dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (tb, ts), generator=gen,
+                           device=device, dtype=torch.int32)
+    max_len = s + PART_DECODE_STEPS + 8
+    opt = AdamW(schedule=constant_schedule(PART_LR))
+    part = Model(cfg, impl=ops.partitioned(ops, mesh, rules))
+    sh = train.make_state_shardings(part, opt, rules, mesh)
+
+    def run(model, params, place_batch, step_rules):
+        """Prefill, decode steps and one step; their outputs."""
+        out = {}
+        logits, cache = serve.make_prefill_step(model, step_rules, max_len)(
+            params, {"tokens": place_batch(prompts)})
+        out["prefill"] = {"logits": logits, "cache": cache}
+        decode = serve.make_serve_step(model, step_rules)
+        tok = greedy(logits)
+        for i in range(PART_DECODE_STEPS):
+            # the logits from a copy of the cache; the tokens and the
+            # cache through the serve step
+            lg = model.decode_step(params, tok[:, None], tree_map(
+                torch.clone, cache), step_rules)[0]
+            tok, cache = decode(params, cache, tok[:, None])
+            out[f"decode{i}"] = {"logits": lg, "tokens": tok}
+        out["cache"] = cache
+        p = train.trainable(params)
+        keep = KeepGrads(opt)
+        new, metrics = train.make_train_step(
+            model if step_rules else Model(cfg, impl=ops.differentiable()),
+            keep, step_rules)({"params": p, "opt": opt.init(p)},
+                              {"tokens": place_batch(tokens)})
+        out["step"] = {"state": new, "grads": keep.grads,
+                       "loss": metrics["loss"],
+                       "grad_norm": metrics["grad_norm"]}
+        return out
+
+    zero_counters()
+    want = run(Model(cfg), params, lambda t: t, None)
+    torch.cuda.synchronize()
+    want_launches = {k: c.launches for k, c in _counters().items()}
+    dparams = place(params, sh["params"])
+    batch_pl = train.batch_shardings(mesh, rules, {"tokens": None})
+    zero_counters()
+    got = run(part, dparams,
+              lambda t: place({"tokens": t}, batch_pl)["tokens"], rules)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in _counters().items()}
+    check(launches == want_launches and all(
+        launches[k] > 0 for k in ("matmul", "fused_add_rmsnorm",
+                                  "flash_attention")),
+          f"the partitioned route launched {launches}, the unpartitioned "
+          f"{want_launches}")
+    held = {part_: same_tree(f"{part_}: ", got[part_], want[part_])
+            for part_ in want}
+    local = got["prefill"]["logits"].to_local().shape
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "launches": launches, "leaves_held": held,
+           "loss": float(_whole(got["step"]["loss"])),
+           "grad_norm": float(_whole(got["step"]["grad_norm"])),
+           "logits_local": list(local),
+           "placements": [str(p) for p in got["prefill"]["logits"]
+                          .placements]}
+    print(f"  (a) one-rank {out['mesh']} NCCL mesh: prefill {b} x {s}, "
+          f"{PART_DECODE_STEPS} decode steps, AdamW step {tb} x {ts} under "
+          f"remat full, bit-equal to the unpartitioned kernel route "
+          f"(leaves held {held}); loss {out['loss']}, grad_norm "
+          f"{out['grad_norm']}; launches {launches} (the unpartitioned "
+          f"route's too)")
+    return out
+
+
+def traced_device_ms(fn) -> tuple:
+    """``(ms, records)``: the device milliseconds of one call of ``fn``
+    from a trace of the card's activity alone (the host's ops, thousands
+    on the partitioned route, are not recorded; ms None where the trace
+    holds none) and the device records it holds."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.device_time_total for e in device)
+    return (us / 1e3 if us else None), len(device)
+
+
+def fake_partitioned(device, card, record_of) -> dict:
+    """Phase 24 (b): rank 0's program of each ``PART_CELLS`` cell, the
+    last first (``train_4k``'s dry run takes longest), on the ``fake``
+    process group at world 256 with the real kernels: the allocator's
+    peak against the dry run's ``argument_bytes + temp_bytes``
+    (``record_of(name)``), the collectives read on the card against the
+    dry run's, and a warm step timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.program import local_program, read_step
+    from repro_torch.launch.shapes import SHAPES, adjust_config, cell_rules
+    from repro_torch.models.common import with_axis_sizes
+    out, launches = {}, {}
+    with fake_world(False):
+        mesh = make_production_mesh(device_type=device.type)
+        for name in reversed(PART_CELLS):
+            shape = SHAPES[name]
+            cfg = adjust_config(get_config(PART_ARCH), shape)
+            rules = with_axis_sizes(cell_rules(shape, False, 16), mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            gen = torch.Generator(device=device).manual_seed(PART_SEED)
+            step, inputs = local_program(cfg, shape.kind, shape.global_batch,
+                                         shape.seq, mesh, rules, impl=ops,
+                                         device=device, generator=gen)
+            torch.cuda.synchronize()
+            args = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            t0 = time.perf_counter()
+            read = read_step(step, *inputs)
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            for k, c in _counters().items():
+                launches[k] = launches.get(k, 0) + c.launches
+            rec = record_of(name)
+            mem, roof = rec["memory"], rec["roofline"]
+            dry = mem["argument_bytes"] + mem["temp_bytes"]
+            per_device = {k: v // 256 for k, v in
+                          roof["collective_by_kind"].items()}
+            check(abs(peak - dry) <= PART_PEAK_MARGIN_GB * 1e9,
+                  f"{name}: the card's peak {peak} B, the dry run's "
+                  f"argument + temp {dry} B")
+            check(read["collective_by_kind"] == per_device
+                  and read["collective_bytes"]
+                  == roof["collective_bytes_per_device"],
+                  f"{name}: collectives on the card "
+                  f"{read['collective_by_kind']}, the dry run's "
+                  f"{per_device}")
+            # a warm step by events, then one traced for its device ms
+            t0 = time.perf_counter()
+            ms = cuda_ms(lambda: step(*inputs), 1, warmup=0)
+            device_ms, records = traced_device_ms(lambda: step(*inputs))
+            timed_s = time.perf_counter() - t0
+            out[name] = {
+                "local_batch": list(inputs[-1]["tokens"].to_local().shape
+                                    if isinstance(inputs[-1], dict) else
+                                    inputs[-1].to_local().shape),
+                "argument_bytes": args, "dry_argument_bytes":
+                    mem["argument_bytes"], "peak_bytes": peak,
+                "dry_bytes": dry, "peak_minus_dry_gb": (peak - dry) / 1e9,
+                "temp_bytes": mem["temp_bytes"],
+                "alias_bytes": mem["alias_bytes"], "card_read": read,
+                "ms": ms, "device_ms": device_ms, "records": records,
+                "seconds": {"read": read_s, "timed": timed_s},
+                "t_collective_s": roof["t_collective_s"],
+                "step_time_s": roof["step_time_s"], "bound": roof["bound"]}
+            print(f"  (b) {name} rank 0 of 16 x 16 (fake): local "
+                  f"{out[name]['local_batch']}, peak {peak / 1e9:.4f} GB "
+                  f"against the dry run's argument + temp {dry / 1e9:.4f} "
+                  f"GB ({(peak - dry) / 1e9:+.4f}); collectives "
+                  f"{read['collective_by_kind']} B equal to the dry run's; "
+                  f"{ms:.2f} ms by events, {device_ms} device ms in "
+                  f"{records} records "
+                  f"(fake collectives move nothing); dry-run roofline "
+                  f"{roof['step_time_s']} s ({roof['bound']}) [{card}]")
+            del step, inputs, read
+    out["launches"] = launches
+    return out
+
+
+def partitioned_slice(device, card, report) -> dict:
+    """Phase 24: (a) the one-rank partitioned route held bit-equal to the
+    unpartitioned one, (b) rank 0's program of the 16 x 16 mesh on the
+    ``fake`` group held against the dry run.  Returns the main-path
+    launches of both."""
+    import tempfile
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name in PART_CELLS:
+            Path(tmp, name).mkdir()
+            procs[name] = start_fake_dryrun(PART_ARCH, name,
+                                            str(Path(tmp, name)))
+        t0 = time.perf_counter()
+        with one_rank_mesh(device) as mesh:
+            out["one_rank"] = one_rank_partitioned(device, mesh)
+        secs["one_rank"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        waited = {}
+
+        def record_of(name):
+            t = time.perf_counter()
+            rec = fake_dryrun_record(procs[name], PART_ARCH, name,
+                                     str(Path(tmp, name)))
+            waited[name] = time.perf_counter() - t
+            return rec
+        t0 = time.perf_counter()
+        out["fake"] = fake_partitioned(device, card, record_of)
+        secs["fake"] = time.perf_counter() - t0
+        secs["dry_run_wait"] = waited
+    out["seconds"] = secs
+    report["partitioned"] = out
+    launches = dict(out["one_rank"]["launches"])
+    for k, n in out["fake"]["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"partitioned phase: main-path launches {launches}; seconds "
+          f"{secs}")
+    return {"launches": launches}
+
+
 def dse_phases(device, card, report) -> dict:
     """Phases 3-9: the DSE main path and the LLM searches, the refine and
     the service on the card; returns ``grid_minmax``'s kernels-line
@@ -6269,7 +6398,8 @@ def dse_phases(device, card, report) -> dict:
 # runs whole, its first number naming it.  Phases 3-9 are the DSE main
 # path and the LLM searches, whose refine holds on the main path's grid.
 PHASE_GROUPS = ((3, 9), (10, 12), (13, 15), (16, 16), (17, 17), (18, 18),
-                (19, 19), (20, 20), (21, 21), (22, 22), (23, 23))
+                (19, 19), (20, 20), (21, 21), (22, 22), (23, 23),
+                (24, 24))
 
 
 def parse_phases(text: str) -> set:
@@ -6395,7 +6525,8 @@ def main(argv=None) -> int:
     for first, fn in ((17, training_llm_slice), (18, mixers_slice),
                       (19, training_mixers_slice),
                       (20, serving_attention_slice), (21, llama4_slice),
-                      (22, dryrun_slice), (23, analysis_slice)):
+                      (22, dryrun_slice), (23, analysis_slice),
+                      (24, partitioned_slice)):
         if first in run:
             more.append(timed(first, fn, device, card, report))
     for entry in kernels["kernels"]:

@@ -2,7 +2,8 @@
 """The ops of one step of a ``chip_smoke.py`` phase-22 cell whose peak
 allocation on the card exceeds the new storages they return: temporaries
 that a dispatch mode, and so the meta-device reckoning
-(``chip_smoke.meta_peak_bytes``), cannot see.  Needs a CUDA card.
+(``repro_torch.launch.program.StepReader``), cannot see.  Needs a CUDA
+card.
 
     PYTHONPATH=src python scripts/op_temporaries.py \
         [--cell train_4k|prefill_32k|decode_32k] [--min-mb 50]

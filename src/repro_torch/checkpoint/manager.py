@@ -14,11 +14,15 @@ package restores in the other: ``step_<10 digits>/arrays.npz`` holds one
 array per leaf under its path (keys joined by ``/``, written ``__``),
 and ``manifest.json`` the step, each leaf's key, shape and logical dtype,
 and ``extra``.  A bfloat16 leaf is stored as a ``uint16`` view of its
-bits (``interop.to_stored``).  Arrays are saved whole; ``restore`` places
-every leaf on one device (``device``) or on its template leaf's, where
-the JAX package re-shards onto a mesh (``shardings``, not ported: a
-restore onto a ``DeviceMesh`` would ``distribute_tensor`` each leaf by
-``launch.train.make_state_shardings``).
+bits (``interop.to_stored``).  Arrays are saved whole: a ``DTensor``
+leaf (state placed on a ``DeviceMesh``) is gathered (``full_tensor``,
+which every rank calls) and rank 0 alone writes.  ``restore`` places
+every leaf on one device (``device``) or on its template leaf's, or,
+given ``shardings`` (a tree of ``(mesh, placements)`` such as
+``launch.train.make_state_shardings`` returns), ``distribute_tensor``s
+each leaf onto its mesh, which may differ from the saving run's (the
+JAX package's elastic restart): each rank reads the arrays and keeps
+its own shard, with no communication.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from ..interop import from_stored, to_stored
+from ..models.common import is_placed
 
 
 def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()
@@ -43,6 +48,13 @@ def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()
         return [kv for k in sorted(tree)
                 for kv in _flatten_with_paths(tree[k], prefix + (str(k),))]
     return [("/".join(prefix), tree)]
+
+
+def _rank() -> int:
+    """This process's rank in the default group (0 without one): rank 0
+    alone writes a checkpoint."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _rebuild(template, leaves: Dict[str, Any], prefix: Tuple[str, ...] = ()):
@@ -61,14 +73,27 @@ class CheckpointManager:
     # ---- write -------------------------------------------------------------
     def save(self, step: int, state: Dict, extra: Optional[Dict] = None
              ) -> pathlib.Path:
-        tmp = self.dir / f"tmp.{step}"
+        flat = _flatten_with_paths(state)
+        placed = any(is_placed(leaf) for _, leaf in flat)
+        flat = [(key, leaf.full_tensor() if is_placed(leaf) else leaf)
+                for key, leaf in flat]
         final = self.dir / f"step_{step:010d}"
+        if _rank() == 0:
+            self._write(step, flat, extra, final)
+        if placed:                        # the others read it after this
+            import torch.distributed as dist
+            dist.barrier()
+        return final
+
+    def _write(self, step: int, flat, extra: Optional[Dict],
+               final: pathlib.Path) -> None:
+        tmp = self.dir / f"tmp.{step}"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         manifest = {"step": step, "leaves": [], "extra": extra or {}}
         arrays = {}
-        for key, leaf in _flatten_with_paths(state):
+        for key, leaf in flat:
             arr, logical = to_stored(leaf)
             arrays[key] = arr
             manifest["leaves"].append(
@@ -80,7 +105,6 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.replace(tmp, final)            # atomic publish
         self._gc()
-        return final
 
     def _gc(self) -> None:
         steps = sorted(self.all_steps())
@@ -101,11 +125,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, template, device=None) -> Tuple[Dict, Dict]:
+    def restore(self, step: int, template, device=None, shardings=None
+                ) -> Tuple[Dict, Dict]:
         """Restore into the structure of ``template`` (a tree of tensors
         or ``TensorSpec``s): each leaf in its template leaf's dtype, on
         ``device`` if given, else on the template leaf's device (the CPU
-        for a ``TensorSpec``).  Returns ``(state, extra)``."""
+        for a ``TensorSpec``); with ``shardings`` (the template's tree of
+        ``(mesh, placements)``) each leaf a ``DTensor`` on its mesh's
+        device.  Returns ``(state, extra)``."""
+        pairs = (dict(_flatten_with_paths(shardings))
+                 if shardings is not None else None)
         path = self.dir / f"step_{step:010d}"
         with np.load(path / "arrays.npz") as data:
             manifest = json.loads((path / "manifest.json").read_text())
@@ -119,6 +148,13 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint step {step}: {key} has shape "
                                  f"{tuple(t.shape)}, the template "
                                  f"{tuple(leaf.shape)}")
+            if pairs is not None:
+                mesh, pl = pairs[key]
+                from torch.distributed.tensor import distribute_tensor
+                restored[key] = distribute_tensor(
+                    t.to(device=mesh.device_type, dtype=leaf.dtype), mesh,
+                    pl, src_data_rank=None)
+                continue
             where = device if device is not None else getattr(
                 leaf, "device", "cpu")
             restored[key] = t.to(device=where, dtype=leaf.dtype)

@@ -102,8 +102,8 @@ class RooflineTerms:
         memory     = HBM bytes        / (chips * 3.35e12 B/s)
         collective = collective bytes / (chips * 450e9 B/s, NVLink 4)
     The bf16 peak stands for every cell, float32 ones too, as the TPU
-    model's does.  ``collective_bytes`` None (the port has no partitioned
-    program to read them from, ``launch/dryrun.py``) leaves the
+    model's does.  ``collective_bytes`` None (a cell the port's
+    partitioned route does not run, ``launch/dryrun.py``) leaves the
     collective term out: ``t_collective`` is None and the bound and step
     time are taken over compute and memory alone."""
     flops: float

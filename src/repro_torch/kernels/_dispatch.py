@@ -3,9 +3,10 @@ binds and calls its library.
 
 A wrapper runs its CUDA kernel for CUDA tensors and its plain PyTorch
 version for CPU tensors; that is how a caller asks for the CPU.  Any other
-device, tensors on two devices, a type other than float32 or bfloat16, or
-a non-contiguous tensor raises.  Nothing falls back: a failed build or
-launch raises too.
+device, tensors on two devices, a type other than float32 or bfloat16, a
+non-contiguous tensor, or a ``DTensor`` (whose kernels run on its local
+shards, ``kernels.ops.partitioned``) raises.  Nothing falls back: a
+failed build or launch raises too.
 """
 from __future__ import annotations
 
@@ -19,6 +20,14 @@ import torch
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def is_placed(t) -> bool:
+    """Whether ``t`` is a ``DTensor``: laid out on a ``DeviceMesh``."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def device_kind(fn: str, tensors: Dict[str, torch.Tensor]) -> str:
     """``"cuda"`` or ``"cpu"``: the one device of ``tensors`` (argument
     name -> tensor), each a contiguous float32 or bfloat16 tensor."""
@@ -26,6 +35,9 @@ def device_kind(fn: str, tensors: Dict[str, torch.Tensor]) -> str:
     for arg, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{fn}: {arg} must be a tensor, got {type(t)}")
+        if is_placed(t):
+            raise TypeError(f"{fn}: {arg} is a DTensor; a kernel runs on "
+                            f"local shards (kernels.ops.partitioned)")
         if t.dtype not in DTYPE_CODE:
             raise TypeError(f"{fn}: {arg} must be float32 or bfloat16, "
                             f"got {t.dtype}")

@@ -39,6 +39,13 @@ functions (``MatmulFn``, ``FusedAddRMSNormFn``, ``FlashAttentionFn``):
 on the card a kernel writes into a fresh tensor that autograd cannot see
 into, so a model that is to be differentiated (the trainer's) calls its
 kernels through these; serving calls them directly.
+
+``partitioned(impl, mesh, rules)`` gives the same members for
+``DTensor``s laid out on ``mesh``: each runs ``differentiable(impl)``'s
+autograd function on the local shards (``models.common.on_shards``, that
+is ``local_map`` with ``redistribute_inputs=True``), its placements from
+``rules``.  The wrappers above take plain tensors only: a ``DTensor``
+that reaches one raises (``kernels/_dispatch.py``).
 """
 from __future__ import annotations
 
@@ -57,7 +64,8 @@ from .flash_attention import flash_attention
 from .fused_addnorm import fused_add_rmsnorm
 
 __all__ = ["matmul", "flash_attention", "fused_add_rmsnorm", "bn_forward",
-           "bn_backward", "launch_counters", "differentiable"]
+           "bn_backward", "launch_counters", "differentiable",
+           "Partitioned", "partitioned"]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 0, bn: int = 0,
@@ -109,3 +117,102 @@ def differentiable(impl=None) -> SimpleNamespace:
         matmul=lambda a, b: _mm.MatmulFn.apply(a, b, impl),
         fused_add_rmsnorm=fused_add_rmsnorm, flash_attention=flash_attention,
         base=impl)
+
+
+class Partitioned(SimpleNamespace):
+    """``partitioned``'s namespace: ``matmul``, ``fused_add_rmsnorm``,
+    ``flash_attention`` and ``base`` as ``differentiable`` gives them,
+    on ``DTensor``s in the model's shapes; ``mesh``, ``rules``."""
+
+
+def partitioned(impl, mesh, rules) -> Partitioned:
+    """``impl``'s kernels (this module's for None) on the local shards
+    of ``DTensor``s laid out on ``mesh`` by ``rules`` (sized to the mesh
+    by ``with_axis_sizes`` here).
+
+    * ``matmul(a, b)``: ``a`` (..., k), ``b`` a (k, n) weight.  On a mesh
+      dimension that shards ``a``'s rows by the rules' ``batch``, the
+      weight is gathered (FSDP) and the output's rows stay sharded; on any
+      other, the weight's own placement decides: split on n (column
+      parallel) -> ``a`` whole, the output split on its last dimension;
+      split on k (row parallel) -> ``a`` split on its last dimension, the
+      output ``Partial``; whole -> all whole.
+    * ``fused_add_rmsnorm(x, resid, scale)``: (B, S, d) on the rows of
+      the residual stream's shard, ``("batch", "seq_resid",
+      "act_embed")``; returns ``(h, s)``, the sum ``s`` on the stream's
+      layout and ``h`` gathered once to ``("batch", "seq", "act_embed")``,
+      what the next products read.
+    * ``flash_attention(q, k, v, n_heads, n_kv, causal, window)``: q (B, S,
+      H, D), k and v (B, S, KV, D) as the model lays them out, each rank
+      on its query heads and the KV heads those read
+      (``models.common.kv_heads_read``: where the KV heads do not divide
+      the mesh axis they are whole on every rank)."""
+    import torch.distributed.tensor as dt
+    from ..models.common import (kv_heads_read, layout, on_shards,
+                                 shard_offset, with_axis_sizes)
+    base = sys.modules[__name__] if impl is None else impl
+    local = differentiable(base)
+    if "_axis_sizes" not in rules:
+        rules = with_axis_sizes(rules, mesh)
+
+    def matmul(a, b, product=None):
+        product = product or (lambda x, w: _mm.MatmulFn.apply(x, w, base))
+        last = a.ndim - 1
+        rows = layout(rules, mesh, "batch", *[None] * last, shape=a.shape)
+        per_dim = []                  # (a, b, output) on each mesh dimension
+        for row, w in zip(rows, b.placements):
+            if isinstance(row, dt.Shard):                   # FSDP
+                per_dim.append((row, dt.Replicate(), row))
+            elif isinstance(w, dt.Shard) and w.dim == 1:    # column parallel
+                per_dim.append((dt.Replicate(), w, dt.Shard(last)))
+            elif isinstance(w, dt.Shard):                   # row parallel
+                per_dim.append((dt.Shard(last), w, dt.Partial()))
+            else:
+                per_dim.append((dt.Replicate(),) * 3)
+        a_pl, b_pl, out_pl = zip(*per_dim)
+
+        def fn(x, w):
+            y = product(x.reshape(-1, x.shape[-1]).contiguous(),
+                        w.contiguous())
+            return (y.reshape(*x.shape[:-1], w.shape[-1]),)
+        return on_shards(fn, mesh, [a_pl, b_pl], [out_pl], a, b)[0]
+
+    def fused_add_rmsnorm(x, resid, scale):
+        if x.ndim != 3:
+            raise ValueError(f"partitioned fused_add_rmsnorm takes the (B, "
+                             f"S, d) stream, got {tuple(x.shape)}")
+        stream = layout(rules, mesh, "batch", "seq_resid", "act_embed",
+                        shape=x.shape)
+        whole = (dt.Replicate(),) * mesh.ndim
+
+        def fn(x, r, g):
+            h, s = local.fused_add_rmsnorm(x.reshape(-1, x.shape[-1]),
+                                           r.reshape(-1, r.shape[-1]), g)
+            return h.reshape(x.shape), s.reshape(x.shape)
+        h, s = on_shards(fn, mesh, [stream, stream, whole], [stream, stream],
+                         x, resid, scale)
+        return h.redistribute(mesh, layout(rules, mesh, "batch", "seq",
+                                           "act_embed", shape=h.shape)), s
+
+    def flash_attention(q, k, v, n_heads, n_kv, causal=True, window=0):
+        read = kv_heads_read(shard_offset(mesh, q.placements, 2, n_heads),
+                             shard_offset(mesh, k.placements, 2, n_kv),
+                             n_heads // n_kv)
+
+        def heads_first(t):
+            b, s, h, d = t.shape
+            return t.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
+
+        def fn(q, k, v):
+            if read is not None:
+                k, v = k[:, :, read], v[:, :, read]
+            b, s, h, d = q.shape
+            out = local.flash_attention(
+                heads_first(q), heads_first(k), heads_first(v), h,
+                k.shape[2], causal=causal, window=window)
+            return (out.reshape(b, h, s, d).permute(0, 2, 1, 3),)
+        return on_shards(fn, mesh, None, [q.placements], q, k, v)[0]
+
+    return Partitioned(matmul=matmul, fused_add_rmsnorm=fused_add_rmsnorm,
+                       flash_attention=flash_attention, base=base,
+                       mesh=mesh, rules=rules)

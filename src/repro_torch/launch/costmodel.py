@@ -23,7 +23,9 @@ the reference's, translated to aten names:
     nothing; softmax and its backward as the elementwise ops they fuse
     (``COMPOSITE``); every other op one FLOP per output element, times
     ``EXPENSIVE_ELEMWISE``.  Counted on the *global* program: the
-    roofline divides by the chip count.
+    roofline divides by the chip count.  (A device's memory and the
+    collectives it issues are read from rank 0's partitioned step,
+    ``launch/program.py``, not from this walk.)
   * HBM bytes: the fusion heuristic.  An op's outputs are counted as
     written (and read again by each consumer) unless the op is a cheap
     elementwise producer (``FUSIBLE``) whose every output has at most one

@@ -25,11 +25,23 @@ runs nothing.  The port runs nothing either:
   process, world 256 or 512, ``fake_world``), where the reference sets
   ``XLA_FLAGS`` before any import; importing this module starts
   nothing.
-* ``temp_bytes``, ``alias_bytes`` and the collective term are ``None``,
-  each with a ``"why"``: the port has no per-device partitioned program
-  (its kernels take plain tensors), so nothing says what a device holds
-  while it runs or what crosses the interconnect.  ``bound`` and
-  ``step_time_s`` are then taken over compute and memory.
+* ``temp_bytes``, ``alias_bytes`` and the collective term come from
+  rank 0's partitioned step (``launch/program.py``: ``local_program``
+  builds it on the partitioned route, ``Model(cfg, impl=kernels.ops.
+  partitioned(kernel_shaped(), mesh, rules))``, its state, batch and
+  cache made from rank 0's shards on ``meta``; ``read_step`` runs it
+  once under a dispatch mode): the peak of the bytes its ops hold on top
+  of its arguments, the argument bytes it writes in place, and the
+  output bytes of every collective it issues, by kind.  Every rank runs
+  the same program, so the roofline's ``collective_bytes`` is the
+  chips times rank 0's (``collective_bytes_per_device``) and
+  ``t_collective_s`` is rank 0's bytes over the NVLink rate.  A cell the
+  partitioned route does not run (``models.transformer.
+  outside_partitioned``: MoE, the SSD and RG-LRU mixers, whisper,
+  pixtral) or whose KV cache is split on the sequence or int8
+  (``long_500k``, the ``--optimized`` decode cells) keeps ``None``, with a
+  ``"why"`` that names the ROADMAP item; its ``bound`` and
+  ``step_time_s`` are taken over compute and memory.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -54,26 +66,30 @@ import torch
 from ..configs import ARCHS, get_config
 from ..kernels.forward import PLAIN
 from ..models.common import (ModelConfig, P, TensorSpec, placements,
-                             spec as rspec, tree_map, with_axis_sizes)
-from ..models.transformer import Model
+                             tree_map, with_axis_sizes)
+from ..models.transformer import Model, outside_partitioned
 from ..optim.optimizers import AdamW, constant_schedule
 from . import roofline as RL
 from .costmodel import Cost, graph_cost
 from .mesh import make_production_mesh
+from .program import local_program, read_step
+from .serve import cache_pspecs as _cache_pspecs
 from .serve import make_prefill_step, make_serve_step
 from .shapes import (SHAPES, adjust_config, batch_input_specs,
                      cell_is_runnable, cell_rules)
+from .train import batch_shardings as _batch_shardings
 from .train import leaves, make_state_shardings, make_train_step
 
 ART_DIR = (pathlib.Path(__file__).resolve().parents[3] / "artifacts"
            / "dryrun_torch")
 
-NO_PROGRAM = ("the port has no per-device partitioned program (its kernels "
-              "take plain tensors), so nothing says what a device holds "
-              "while the step runs")
-NO_COLLECTIVES = ("the port has no partitioned program whose collectives "
-                  "could be read; bound and step_time_s are taken over "
-                  "compute and memory")
+# why a cell has no partitioned program to read: its config is outside
+# the partitioned route's slice, or its cache is split on the sequence
+# or int8 (long_500k's and the optimized decode variants)
+OUTSIDE = ("the partitioned route does not run this cell (ROADMAP Queue 1: "
+           "{}), so nothing says what a device holds while the step runs "
+           "or what crosses the interconnect; bound and step_time_s are "
+           "taken over compute and memory")
 # the train step's metrics: loss, ce, aux, lr, grad_norm (float32 scalars)
 TRAIN_METRICS_BYTES = 5 * 4
 
@@ -111,44 +127,6 @@ def fake_world(multi_pod: bool):
 def _meta(s: TensorSpec, grad: bool = False) -> torch.Tensor:
     t = torch.empty(s.shape, dtype=s.dtype, device="meta")
     return t.requires_grad_() if grad else t
-
-
-def _batch_shardings(mesh, rules, specs):
-    """``(mesh, placements)`` of each batch input: the batch axis by the
-    rules, the rest whole."""
-    def spec_for(name, sds):
-        if name == "tokens":
-            return P(rules.get("batch"), None)
-        return P(rules.get("batch"), None, None)
-    return {k: (mesh, placements(spec_for(k, v), mesh))
-            for k, v in specs.items()}
-
-
-def _cache_pspecs(model: Model, cache_abs, rules):
-    """PartitionSpecs for the decode cache: KV seq/heads per rules; leading
-    layer-stack dim unsharded; batch per rules.  Divisibility fallback is
-    applied through ``rspec`` (e.g. 5 KV heads on a 16-way axis -> None)."""
-    LOGICAL = {
-        "k": ("batch", "cache_seq", "cache_heads", None),
-        "v": ("batch", "cache_seq", "cache_heads", None),
-        "k_scale": ("batch", "cache_seq", "cache_heads"),
-        "v_scale": ("batch", "cache_seq", "cache_heads"),
-        "ssm": ("batch", "ssm_heads", None, None),
-        "h": ("batch", "rnn"),
-        "conv": ("batch", None, None),
-    }
-
-    def walk(tree, name=""):
-        if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        nd = len(tree.shape)
-        axes = LOGICAL.get(name)
-        if axes is None or nd < len(axes):
-            return P()
-        lead = nd - len(axes)        # leading layer-stack dims (unsharded)
-        full = (None,) * lead + axes
-        return rspec(rules, *full, shape=tree.shape)
-    return walk(cache_abs)
 
 
 def local_bytes(specs, pairs) -> int:
@@ -304,6 +282,15 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         tokens = shape.global_batch
         training = False
     cost = step_cost(cfg, shape.kind, b, shape.seq, rules, mv, in_specs)
+    why = outside_partitioned(cfg) or (
+        "sequence-sharded and int8 KV caches"
+        if rules.get("cache_seq") or cfg.cache_dtype is not None else None)
+    read = None
+    if why is None:
+        step, inputs = local_program(cfg, shape.kind, b, shape.seq, mesh,
+                                     rules, mv_dtype=mv)
+        read = read_step(step, *inputs)
+        del step, inputs
     trace_s = time.time() - t0
 
     record = {
@@ -317,13 +304,24 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "memory": {
             "argument_bytes": argument,
             "output_bytes": output,
-            "temp_bytes": None,
-            "alias_bytes": None,
-            "why": NO_PROGRAM,
+            "temp_bytes": None if read is None else read["temp_bytes"],
+            "alias_bytes": None if read is None else read["alias_bytes"],
         },
-        "roofline": {**RL.analyze(cost, chips, n_active, tokens, training),
-                     "why": NO_COLLECTIVES},
     }
+    if read is None:
+        record["memory"]["why"] = OUTSIDE.format(why)
+        record["roofline"] = {**RL.analyze(cost, chips, n_active, tokens,
+                                           training),
+                              "why": OUTSIDE.format(why)}
+    else:
+        # every rank runs rank 0's program: the global bytes are chips
+        # times its own
+        record["roofline"] = {
+            **RL.analyze(cost, chips, n_active, tokens, training,
+                         collective_bytes=chips * read["collective_bytes"],
+                         by_kind={k: chips * v for k, v in
+                                  read["collective_by_kind"].items()}),
+            "collective_bytes_per_device": read["collective_bytes"]}
     return record, cost
 
 

@@ -2,8 +2,8 @@
 (``launch/dryrun.py``, ``artifacts/dryrun_torch/``): per (arch x shape x
 mesh) the three terms, the dominant bound, MODEL_FLOPS ratio, and
 per-device memory.  The port's own copy of the JAX package's
-``launch/report.py``; a ``None`` term or temp size (the port has no
-partitioned program to read them from) renders ``-``.
+``launch/report.py``; a ``None`` term or temp size (a cell the port's
+partitioned route does not run) renders ``-``.
 
   PYTHONPATH=src python -m repro_torch.launch.report [--mesh 16x16]
 """

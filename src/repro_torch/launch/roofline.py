@@ -123,8 +123,8 @@ def collective_bytes(hlo_text: str) -> Tuple[int, Dict[str, int]]:
 
 
 def analyze(cost, chips: int, n_active_params: int, tokens: int,
-            training: bool, collective_bytes: Optional[float] = None
-            ) -> Dict:
+            training: bool, collective_bytes: Optional[float] = None,
+            by_kind: Optional[Dict[str, float]] = None) -> Dict:
     """Roofline terms + usefulness ratio for one step, from the walker's
     ``cost`` (FLOPs and HBM bytes of the global program).
 
@@ -132,7 +132,8 @@ def analyze(cost, chips: int, n_active_params: int, tokens: int,
     (XLA's ``cost_analysis``, a lower bound it records beside the
     walker's) have no counterpart: the port compiles no program, so
     they are absent.  ``collective_bytes`` None leaves the collective
-    term out (``RooflineTerms``)."""
+    term out (``RooflineTerms``); ``by_kind`` is its split by collective
+    (``collective_by_kind``, None without one)."""
     terms = RooflineTerms(flops=cost.flops, hbm_bytes=cost.bytes,
                           collective_bytes=collective_bytes, chips=chips)
     mf = model_flops(n_active_params, tokens, training)
@@ -141,8 +142,8 @@ def analyze(cost, chips: int, n_active_params: int, tokens: int,
     out["model_flops_ratio"] = (mf / cost.flops) if cost.flops else 0.0
     out["gemm_flops"] = cost.gemm_flops
     # the reference parses the kinds from the compiled program's HLO;
-    # the port has none
-    out["collective_by_kind"] = None
+    # the port reads them from its partitioned step (launch/program.py)
+    out["collective_by_kind"] = by_kind
     return out
 
 

@@ -1,7 +1,10 @@
 """Serving: prefill + batched autoregressive decode.
 
 The port of the JAX package's ``launch/serve.py``.  ``make_prefill_step``
-/ ``make_serve_step`` build the step functions; ``serve_loop`` is a
+/ ``make_serve_step`` build the step functions (on the partitioned route,
+``Model(cfg, impl=kernels.ops.partitioned(...))`` with the parameters
+placed by ``launch.train.make_state_shardings``, over a cache placed by
+``cache_pspecs``: ``placed_cache``); ``serve_loop`` is a
 runnable single-device batched-request demo (greedy decoding) on the
 port's kernels (``kernels.ops``), on the card unless ``device`` says
 otherwise.  The prompts come from a ``torch.Generator`` seeded with
@@ -21,17 +24,78 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs import get_config, reduced
-from ..models.common import Rules
+from ..kernels import ops
+from ..models.common import P, Rules, placed_zeros, placements, spec
 from ..models.frontends import synth_frontend_inputs
+from ..models.layers import greedy
 from ..models.transformer import Model
 
 
+# the logical axes of each cache leaf, less the leading layer-stack axes
+CACHE_AXES = {
+    "k": ("batch", "cache_seq", "cache_heads", None),
+    "v": ("batch", "cache_seq", "cache_heads", None),
+    "k_scale": ("batch", "cache_seq", "cache_heads"),
+    "v_scale": ("batch", "cache_seq", "cache_heads"),
+    "ssm": ("batch", "ssm_heads", None, None),
+    "h": ("batch", "rnn"),
+    "conv": ("batch", None, None),
+}
+
+
+def cache_pspecs(model: Model, cache_abs, rules) -> Dict:
+    """PartitionSpecs for the decode cache: KV seq/heads per rules; leading
+    layer-stack dim unsharded; batch per rules.  Divisibility fallback is
+    applied through ``spec`` (e.g. 5 KV heads on a 16-way axis -> None)."""
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        nd = len(tree.shape)
+        axes = CACHE_AXES.get(name)
+        if axes is None or nd < len(axes):
+            return P()
+        lead = nd - len(axes)        # leading layer-stack dims (unsharded)
+        return spec(rules, *((None,) * lead + axes), shape=tree.shape)
+    return walk(cache_abs)
+
+
+def placed_cache(model: Model, batch: int, max_len: int, mesh,
+                 rules: Rules, device) -> Dict:
+    """A zero cache laid out on ``mesh`` by ``cache_pspecs``, each leaf
+    made from its local shard alone (``models.common.placed_zeros``) on
+    ``device``."""
+    abstract = model.make_cache(batch, max_len, abstract=True)
+    specs = cache_pspecs(model, abstract, rules)
+
+    def make(s, ps):
+        if isinstance(s, dict):
+            return {k: make(s[k], ps[k]) for k in s}
+        return placed_zeros(s.shape, s.dtype, mesh, placements(ps, mesh),
+                            device)
+    return make(abstract, specs)
+
+
+def _partitioned(model: Model):
+    impl = model.impl
+    return impl if isinstance(impl, ops.Partitioned) else None
+
+
 def make_prefill_step(model: Model, rules: Optional[Rules], max_len: int):
+    """The prefill ``(params, batch) -> (last logits, cache)``; on the
+    partitioned route (``Model(cfg, impl=kernels.ops.partitioned(...))``)
+    its cache is placed by ``cache_pspecs``."""
+    part = _partitioned(model)
+
     def prefill_step(params: Dict, batch: Dict
                      ) -> Tuple[torch.Tensor, Dict]:
-        return model.prefill(params, batch["tokens"], max_len, rules,
+        tokens = batch["tokens"]
+        cache = None
+        if part is not None:
+            cache = placed_cache(model, tokens.shape[0], max_len, part.mesh,
+                                 part.rules, tokens.device)
+        return model.prefill(params, tokens, max_len, rules,
                              frames=batch.get("frames"),
-                             patches=batch.get("patches"))
+                             patches=batch.get("patches"), cache=cache)
     return prefill_step
 
 
@@ -41,8 +105,7 @@ def make_serve_step(model: Model, rules: Optional[Rules]):
         """The next token of each row (int32) and the cache, updated in
         place."""
         logits, cache = model.decode_step(params, tokens, cache, rules)
-        next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
-        return next_tokens, cache
+        return greedy(logits), cache
     return serve_step
 
 

@@ -14,7 +14,11 @@ declares them; the step is eager (the JAX package jits and donates it).
 
 ``make_state_shardings`` lays the state out on a ``DeviceMesh`` by the
 sharding rules: trees of ``(mesh, placements)`` that
-``torch.distributed.tensor.distribute_tensor`` takes.
+``torch.distributed.tensor.distribute_tensor`` takes
+(``models.common.place``); ``batch_shardings`` the batch.  On state so
+placed, with ``Model(cfg, impl=kernels.ops.partitioned(impl, mesh,
+rules))``, ``make_train_step`` is the partitioned step: the reference's
+``jax.jit(make_train_step(...), in_shardings=...)``.
 
 Run (reduced, on a CUDA card; ``--device cpu`` runs the kernels' plain
 versions):
@@ -34,7 +38,8 @@ from ..configs import get_config, reduced
 from ..data.pipeline import PipelineState, TokenPipeline
 from ..distributed.fault import Watchdog
 from ..kernels import ops
-from ..models.common import PartitionSpec, Rules, placements, tree_map
+from ..models.common import (PartitionSpec, Rules, is_placed, placements,
+                              tree_map)
 from ..models.frontends import synth_frontend_inputs
 from ..models.transformer import Model
 from ..optim.optimizers import AdamW, cosine_schedule
@@ -53,11 +58,16 @@ def trainable(tree) -> Dict:
 
 
 def make_train_step(model: Model, opt, rules: Optional[Rules]):
+    """The step ``(state, batch) -> (state, metrics)``.  On state placed
+    by ``make_state_shardings`` (with ``Model(cfg, impl=kernels.ops.
+    partitioned(...))`` and the batch by ``batch_shardings``) each
+    gradient is laid out as its parameter before the update: the ranks'
+    partial sums of a replicated leaf are all-reduced there."""
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         params = state["params"]
         loss, metrics = model.loss(params, batch, rules)
         grads = iter(torch.autograd.grad(loss, leaves(params)))
-        grads = tree_map(lambda _: next(grads), params)
+        grads = tree_map(lambda p: _laid_out_as(next(grads), p), params)
         with torch.no_grad():
             new_params, new_opt, om = opt.update(grads, state["opt"],
                                                  params)
@@ -67,6 +77,24 @@ def make_train_step(model: Model, opt, rules: Optional[Rules]):
             out_metrics
 
     return train_step
+
+
+def _laid_out_as(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    if not is_placed(param) or tuple(grad.placements) == tuple(
+            param.placements):
+        return grad
+    return grad.redistribute(param.device_mesh, param.placements)
+
+
+def batch_shardings(mesh, rules: Rules, specs: Dict) -> Dict:
+    """``(mesh, placements)`` of each batch input: the batch axis by the
+    rules, the rest whole."""
+    def spec_for(name, sds):
+        if name == "tokens":
+            return PartitionSpec(rules.get("batch"), None)
+        return PartitionSpec(rules.get("batch"), None, None)
+    return {k: (mesh, placements(spec_for(k, v), mesh))
+            for k, v in specs.items()}
 
 
 def make_state_shardings(model: Model, opt, rules: Optional[Rules], mesh

@@ -19,6 +19,17 @@ Caches are updated in place and returned (the JAX serve loop donates
 its cache, so the old one is never read again): ``cache['k']``,
 ``cache['v']`` (and the int8 scales) at rows ``pos .. pos + s``, and
 ``cache['pos']`` advanced by ``s``.
+
+On ``DTensor``s (the partitioned route) the projections run through the
+partitioned ``impl.matmul`` and ``shard`` lays q, k, v out by the rules;
+qk-norm, rotary embeddings, the cache's append and the dense or chunked
+attention run on the local shards (``_attend_placed``: one
+``local_map`` region, plain ops inside, each rank's query heads against
+the KV heads they read -- where the KV heads do not divide the model
+axis, as Qwen3's 8 do not divide 16, they are whole on every rank and
+each picks its own); the flash path through the partitioned
+``impl.flash_attention``.  Cross-attention is not partitioned
+(``models/transformer.py`` refuses such configs on a mesh).
 """
 from __future__ import annotations
 
@@ -27,9 +38,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten
 
 from ..kernels import ops
-from .common import ModelConfig, ParamDef, Rules, TensorSpec, shard
+from .common import (ModelConfig, ParamDef, Rules, TensorSpec, is_placed,
+                     kv_heads_read, on_shards, shard, shard_offset)
 from .layers import linear, rms_head_norm, rope
 
 NEG_INF = -1e30
@@ -151,32 +164,54 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     k = shard(k, rules, "batch", "seq", "cache_heads", None)
     v = shard(v, rules, "batch", "seq", "cache_heads", None)
 
-    if cfg.qk_norm and "q_norm" in p:
-        q = rms_head_norm(p["q_norm"], q)
-        k = rms_head_norm(p["k_norm"], k)
+    w = cfg.window if window is None else window
+    # a prefill whose keys are its own queries: the flash path (the cache,
+    # if any, is empty; reading its position waits for the device)
+    flash = kv_x is None and s > 1 and (
+        cache is None or fresh or int(cache["pos"]) == 0)
+    norms = ((p["q_norm"], p["k_norm"]) if cfg.qk_norm and "q_norm" in p
+             else None)
+    if is_placed(q):
+        out = _attend_placed(cfg, norms, q, k, v, cache, q_offset, causal,
+                             w, flash, impl)
+    else:
+        q, k, v, q_pos, k_pos = _prepare(cfg, norms, q, k, v, cache, kv_x,
+                                         q_offset, flash)
+        out = _attend(cfg, q, k, v, q_pos, k_pos, causal, w, flash, impl)
+    out = shard(out, rules, "batch", "seq", "act_heads", None)
+    y = linear(impl, out.reshape(b, s, h * hd),
+               p["wo"].reshape(h * hd, d))
+    return shard(y, rules, "batch", "seq", "act_embed"), cache
+
+
+def _prepare(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
+             kv_x, q_offset, flash: bool):
+    """qk-norm, rotary embeddings and the cache's append, on plain
+    tensors; returns ``(q, k, v, q_pos, k_pos)``, ``k`` and ``v`` what
+    the queries attend over (with a cache, its whole buffer; on the
+    flash path its fresh rows)."""
+    b, s = q.shape[:2]
+    device = q.device
+    if norms is not None:
+        q = rms_head_norm(norms[0], q)
+        k = rms_head_norm(norms[1], k)
 
     if cache is not None:
         q_offset = cache["pos"]
-    q_pos = q_offset + torch.arange(s, device=x.device)
+    q_pos = q_offset + torch.arange(s, device=device)
     if kv_x is None:
         k_pos_new = q_pos
         q = rope(q, q_pos.expand(b, s), cfg.rope_theta, cfg.rope_fraction)
         k = rope(k, k_pos_new.expand(b, s), cfg.rope_theta,
                  cfg.rope_fraction)
     else:
-        k_pos_new = torch.arange(t_src, device=x.device)
-
-    w = cfg.window if window is None else window
-    # a prefill whose keys are its own queries: the flash path (the cache,
-    # if any, is empty; reading its position waits for the device)
-    flash = kv_x is None and s > 1 and (
-        cache is None or fresh or int(cache["pos"]) == 0)
+        k_pos_new = torch.arange(k.shape[1], device=device)
 
     if cache is not None:
         # append at pos (decode or staged prefill); int8 caches quantize on
         # write with per-(token, kv-head) dynamic scales stored alongside
         pos = cache["pos"]
-        rows = pos + torch.arange(s, device=x.device)
+        rows = pos + torch.arange(s, device=device)
         if cache["k"].dtype == torch.int8:
             k8, ks = _quantize(k)
             v8, vs = _quantize(v)
@@ -193,7 +228,7 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
             cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
             k, v = cache["k"], cache["v"]
         t = k.shape[1]
-        k_pos = torch.arange(t, device=x.device)
+        k_pos = torch.arange(t, device=device)
         valid = k_pos < (pos + s)
         k_pos = torch.where(valid, k_pos, -10 ** 9)
         cache["pos"].add_(s)
@@ -202,21 +237,59 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
             k, v = k[:, :s], v[:, :s]
     else:
         k_pos = k_pos_new
+    return q, k, v, q_pos, k_pos
 
-    t = k.shape[1]
+
+def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, causal: bool, w,
+            flash: bool, impl) -> torch.Tensor:
+    """The attention of ``_prepare``'s outputs: flash, dense, or chunked
+    past ``cfg.dense_attn_max_seq``."""
+    s, t = q.shape[1], k.shape[1]
     if flash:
-        out = _flash(impl, q, k, v, causal, int(w))
-    elif s == 1 or (s <= cfg.dense_attn_max_seq
-                    and t <= cfg.dense_attn_max_seq):
+        return _flash(impl, q, k, v, causal, int(w))
+    if s == 1 or (s <= cfg.dense_attn_max_seq
+                  and t <= cfg.dense_attn_max_seq):
         bias = _mask_bias(q_pos, k_pos, causal, w)
-        out = _dense_attention(q, k, v, bias)
-    else:
-        out = _chunked_attention_dynwin(q, k, v, q_pos, k_pos, causal, w,
-                                        cfg.attn_block)
-    out = shard(out, rules, "batch", "seq", "act_heads", None)
-    y = linear(impl, out.reshape(b, s, h * hd),
-               p["wo"].reshape(h * hd, d))
-    return shard(y, rules, "batch", "seq", "act_embed"), cache
+        return _dense_attention(q, k, v, bias)
+    return _chunked_attention_dynwin(q, k, v, q_pos, k_pos, causal, w,
+                                     cfg.attn_block)
+
+
+def _attend_placed(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
+                   q_offset, causal: bool, w, flash: bool, impl
+                   ) -> torch.Tensor:
+    """``_prepare`` and ``_attend`` on the local shards of placed q, k, v
+    (B, S, heads, D) and cache (its leaves updated in place, each rank
+    its shard): the flash path through the partitioned
+    ``impl.flash_attention``, the others with each rank's query heads
+    against the KV heads they read (``kv_heads_read``; where the KV
+    heads do not divide the mesh axis, every rank holds them all)."""
+    mesh = q.device_mesh
+    args = (q, k, v, norms, cache)
+    if flash:
+        def prepared(q, k, v, norms, cache):
+            return _prepare(cfg, norms, q, k, v, cache, None, q_offset,
+                            True)[:3]
+        # q, k and v each reach their own output, each norm its own
+        feeds = ([[0], [1], [2]] + ([[0], [1]] if norms else [[]])
+                 + [[1, 2]] * len(tree_flatten(cache)[0]))
+        q, k, v = on_shards(prepared, mesh, None, [q.placements,
+                            k.placements, v.placements], *args,
+                            feeds=feeds)
+        return impl.flash_attention(q, k, v, cfg.n_heads, cfg.n_kv_heads,
+                                    causal=causal, window=int(w))
+    read = kv_heads_read(shard_offset(mesh, q.placements, 2, cfg.n_heads),
+                         shard_offset(mesh, k.placements, 2, cfg.n_kv_heads),
+                         cfg.n_heads // cfg.n_kv_heads)
+
+    def attended(q, k, v, norms, cache):
+        q, k, v, q_pos, k_pos = _prepare(cfg, norms, q, k, v, cache, None,
+                                         q_offset, False)
+        if read is not None:
+            k, v = k[:, :, read], v[:, :, read]
+        return (_attend(cfg, q, k, v, q_pos, k_pos, causal, w, False,
+                        None),)
+    return on_shards(attended, mesh, None, [q.placements], *args)[0]
 
 
 def _chunked_attention_dynwin(q, k, v, q_pos, k_pos, causal, window, block):

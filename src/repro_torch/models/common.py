@@ -21,6 +21,13 @@ dimension at most, the first).  ``placements`` turns one into the
 ``torch.distributed.tensor`` placements of a ``DeviceMesh``, and
 ``shard`` redistributes a ``DTensor`` to the spec of its logical axes
 (a plain tensor, which is what runs on one card, passes unchanged).
+
+The partitioned route's helpers (``kernels.ops.partitioned``): ``layout``
+(logical axes and a shape to ``local_map`` placements), ``on_shards``
+(a function on the local shards, with the placements of its inputs'
+gradients), ``shard_offset`` and ``kv_heads_read`` (what a rank holds and
+what its query heads read), ``placed_zeros`` and ``place`` (``DTensor``s
+made from local shards, or distributed from whole tensors).
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ..kernels._dispatch import is_placed
 
 
 @dataclass(frozen=True)
@@ -243,14 +252,127 @@ def shard(x: torch.Tensor, rules: Optional[Rules], *axes: Optional[str]):
     """``x`` laid out by its logical axes: a ``DTensor`` redistributed to
     ``spec(rules, *axes, shape=x.shape)`` on its mesh; ``x`` itself
     without rules or for a plain tensor."""
-    if rules is None:
+    if rules is None or not is_placed(x):
         return x
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        return x
-    mesh = x.device_mesh
-    return x.redistribute(mesh, placements(
-        spec(rules, *axes, shape=tuple(x.shape)), mesh))
+    return x.redistribute(x.device_mesh,
+                          layout(rules, x.device_mesh, *axes, shape=x.shape))
+
+
+# ---------------------------------------------------------------------------
+# The partitioned route: tensors placed on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def layout(rules: Rules, mesh, *axes: Optional[str],
+           shape: Tuple[int, ...]) -> tuple:
+    """The placements on ``mesh`` of a tensor of ``shape`` whose
+    dimensions have the logical ``axes``: ``placements(spec(...))``, as
+    ``local_map`` takes them."""
+    return tuple(placements(spec(rules, *axes, shape=tuple(shape)), mesh))
+
+
+def _grad_layout(pl, outs) -> Optional[tuple]:
+    """The placements of an input's gradient: ``Partial`` on a mesh
+    dimension where the input is replicated and an output is not (each
+    rank's part of the output then reads the whole input, so the ranks'
+    gradients add up), else the input's own."""
+    from torch.distributed.tensor import Partial, Replicate
+    if pl is None:
+        return None
+    return tuple(Partial() if isinstance(p, Replicate) and any(
+        not isinstance(o[i], Replicate) for o in outs) else p
+        for i, p in enumerate(pl))
+
+
+def on_shards(fn, mesh, in_pl, out_pl, *args, feeds=None):
+    """``fn(*args)`` on the local shards of ``args``, through
+    ``torch.distributed.tensor.experimental.local_map``: each ``DTensor``
+    argument redistributed to its entry of ``in_pl`` (``None``: as it is
+    laid out), the tensors ``fn`` returns (a tuple) made ``DTensor``s
+    with ``out_pl``'s placements.  The gradient of an input is laid out
+    by ``_grad_layout`` over the outputs it feeds (``feeds``: for each
+    argument, the indices of the outputs it reaches; all by default).
+    Non-tensor arguments pass unchanged and take ``None``; so does a
+    plain tensor, which every rank must then hold whole."""
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils._pytree import tree_flatten
+    flat, _ = tree_flatten(args)
+    if in_pl is None:
+        in_pl = [None] * len(flat)
+    in_pl = [tuple(x.placements) if p is None and is_placed(x) else
+             (None if p is None else tuple(p)) for x, p in zip(flat, in_pl,
+                                                            strict=True)]
+    outs = [tuple(o) for o in out_pl]
+    feeds = feeds or [range(len(outs))] * len(flat)
+    grads = tuple(_grad_layout(p, [outs[j] for j in f])
+                  for p, f in zip(in_pl, feeds, strict=True))
+    return local_map(fn, out_placements=tuple(outs),
+                     in_placements=tuple(in_pl), in_grad_placements=grads,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def shard_offset(mesh, pl, dim: int, size: int) -> Tuple[int, int]:
+    """``(first, count)``: the global indices along tensor dimension
+    ``dim`` (of ``size``) of this rank's shard under placements ``pl``
+    (even shards; mesh dimensions in mesh order, the first major)."""
+    from torch.distributed.tensor import Shard
+    first, count = 0, size
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == dim:
+            count //= mesh.size(i)
+            first += mesh.get_local_rank(i) * count
+    return first, count
+
+
+def kv_heads_read(q_heads: Tuple[int, int], kv_heads: Tuple[int, int],
+                  groups: int):
+    """What a rank's query heads ``(first, count)`` read of its KV heads
+    ``(first, count)`` (query head ``i`` reads KV head ``i // groups``):
+    ``None`` where they read all of them, in order, else the local KV
+    head indices, one for each group of query heads (a list, one per
+    query head where a group straddles the shard)."""
+    (q0, hq), (k0, hk) = q_heads, kv_heads
+    if hq % groups == 0:
+        want = list(range(q0 // groups, q0 // groups + hq // groups))
+    elif groups % hq == 0:
+        want = [q0 // groups]
+    else:
+        want = [(q0 + i) // groups for i in range(hq)]
+    local = [j - k0 for j in want]
+    if not all(0 <= j < hk for j in local):
+        raise ValueError(f"kv_heads_read: query heads {q_heads} read KV "
+                         f"heads {want}, outside this rank's {kv_heads}")
+    return None if local == list(range(hk)) else local
+
+
+def placed_zeros(shape: Tuple[int, ...], dtype, mesh, pl, device,
+                 fill=None):
+    """A ``DTensor`` of global ``shape`` laid out by ``pl`` on ``mesh``,
+    made from its local shard alone (zeros, or ``fill(local_shape)``) on
+    ``device``: a global tensor is never made."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = list(shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    t = (torch.zeros(local, dtype=dtype, device=device) if fill is None
+         else fill(tuple(local)))
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(t, mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def place(tree, pairs):
+    """Every leaf of ``tree`` distributed by the matching ``(mesh,
+    placements)`` of ``pairs`` (``launch.train.make_state_shardings``):
+    every rank passes the same whole tree and keeps its shard, with no
+    communication."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, dict):
+        return {k: place(tree[k], pairs[k]) for k in tree}
+    mesh, pl = pairs
+    return distribute_tensor(tree, mesh, pl, src_data_rank=None)
 
 
 # ---------------------------------------------------------------------------

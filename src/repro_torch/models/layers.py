@@ -6,6 +6,15 @@ Every product of activations with a weight goes through ``impl.matmul``
 card and its plain version on the CPU) on 2-D contiguous operands
 (``linear``).  Norms, rotary embeddings, the embedding gather and the
 activations are plain PyTorch.
+
+On ``DTensor``s (the partitioned route, ``kernels.ops.partitioned``):
+``linear`` hands the placed activation to the partitioned ``matmul``;
+the lookup on a vocab-split table, the cross-entropy and the greedy
+argmax over vocab-split logits run on the local shards with a reduction
+of one or two values a row across the split (``_embed_placed``,
+``VocabParallelCE``, ``greedy``), where sharding propagation would
+gather the vocabulary; the gated MLP's activation and product run on
+the ``DTensor``s as PyTorch propagates them.
 """
 from __future__ import annotations
 
@@ -15,12 +24,17 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .common import ModelConfig, ParamDef, Rules, shard
+from .common import (ModelConfig, ParamDef, Rules, is_placed, on_shards,
+                     shard, shard_offset)
 
 
 def linear(impl, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x (..., k) @ w (k, n)`` through ``impl.matmul`` on the 2-D
-    contiguous view of ``x``."""
+    contiguous view of ``x``; a ``DTensor`` ``x`` goes whole to the
+    partitioned ``impl.matmul`` (``kernels.ops.partitioned``), which
+    flattens each local shard."""
+    if is_placed(x):
+        return impl.matmul(x, w)
     lead = x.shape[:-1]
     y = impl.matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
     return y.reshape(*lead, w.shape[-1])
@@ -126,8 +140,150 @@ def embed_tokens(p: Dict, tokens: torch.Tensor, rules: Optional[Rules],
                  dtype) -> torch.Tensor:
     # F.embedding, not indexing: its backward on the card sorts the
     # tokens and sums each one's rows in order (the same bits every run)
-    x = F.embedding(tokens, p["embedding"]).to(dtype)
+    table = p["embedding"]
+    if is_placed(table):
+        x = _embed_placed(table, tokens, dtype)
+    else:
+        x = F.embedding(tokens, table).to(dtype)
     return shard(x, rules, "batch", "seq", "act_embed")
+
+
+def _embed_placed(table, tokens, dtype):
+    """The lookup on a placed (vocab, d) table: gathered on its ``embed``
+    split (FSDP), each rank looks up the tokens of its own vocab rows
+    and zeros the rest, so the output is ``Partial`` where the vocab is
+    split (where it is whole, the plain lookup)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tab_pl, tok_pl, out_pl = [], [], []
+    for i, p in enumerate(table.placements):
+        vocab = isinstance(p, Shard) and p.dim == 0
+        tab_pl.append(p if vocab else Replicate())
+        tok = Replicate() if vocab else tokens.placements[i]
+        tok_pl.append(tok)
+        out_pl.append(Partial() if vocab else tok)
+    first, count = shard_offset(mesh, tab_pl, 0, table.shape[0])
+    split = count < table.shape[0]
+
+    def fn(tok, tab):
+        if not split:
+            return (F.embedding(tok, tab).to(dtype),)
+        inside = (tok >= first) & (tok < first + count)
+        x = F.embedding(torch.where(inside, tok - first, 0), tab)
+        return (x.masked_fill(~inside[..., None], 0).to(dtype),)
+    return on_shards(fn, mesh, [tok_pl, tab_pl], [out_pl], tokens,
+                     table)[0]
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_reduce(t, op, group)
+    return out.wait() if hasattr(out, "wait") else out
+
+
+def _vocab_split(logits):
+    """``(groups, first)``: the process groups of the mesh dimensions
+    that split ``logits``' last (vocab) dimension (one of a single rank
+    splits nothing), and the first vocab index of this rank's shard."""
+    from torch.distributed.tensor import Shard
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    split = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == last and mesh.size(i) > 1]
+    first, _ = shard_offset(mesh, logits.placements, last,
+                            logits.shape[-1])
+    return [mesh.get_group(i) for i in split], first
+
+
+def _whole_vocab(logits) -> tuple:
+    """``logits``' placements with its vocab split made whole: the
+    layout of what is reduced over the vocabulary."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = logits.ndim - 1
+    return tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                 else p for p in logits.placements)
+
+
+def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return -torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                         targets[..., None]).squeeze(-1)
+
+
+class VocabParallelCE(torch.autograd.Function):
+    """Cross-entropy of logits whose vocab is split over ``groups``, each
+    rank holding columns ``first ..``: the log-sum-exp and the target's
+    logit are reduced across the groups (``all_reduce`` of one value a
+    row), never the logits; the backward is local (softmax less the
+    one-hot)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, first, groups):
+        n = logits.shape[-1]
+        m = logits.detach().amax(-1, keepdim=True)
+        for g in groups:
+            m = _all_reduce(m, "max", g)
+        p = torch.exp(logits - m)
+        total = p.sum(-1, keepdim=True)
+        inside = (targets >= first) & (targets < first + n)
+        idx = torch.where(inside, targets - first, 0)
+        picked = torch.gather(logits, -1, idx[..., None]).squeeze(-1)
+        picked = torch.where(inside, picked, 0.0)
+        for g in groups:
+            total = _all_reduce(total, "sum", g)
+            picked = _all_reduce(picked, "sum", g)
+        p.div_(total)
+        ctx.save_for_backward(p, idx, inside)
+        return (m + torch.log(total)).squeeze(-1) - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, inside = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(inside, -g, 0.0)[..., None])
+        return grad, None, None, None
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """Each row's ``-log_softmax(logits)[target]`` (float32 logits).  On
+    ``DTensor``s split on the vocab, ``VocabParallelCE`` on the local
+    shards; where the vocab is whole, the plain formula on each rank's
+    rows."""
+    if not is_placed(logits):
+        return _ce(logits, targets)
+    groups, first = _vocab_split(logits)
+    out = _whole_vocab(logits)
+
+    def fn(lg, t):
+        if groups:
+            return (VocabParallelCE.apply(lg, t, first, groups),)
+        return (_ce(lg, t),)
+    return on_shards(fn, logits.device_mesh, [logits.placements, out],
+                     [out], logits, targets)[0]
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The int32 argmax of ``logits`` over its last (vocab) dimension,
+    the first of equal maxima.  On ``DTensor``s split on the vocab, each
+    rank's best value and index are gathered across the split (two
+    values a row), never the logits."""
+    if not is_placed(logits):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    import torch.distributed._functional_collectives as funcol
+    groups, first = _vocab_split(logits)
+    out = _whole_vocab(logits)        # the vocab dimension reduced away
+
+    def fn(lg):
+        best, idx = lg.max(-1)
+        idx = (idx + first).to(torch.int32)   # token ids, as gathered
+        for g in groups:
+            vals = funcol.all_gather_tensor(best[None], 0, g)
+            idxs = funcol.all_gather_tensor(idx[None], 0, g)
+            best = vals.amax(0)
+            idx = torch.where(vals == best, idxs,
+                              torch.iinfo(idxs.dtype).max).amin(0)
+        return (idx,)
+    return on_shards(fn, logits.device_mesh, None, [out], logits)[0]
 
 
 def lm_logits(p: Dict, x: torch.Tensor, rules: Optional[Rules], impl=ops,

@@ -53,6 +53,13 @@ launch through ``ctypes``, which a ``TorchDispatchMode`` (PyTorch's
 selective checkpointing) cannot see: this tape keys products by their
 place in the group, which does not depend on what computes them.
 
+On the partitioned route (``kernels.ops.partitioned``) each product is
+taped on its local shards, so the forward and the recompute save the
+same local tensors, and ``keep`` reads a ``DTensor``'s local tensor;
+the recompute repeats the group's collectives (the weights' FSDP
+all-gathers among them), as the reference's partitioned
+``jax.checkpoint`` does.
+
 The group's MoE layers take their top-k choices through the tape
 (``Tape.__call__`` is a ``moe.Routing``'s call): the forward asks the
 caller's ``routing`` (if any) and keeps what it returns; the recompute
@@ -68,6 +75,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.matmul import MatmulFn
+from ..kernels.ops import Partitioned
+from .common import is_placed
 
 
 RECOMPUTE_SPAN = "remat.recompute"
@@ -175,6 +184,8 @@ class Tape:
         its output."""
         if self.replaying or self.last is None:
             return
+        if is_placed(t):                    # the partitioned route's
+            t = t._local_tensor
         slot, out = self.last
         if (t if t._base is None else t._base) is out:
             self.kept[slot] = out.detach()
@@ -199,10 +210,17 @@ class _Taped(SimpleNamespace):
     """An impl whose products go through a tape (``taped``)."""
 
 
-def taped(impl, tape: Tape) -> _Taped:
+def taped(impl, tape: Tape):
     """``impl`` with its products through ``tape``; ``untaped`` is
-    ``impl`` itself, for the products no policy keeps."""
+    ``impl`` itself, for the products no policy keeps.  A partitioned
+    ``impl`` (``kernels.ops.Partitioned``) keeps its namespace, each
+    product taped on the local shards."""
     base = getattr(impl, "base", impl)
+    if isinstance(impl, Partitioned):
+        def matmul(a, b):
+            return impl.matmul(a, b, product=lambda x, w: tape.product(
+                base, x, w))
+        return Partitioned(**{**vars(impl), "matmul": matmul})
     return _Taped(
         matmul=lambda a, b: tape.product(base, a, b),
         fused_add_rmsnorm=impl.fused_add_rmsnorm,

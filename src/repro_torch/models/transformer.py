@@ -57,6 +57,23 @@ stack plus 0.01 x the summed MoE aux loss, its LM head built inside the
 caller's graph; ``ce_chunk > 0`` rematerializes one chunk of logits at a
 time (``torch.utils.checkpoint`` where the JAX package uses
 ``jax.checkpoint``).
+
+The partitioned route (``Model(cfg, impl=kernels.ops.partitioned(impl,
+mesh, rules))``, parameters, batch and cache ``DTensor``s placed by the
+rules, the counterpart of the reference's ``jax.jit(in_shardings=...)``)
+runs the same code.  On the local shards (``local_map``): every kernel
+(the partitioned namespace), the embedding lookup on the vocab-split
+table, qk-norm, rotary embeddings, the cache's append and decode
+attention (``attention._attend_placed``), the cross-entropy and the
+greedy argmax over vocab-split logits (``layers.VocabParallelCE``,
+``layers.greedy``).  On the ``DTensor``s as PyTorch's sharding
+propagation lays them out: the weights' reshapes and the tied head's
+transpose, the heads' split and merge, ``unbind`` of the stacked
+layers, the MLP's activation and product, the loss's chunk slices, its
+mean (replicated, ``_replicated``) and the optimizer; the chunked loss's
+pads and concatenation run on the local shards (``_local``: PyTorch
+2.11's propagation of ``pad`` fails).  Configs outside the slice
+(``outside_partitioned``) raise on a mesh of more than one rank.
 """
 from __future__ import annotations
 
@@ -74,10 +91,10 @@ from . import remat as REMAT
 from . import rglru as RG
 from . import ssm as SSM
 from .common import (ModelConfig, ParamDef, Rules, TensorSpec,
-                     abstract_params, init_params, param_count,
-                     param_specs)
-from .layers import (apply_mlp, apply_norm, embed_defs, embed_tokens,
-                     linear, lm_logits, mlp_defs, norm_defs)
+                     abstract_params, init_params, is_placed, on_shards,
+                     param_count, param_specs)
+from .layers import (apply_mlp, apply_norm, cross_entropy, embed_defs,
+                     embed_tokens, linear, lm_logits, mlp_defs, norm_defs)
 
 def _mixer_kind(entry: str) -> str:
     return entry.split("+")[0]
@@ -88,6 +105,22 @@ def _is_moe(entry: str) -> bool:
 
 
 _MIXERS = ("attn", "mamba2", "rglru")
+
+
+def outside_partitioned(cfg: ModelConfig) -> Optional[str]:
+    """The ROADMAP item (Queue 1) that will partition what ``cfg`` has
+    and the partitioned route does not run, or None for a config in
+    its slice (attention decoders with dense FFNs, no front end)."""
+    if cfg.n_experts:
+        return "MoE with experts on data"
+    kinds = {_mixer_kind(e) for e in cfg.pattern}
+    if kinds - {"attn"}:
+        return "the SSD and RG-LRU mixers"
+    if cfg.encoder_layers or cfg.learned_pos:
+        return "whisper's encoder and cross-attention"
+    if cfg.n_patches:
+        return "pixtral's patches"
+    return None
 
 
 def _check_entry(entry: str) -> None:
@@ -133,6 +166,9 @@ def add_norm(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         x = x if delta is None else x + delta
         return apply_norm(cfg, p, x), x
     delta = torch.zeros_like(x) if delta is None else delta
+    if is_placed(x):
+        # the partitioned namespace takes the (B, S, d) stream whole
+        return impl.fused_add_rmsnorm(delta, x, p["scale"])
     rows = (-1, x.shape[-1])
     h, s = impl.fused_add_rmsnorm(delta.reshape(rows).contiguous(),
                                   x.reshape(rows).contiguous(), p["scale"])
@@ -196,6 +232,32 @@ def _apply_block(cfg: ModelConfig, entry: str, p: Dict, x: torch.Tensor,
     return x, pending, cache, aux
 
 
+def _serving(tokens: torch.Tensor):
+    """The context a prefill or decode step runs in: inference mode, or
+    on the partitioned route ``no_grad`` (a ``DTensor``'s views, the
+    layers' slices among them, cannot be taken in inference mode)."""
+    return torch.no_grad() if is_placed(tokens) else torch.inference_mode()
+
+
+def _local(fn, *ts: torch.Tensor) -> torch.Tensor:
+    """``fn(*ts)``; on ``DTensor``s, on their local shards, laid out as
+    the first (``fn`` pads, cuts or joins only dimensions they do not
+    split: PyTorch 2.11's sharding propagation of ``pad`` fails)."""
+    if not is_placed(ts[0]):
+        return fn(*ts)
+    return on_shards(lambda *u: (fn(*u),), ts[0].device_mesh, None,
+                     [ts[0].placements], *ts)[0]
+
+
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """``t`` whole on every rank where it is a ``DTensor`` (a loss that
+    is a mean over rows split across ranks), else ``t``."""
+    if not is_placed(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
 def _index(tree, i: int):
     """Slice ``i`` of the leading axis of every leaf (views)."""
     if isinstance(tree, dict):
@@ -228,6 +290,14 @@ class Model:
     def __post_init__(self):
         for entry in self.pat:
             _check_entry(entry)
+        if isinstance(self.impl, ops.Partitioned) \
+                and self.impl.mesh.size() > 1:
+            why = outside_partitioned(self.cfg)
+            if why is not None:
+                raise NotImplementedError(
+                    f"{self.cfg.name} on a {self.impl.mesh.size()}-rank "
+                    f"mesh: the partitioned route does not run it yet "
+                    f"(ROADMAP Queue 1: {why})")
 
     # ---- structure ---------------------------------------------------------
     @property
@@ -459,26 +529,24 @@ class Model:
         w = emb["head"] if "head" in emb else emb["embedding"].t().contiguous()
 
         def ce_of(xc, tc):
-            logits = linear(self.impl, xc, w).float()
-            return -torch.gather(torch.log_softmax(logits, dim=-1), -1,
-                                 tc[..., None]).squeeze(-1)
+            return cross_entropy(linear(self.impl, xc, w).float(), tc)
 
         chunk = cfg.ce_chunk
         s = x.shape[1]
         if chunk and s > chunk:
             pad = (-s) % chunk
-            xp = F.pad(x, (0, 0, 0, pad))
-            tp = F.pad(targets, (0, pad))
+            xp = _local(lambda t: F.pad(t, (0, 0, 0, pad)), x)
+            tp = _local(lambda t: F.pad(t, (0, pad)), targets)
             # the backward rematerializes one chunk of logits at a time:
             # only (B, chunk, V) of them is ever live
-            ce = torch.cat([checkpoint(ce_of, xp[:, i:i + chunk],
-                                       tp[:, i:i + chunk],
-                                       use_reentrant=False)
-                            for i in range(0, s + pad, chunk)], 1)[:, :s]
+            ce = _local(lambda *parts: torch.cat(parts, 1)[:, :s], *[
+                checkpoint(ce_of, xp[:, i:i + chunk], tp[:, i:i + chunk],
+                           use_reentrant=False)
+                for i in range(0, s + pad, chunk)])
         else:
             ce = ce_of(x, targets)
-        loss = ce.mean() + 0.01 * aux
-        return loss, {"ce": ce.mean(), "aux": aux}
+        ce = _replicated(ce.mean())
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ---- caches -----------------------------------------------------------------
     def _cache_entry(self, entry: str, lead: Tuple[int, ...], batch: int,
@@ -531,15 +599,25 @@ class Model:
         return cache
 
     # ---- serving ---------------------------------------------------------------
-    @torch.inference_mode()
     def prefill(self, params: Dict, tokens: torch.Tensor, max_len: int,
                 rules: Optional[Rules] = None,
                 frames: Optional[torch.Tensor] = None,
                 patches: Optional[torch.Tensor] = None,
-                routing: Optional[MOE.Routing] = None
+                routing: Optional[MOE.Routing] = None,
+                cache: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict]:
-        cache = self.make_cache(tokens.shape[0], max_len,
-                                device=tokens.device)
+        """The last position's logits and the filled cache; ``cache``: a
+        zero cache of ``max_len`` rows to fill (a placed one,
+        ``launch.serve.placed_cache``), made here by default."""
+        with _serving(tokens):
+            return self._prefill(params, tokens, max_len, rules, frames,
+                                 patches, routing, cache)
+
+    def _prefill(self, params, tokens, max_len, rules, frames, patches,
+                 routing, cache):
+        if cache is None:
+            cache = self.make_cache(tokens.shape[0], max_len,
+                                    device=tokens.device)
         if frames is not None and self.cfg.encoder_layers > 0:
             enc_out = self.encode(params, frames, rules)
             cache = self._fill_cross(params, cache, enc_out)
@@ -581,13 +659,13 @@ class Model:
                 cache[key]["_cross"] = {"k": k, "v": v}
         return cache
 
-    @torch.inference_mode()
     def decode_step(self, params: Dict, tokens: torch.Tensor, cache: Dict,
                     rules: Optional[Rules] = None,
                     routing: Optional[MOE.Routing] = None
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B, 1) -> (logits (B, vocab), cache updated in place)."""
-        logits, cache, _ = self.forward(params, tokens, rules, cache=cache,
-                                        routing=routing)
-        return logits[:, -1].clone(memory_format=torch.contiguous_format), \
-            cache
+        with _serving(tokens):
+            logits, cache, _ = self.forward(params, tokens, rules,
+                                            cache=cache, routing=routing)
+            return logits[:, -1].clone(
+                memory_format=torch.contiguous_format), cache

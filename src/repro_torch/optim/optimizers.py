@@ -111,7 +111,9 @@ class AdamW:
 
     def init(self, params: Tensors) -> dict:
         def zeros(p):
-            return torch.zeros(p.shape, dtype=self.mv_dtype, device=p.device)
+            # laid out as ``p`` where it is a DTensor
+            return torch.zeros_like(p, dtype=self.mv_dtype,
+                                    memory_format=torch.contiguous_format)
         return {"m": _map(zeros, params), "v": _map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32)}
 

@@ -5,6 +5,8 @@ atomicity, a missing step raising, a resumed run continuing the
 uninterrupted one), and restores across the two packages both ways,
 with a bfloat16 leaf and the int32 optimizer step, bit for bit."""
 import json
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from test_torch_ranks import ROOT, env  # noqa: E402
 
 from repro.checkpoint import manager as jmanager  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
@@ -183,3 +187,195 @@ def test_train_resume_continues(tmp_path):
     np.testing.assert_allclose(full["losses"][3:], part2["losses"],
                                rtol=2e-4, atol=2e-4)
     _same_bits(part2["state"], full["state"])
+
+
+# ---- restores onto a DeviceMesh ---------------------------------------------
+
+# Four ``gloo`` ranks (``test_torch_ranks.run_ranks``).  A reduced
+# Qwen3-0.6B state (bfloat16 parameters, float32 AdamW moments, the int32
+# step) saved unsharded by the port and by the JAX package (in a process
+# of its own) is restored with ``shardings=make_state_shardings(...)``
+# onto a (2, 2) and a (4, 1) ``("data", "model")`` mesh: every leaf a
+# DTensor laid out as asked, bit-equal to the saved arrays through
+# ``full_tensor``.  One partitioned AdamW step from the restored state
+# equals, bit for bit, the step from the same state placed directly; and
+# the placed state saved again (each leaf gathered, rank 0 writing)
+# restores unsharded to the same bits.
+MESH = """
+import os
+import numpy as np
+from torch.distributed.tensor import DTensor
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import get_config, reduced
+from repro_torch.interop import from_stored
+from repro_torch.kernels import ops
+from repro_torch.launch import train
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.common import (PROD_RULES, TensorSpec, place,
+                                       tree_map, with_axis_sizes)
+from repro_torch.models.transformer import Model
+from repro_torch.optim import AdamW, constant_schedule
+
+DIR = os.environ["CKPT_DIR"]
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat(tree[k], f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def saved():
+    with np.load(f"{DIR}/arrays.npz") as data:
+        return {k.replace("__", "/"): from_stored(
+            data[k], "bfloat16" if k.startswith("params") else
+            str(data[k].dtype)) for k in data.files}
+
+
+def same(a, b):
+    a = a.full_tensor() if isinstance(a, DTensor) else a
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8)
+                                              if a.dim() else a, b.view(
+        torch.uint8) if b.dim() else b)
+
+
+def main(rank, world):
+    cfg = reduced(get_config("qwen3-0.6b")).replace(vocab_size=512)
+    opt = AdamW(schedule=constant_schedule(1e-3))
+    want = saved()
+    out = {}
+    template = {"params": Model(cfg).abstract()}
+    template["opt"] = {"m": tree_map(lambda s: TensorSpec(
+        s.shape, torch.float32), template["params"]),
+        "v": tree_map(lambda s: TensorSpec(s.shape, torch.float32),
+                      template["params"]),
+        "step": TensorSpec((), torch.int32)}
+    states = {}
+    for shape in ((2, 2), (4, 1)):
+        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+        rules = with_axis_sizes(PROD_RULES, mesh)
+        model = Model(cfg, impl=ops.partitioned(None, mesh, rules))
+        sh = train.make_state_shardings(model, opt, rules, mesh)
+        for writer in ("port", "jax"):
+            got, extra = CheckpointManager(f"{DIR}/{writer}").restore(
+                5, template, shardings=sh)
+            pairs = flat(sh)
+            ok = placed = 0
+            for key, leaf in flat(got).items():
+                ok += same(leaf, want[key])
+                placed += (isinstance(leaf, DTensor) and tuple(
+                    leaf.placements) == tuple(pairs[key][1]))
+            out[f"{writer}{shape}"] = [ok, placed, len(want), extra]
+            states[(writer, shape)] = (got, model, sh, mesh, rules)
+    got, model, sh, mesh, rules = states[("port", (2, 2))]
+    plain = {k: v for k, v in want.items()}
+    direct = place(_nested(plain), sh)
+    tokens = torch.from_numpy(np.load(f"{DIR}/tokens.npy"))
+    batch = place({"tokens": tokens}, train.batch_shardings(
+        mesh, rules, {"tokens": tokens}))
+    step = train.make_train_step(model, opt, rules)
+    results = []
+    for state in (got, direct):
+        state = {"params": train.trainable(state["params"]),
+                 "opt": state["opt"]}
+        new, metrics = step(state, batch)
+        results.append((flat(new), float(metrics["loss"].full_tensor())))
+    out["step_equal"] = all(same(a, b.full_tensor())
+                            for a, b in zip(results[0][0].values(),
+                                            results[1][0].values()))
+    out["losses"] = [results[0][1], results[1][1]]
+    CheckpointManager(f"{DIR}/placed").save(6, got, {"saved": "placed"})
+    back, extra = CheckpointManager(f"{DIR}/placed").restore(6, template)
+    out["placed_save"] = [sum(same(leaf, want[key]) for key, leaf in
+                              flat(back).items()), len(want), extra]
+    return out
+
+
+def _nested(flat_tree):
+    out = {}
+    for key, value in flat_tree.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return out
+"""
+
+
+JAX_SAVE = """
+import sys
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+from repro.checkpoint.manager import CheckpointManager
+tmp = sys.argv[1]
+with np.load(f"{tmp}/arrays.npz") as d:
+    flat = {k: d[k] for k in d.files}
+tree = {}
+for key, arr in flat.items():
+    *path, leaf = key.split("__")
+    node = tree
+    for p in path:
+        node = node.setdefault(p, {})
+    node[leaf] = (arr.view(ml_dtypes.bfloat16) if key.startswith("params")
+                  else arr)
+CheckpointManager(f"{tmp}/jax").save(
+    5, jax.tree_util.tree_map(jnp.asarray, tree), {"writer": "jax"})
+"""
+
+
+@pytest.fixture(scope="module")
+def on_meshes(tmp_path_factory):
+    from test_torch_ranks import run_ranks
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Model
+    tmp = tmp_path_factory.mktemp("mesh_restore")
+    cfg = reduced(get_config("qwen3-0.6b")).replace(vocab_size=512)
+    rng = np.random.default_rng(3)
+    params = tree_map(lambda s: (rng.standard_normal(s.shape) * 0.05).astype(
+        jnp.bfloat16), Model(cfg).abstract())
+    moments = tree_map(lambda a: rng.standard_normal(a.shape).astype(
+        np.float32), params)
+    arrays = {"params": params, "opt": {
+        "m": moments, "v": tree_map(np.abs, moments),
+        "step": np.asarray(4, np.int32)}}
+    CheckpointManager(str(tmp / "port")).save(5, jax.tree_util.tree_map(
+        from_numpy, arrays), {"writer": "port"})
+    with np.load(tmp / "port" / "step_0000000005" / "arrays.npz") as d:
+        np.savez(tmp / "arrays.npz", **{k: d[k] for k in d.files})
+    # the JAX package's manager writes the same arrays, in a process of
+    # its own
+    res = subprocess.run([sys.executable, "-c", JAX_SAVE, str(tmp)],
+                         cwd=ROOT, env=env(), capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    np.save(tmp / "tokens.npy", np.random.default_rng(4).integers(
+        0, 512, (4, 12), dtype=np.int32))
+    return run_ranks(MESH, 4, tmp, timeout=180, CKPT_DIR=str(tmp))
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("shape", ["(2, 2)", "(4, 1)"])
+def test_restore_onto_a_mesh_is_bit_equal(on_meshes, writer, shape):
+    for rank in on_meshes:
+        ok, placed, n, extra = rank[f"{writer}{shape}"]
+        assert ok == placed == n > 10
+        assert extra == {"writer": writer}
+
+
+def test_a_step_after_the_restore_equals_one_without_it(on_meshes):
+    for rank in on_meshes:
+        assert rank["step_equal"]
+        assert rank["losses"][0] == rank["losses"][1]
+
+
+def test_placed_state_saves_gathered_and_restores(on_meshes):
+    for rank in on_meshes:
+        ok, n, extra = rank["placed_save"]
+        assert ok == n and extra == {"saved": "placed"}

@@ -18,10 +18,11 @@ package's (``repro.launch.dryrun``), on the CPU:
   and a skipped cell's record equal to the reference's;
 * the helpers of ``chip_smoke.py``'s phase 22: ``chunked_train_launches``
   against the calls a counting ``impl`` sees in a chunked-CE step;
-  ``meta_peak_bytes`` on storages kept by autograd, on copies made
-  under inference mode and inside ``einsum``, and on the softmax
-  backward's CUDA temporary; ``kernel_shaped``'s GEMM
-  allocating as the wrapper; ``grouped_plain`` and ``kv_group``
+  the peak of ``launch.program.StepReader`` (which the phase reads too)
+  on storages kept by autograd, on copies made under inference mode and
+  inside ``einsum``, and on the softmax backward's CUDA temporary;
+  ``launch.program.kernel_shaped``'s GEMM allocating as the wrapper;
+  ``grouped_plain`` and ``kv_group``
   against the plain attention; ``walked_and_counted``'s two counts
   equal; the whole phase (``dryrun_slice``) at reduced size with the
   CUDA calls stubbed.
@@ -50,7 +51,7 @@ from repro.models.transformer import Model as JModel  # noqa: E402
 
 from repro_torch.configs import ARCHS, get_config, reduced  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.launch import dryrun, shapes, train  # noqa: E402
+from repro_torch.launch import dryrun, program, shapes, train  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 
 SMOKE = _smoke()
@@ -147,7 +148,13 @@ for multi in (False, True):
                     "cost": [cost.flops, cost.bytes, cost.gemm_flops],
                     "hbm": rec["roofline"]["hbm_bytes"],
                     "bound": rec["roofline"]["bound"],
-                    "t_collective": rec["roofline"]["t_collective_s"]}
+                    "t_collective": rec["roofline"]["t_collective_s"],
+                    "temp": rec["memory"]["temp_bytes"],
+                    "alias": rec["memory"]["alias_bytes"],
+                    "by_kind": rec["roofline"]["collective_by_kind"],
+                    "coll": rec["roofline"]["collective_bytes"],
+                    "per_device": rec["roofline"].get(
+                        "collective_bytes_per_device")}
 with tempfile.TemporaryDirectory() as tmp:
     dryrun.main(["--arch", "qwen3-0.6b", "--shape", "long_500k", "--out", tmp])
     out["skipped"] = json.loads(open(
@@ -191,17 +198,316 @@ REF_ROOFLINE = ["bound", "chips", "collective_by_kind", "collective_bytes",
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_lower_cell_on_the_fake_backend(fake, cell):
+    """Qwen3's cells are on the partitioned route: their temp, alias and
+    collective terms are read from rank 0's step; granite's (MoE) keep
+    ``None`` with a ``"why"`` naming the ROADMAP item."""
     got = fake[cell]
     assert got["status"] == "ok"
-    assert got["chips"] == (512 if cell.endswith("2x16x16") else 256)
+    chips = 512 if cell.endswith("2x16x16") else 256
+    assert got["chips"] == chips
     assert got["keys"] == REF_KEYS
-    assert got["memory"] == sorted(REF_MEMORY + ["why"])
-    assert got["roofline"] == sorted(REF_ROOFLINE + ["gemm_flops", "why"])
     assert got["argument"] == got["want_argument"]
     assert got["output"] > 0
     assert got["flops"] == got["cost"][0] and got["hbm"] == got["cost"][1]
-    assert got["t_collective"] is None
-    assert got["bound"] in ("compute", "memory")
+    if cell.startswith("qwen3"):
+        assert got["memory"] == sorted(REF_MEMORY)
+        assert got["roofline"] == sorted(
+            REF_ROOFLINE + ["collective_bytes_per_device", "gemm_flops"])
+        assert got["temp"] > 0 and got["per_device"] > 0
+        assert got["coll"] == chips * got["per_device"]
+        assert sum(got["by_kind"].values()) == got["coll"]
+        assert got["t_collective"] == pytest.approx(
+            got["per_device"] / 450e9, rel=1e-12)
+        # the decode cache is written in place; nothing else is
+        assert (got["alias"] > 0) == ("decode" in cell)
+        assert got["bound"] in ("compute", "memory", "collective")
+    else:
+        assert got["memory"] == sorted(REF_MEMORY + ["why"])
+        assert got["roofline"] == sorted(REF_ROOFLINE + ["gemm_flops",
+                                                         "why"])
+        assert got["t_collective"] is None and got["temp"] is None
+        assert got["bound"] in ("compute", "memory")
+
+
+PARTITIONED = r"""
+import json, math, tempfile
+import torch
+from torch.distributed.tensor import Shard, distribute_tensor
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun, program
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.train import make_state_shardings
+from repro_torch.models.common import (PROD_RULES, placed_zeros,
+                                       with_axis_sizes)
+from repro_torch.models.transformer import Model
+from repro_torch.optim import AdamW, constant_schedule
+
+out = {}
+with tempfile.TemporaryDirectory() as tmp:
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        dryrun.main(["--arch", "qwen3-0.6b", "--shape", shape, "--out", tmp])
+        out[shape] = json.loads(open(
+            f"{tmp}/qwen3-0.6b.{shape}.16x16.json").read())
+    dryrun.main(["--arch", "mamba2-130m", "--shape", "long_500k",
+                 "--out", tmp])
+    out["mamba2"] = json.loads(open(
+        f"{tmp}/mamba2-130m.long_500k.16x16.json").read())
+
+# one FSDP product alone: Qwen3's MLP input weight, one layer of it
+with dryrun.fake_world(False):
+    mesh = make_production_mesh(device_type="cpu")
+    rules = with_axis_sizes(PROD_RULES, mesh)
+    model = Model(get_config("qwen3-0.6b"))
+    mesh_, pl = make_state_shardings(
+        model, AdamW(schedule=constant_schedule(1e-4)), rules,
+        mesh)["params"]["blk0"]["mlp"]["wi"]
+    leaf = distribute_tensor(torch.empty((28, 1024, 3072),
+                                         dtype=torch.bfloat16,
+                                         device="meta"),
+                             mesh, pl, src_data_rank=None)
+    local = list(leaf.to_local().shape[1:])
+    w = placed_zeros((1024, 3072), torch.bfloat16, mesh,
+                     [Shard(p.dim - 1) if isinstance(p, Shard) else p
+                      for p in pl], "meta").requires_grad_()
+    x = placed_zeros((32, 8, 1024), torch.bfloat16, mesh,
+                     dryrun.placements(dryrun.P("data", None, None), mesh),
+                     "meta")
+    part = ops.partitioned(program.kernel_shaped(), mesh, rules)
+    reader = program.StepReader()
+    with reader:
+        y = part.matmul(x, w)
+        torch.autograd.grad(y.to_local().sum(), [w])
+    out["fsdp"] = {"local": local, "calls": reader.calls,
+                   "by_kind": reader.collectives,
+                   "placements": [str(p) for p in pl]}
+print("PART " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def partitioned():
+    res = subprocess.run([sys.executable, "-c", PARTITIONED], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600,
+                         env=env())
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("PART ")]
+    assert lines, res.stdout[-3000:] + res.stderr[-3000:]
+    return json.loads(lines[-1][len("PART "):])
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_qwen3_cells_read_the_partitioned_step(partitioned, shape):
+    """``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape S``
+    at full size on the 16 x 16 mesh records the temp, alias and
+    collective terms of rank 0's partitioned step."""
+    rec = partitioned[shape]
+    mem, roof = rec["memory"], rec["roofline"]
+    assert "why" not in mem and "why" not in roof
+    assert isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] > 0
+    assert isinstance(mem["alias_bytes"], int)
+    # the decode cache, 28 layers x (k, v) of 8 rows x 32,768 x 8 KV
+    # heads x 128 in bfloat16 (the KV heads whole: 8 do not divide 16)
+    # plus the int32 positions; nothing else is written in place
+    want_alias = 28 * 2 * 8 * 32768 * 8 * 128 * 2 + 28 * 4 \
+        if shape == "decode_32k" else 0
+    assert mem["alias_bytes"] == want_alias
+    kinds = roof["collective_by_kind"]
+    assert set(kinds) <= {"all-gather", "reduce-scatter", "all-reduce",
+                          "all-to-all"} and kinds["all-gather"] > 0
+    assert sum(kinds.values()) == roof["collective_bytes"] == \
+        256 * roof["collective_bytes_per_device"]
+    assert roof["t_collective_s"] == pytest.approx(
+        roof["collective_bytes_per_device"] / 450e9, rel=1e-12)
+    assert roof["step_time_s"] == max(roof["t_compute_s"],
+                                      roof["t_memory_s"],
+                                      roof["t_collective_s"])
+
+
+def test_a_cell_outside_the_slice_keeps_none(partitioned):
+    rec = partitioned["mamba2"]
+    assert rec["memory"]["temp_bytes"] is None
+    assert rec["roofline"]["t_collective_s"] is None
+    for part in (rec["memory"], rec["roofline"]):
+        assert "ROADMAP Queue 1: the SSD and RG-LRU mixers" in part["why"]
+
+
+def test_fsdp_product_collectives_have_the_closed_form(partitioned):
+    """One column-parallel product of a weight laid out by
+    ``make_state_shardings`` (``embed`` on ``data``, ``ff`` on
+    ``model``): the forward all-gathers the weight over ``data``, the
+    backward reduce-scatters its gradient back, in bfloat16; nothing
+    else crosses."""
+    got = partitioned["fsdp"]
+    assert got["placements"] == ["S(1)", "S(2)"]
+    d_local, f_local = got["local"]
+    assert [d_local, f_local] == [1024 // 16, 3072 // 16]
+    assert got["calls"] == [["all-gather", [16 * d_local, f_local]],
+                            ["reduce-scatter", [d_local, f_local]]]
+    assert got["by_kind"] == {"all-gather": 16 * d_local * f_local * 2,
+                              "reduce-scatter": d_local * f_local * 2}
+
+
+# The same reduced cells through the reference's dry-run parser and the
+# port's read: Qwen3 reduced (vocabulary 512), in float32 (the CPU's XLA
+# widens bfloat16 collectives to float32), on a (2, 2) ("data", "model")
+# mesh; the cells cut to a global batch of 4 and 64 tokens, their rules
+# and adjustments kept.
+HLO_CELLS = {"train_4k": (4, 64), "prefill_32k": (4, 64),
+             "decode_32k": (4, 64)}
+HLO_KW = {"vocab_size": 512}
+
+HLO_COMMON = r"""
+import dataclasses, json, sys
+cells, kw = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+"""
+
+# the reference: jax.jit(in_shardings=...) of each cell's step on 4 forced
+# host devices, its per-device HLO read by roofline.collective_bytes
+HLO_JAX = HLO_COMMON + r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax
+import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import get_config, reduced
+from repro.launch import roofline
+from repro.launch.mesh import make_mesh
+mesh = make_mesh((2, 2), ("data", "model"))   # before dryrun's XLA_FLAGS
+from repro.launch.dryrun import _batch_shardings, _cache_pspecs, _tree_ns
+from repro.launch.serve import make_prefill_step, make_serve_step
+from repro.launch.shapes import (SHAPES, adjust_config, batch_input_specs,
+                                 cell_rules)
+from repro.launch.train import make_train_step
+from repro.models.common import with_axis_sizes
+from repro.models.transformer import Model
+from repro.optim.optimizers import AdamW, constant_schedule
+
+out = {}
+for name, (b, s) in cells.items():
+    shape = dataclasses.replace(SHAPES[name], global_batch=b, seq=s)
+    cfg = adjust_config(reduced(get_config("qwen3-0.6b")), shape).replace(
+        dtype=jnp.float32, **kw)
+    rules = with_axis_sizes(cell_rules(shape, False, 2), mesh)
+    model = Model(cfg)
+    params_abs, pspecs = model.abstract(), model.specs(rules)
+    params_ns = _tree_ns(mesh, pspecs)
+    specs = batch_input_specs(cfg, shape)
+    batch_ns = _batch_shardings(mesh, rules, specs)
+    with mesh:
+        if shape.kind == "train":
+            opt = AdamW(schedule=constant_schedule(1e-4))
+            state_ns = {"params": params_ns,
+                        "opt": _tree_ns(mesh, opt.state_specs(pspecs))}
+            state_abs = {"params": params_abs,
+                         "opt": jax.eval_shape(opt.init, params_abs)}
+            lowered = jax.jit(make_train_step(model, opt, rules),
+                              in_shardings=(state_ns, batch_ns),
+                              out_shardings=(state_ns, None),
+                              donate_argnums=(0,)).lower(state_abs, specs)
+        elif shape.kind == "prefill":
+            lowered = jax.jit(make_prefill_step(model, rules, s + 8),
+                              in_shardings=(params_ns, batch_ns)).lower(
+                params_abs, specs)
+        else:
+            cache_abs = model.make_cache(b, s, abstract=True)
+            cache_ns = jax.tree_util.tree_map(
+                lambda p: NamedSharding(mesh, p),
+                _cache_pspecs(model, cache_abs, rules),
+                is_leaf=lambda x: isinstance(x, P))
+            lowered = jax.jit(make_serve_step(model, rules),
+                              in_shardings=(params_ns, cache_ns,
+                                            batch_ns["tokens"]),
+                              out_shardings=(None, cache_ns),
+                              donate_argnums=(1,)).lower(
+                params_abs, cache_abs, specs["tokens"])
+        hlo = lowered.compile().as_text()
+    out[name] = roofline.collective_bytes(hlo)[1]
+print("HLO " + json.dumps(out))
+"""
+
+# the port: rank 0's partitioned step of each cell on a fake world of 4
+HLO_PORT = HLO_COMMON + r"""
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch import dryrun, program
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.shapes import SHAPES, adjust_config, cell_rules
+from repro_torch.models.common import with_axis_sizes
+
+dryrun._fake_backend()
+dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                        world_size=4)
+mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+out = {}
+for name, (b, s) in cells.items():
+    shape = dataclasses.replace(SHAPES[name], global_batch=b, seq=s)
+    cfg = adjust_config(reduced(get_config("qwen3-0.6b")), shape).replace(
+        dtype=torch.float32, **kw)
+    rules = with_axis_sizes(cell_rules(shape, False, 2), mesh)
+    step, inputs = program.local_program(cfg, shape.kind, b, s, mesh, rules)
+    out[name] = program.read_step(step, *inputs)["collective_by_kind"]
+dist.destroy_process_group()
+print("HLO " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def against_hlo():
+    """``(reference, port)``: each cell's per-device collective bytes by
+    kind, from the reference's HLO and from the port's read."""
+    args = [json.dumps(HLO_CELLS), json.dumps(HLO_KW)]
+    procs = [subprocess.Popen([sys.executable, "-c", script, *args],
+                              cwd=ROOT, text=True, env=env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for script in (HLO_JAX, HLO_PORT)]
+    got = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=600)
+        lines = [ln for ln in out.splitlines() if ln.startswith("HLO ")]
+        assert proc.returncode == 0 and lines, out[-2000:] + err[-3000:]
+        got.append(json.loads(lines[-1][len("HLO "):]))
+    return tuple(got)
+
+
+@pytest.mark.parametrize("cell", sorted(HLO_CELLS))
+def test_collectives_against_the_reference_hlo(against_hlo, cell):
+    """The port's collective bytes of a cell against the reference's
+    ``roofline.collective_bytes`` over the jitted step's per-device HLO,
+    by kind.  Two differences are the compilers', not the programs':
+
+    * the CPU's XLA forms no reduce-scatter: it all-reduces, then each
+      device slices its part; the port's reduce-scatter over a group of
+      2 is that all-reduce at half its output's bytes;
+    * the embedding lookup: the port gathers its table's shard over
+      ``data`` ((vocab / 2) x d in float32) and sums the looked-up rows
+      over ``model``; the reference gathers the token ids over ``data``
+      (batch x tokens int32), sums the rows, and lays them out again by
+      an all-to-all and a collective-permute.
+
+    With those, a prefill and a decode step move the same bytes of each
+    kind.  The training step moves no more than the reference's: the
+    reference gathers each weight again in the backward and all-reduces
+    the weights' gradients whole, where the port keeps the forward's
+    gathered weight (outside a remat group) and reduce-scatters."""
+    ref, port = (side[cell] for side in against_hlo)
+    batch, seq = HLO_CELLS[cell]
+    kind = shapes.SHAPES[cell].kind
+    cfg = reduced(get_config("qwen3-0.6b")).replace(**HLO_KW)
+    table = cfg.vocab_size // 2 * cfg.d_model * 4
+    token_ids = batch * (1 if kind == "decode" else seq) * 4
+    assert set(port) <= {"all-gather", "all-reduce", "reduce-scatter"}
+    assert set(ref) <= {"all-gather", "all-reduce", "all-to-all",
+                        "collective-permute"}
+    gathered = port["all-gather"] - table, ref["all-gather"] - token_ids
+    reduced_ = (port["all-reduce"] + 2 * port.get("reduce-scatter", 0),
+                ref["all-reduce"])
+    if kind == "train":
+        assert 0 < gathered[0] <= gathered[1]
+        assert 0 < reduced_[0] <= reduced_[1]
+    else:
+        assert gathered[0] == gathered[1] > 0
+        assert reduced_[0] == reduced_[1] > 0
 
 
 def test_main_writes_skipped_cells_and_fails_on_errors(fake, jdryrun,
@@ -296,6 +602,14 @@ def test_chunked_train_launches_equal_the_calls(remat):
         SMOKE.train_launches(cfg)
 
 
+def meta_peak_bytes(fn) -> int:
+    """The most bytes ``fn()``'s ops hold at once (``StepReader``)."""
+    reader = program.StepReader()
+    with reader:
+        fn()
+    return reader.peak
+
+
 def test_meta_peak_bytes_follows_storages():
     a = torch.empty(1000, 1000, device="meta", requires_grad=True)
 
@@ -304,7 +618,7 @@ def test_meta_peak_bytes_follows_storages():
         y = x.exp()               # kept by autograd for exp's backward
         return (y * 3).sum()
     # x, y and y * 3 at once: 12 MB
-    assert SMOKE.meta_peak_bytes(kept) == 3 * 4_000_000 + 4
+    assert meta_peak_bytes(kept) == 3 * 4_000_000 + 4
 
     x = torch.empty(4096, 1024, dtype=torch.bfloat16, device="meta")
 
@@ -312,7 +626,7 @@ def test_meta_peak_bytes_follows_storages():
     def copies():
         # under inference mode aten.to reaches the mode undecomposed
         return x.to(torch.float32).to(torch.float64)
-    assert SMOKE.meta_peak_bytes(copies) == 4096 * 1024 * (4 + 8)
+    assert meta_peak_bytes(copies) == 4096 * 1024 * (4 + 8)
 
 
 def test_walked_and_counted_agree():
@@ -333,7 +647,7 @@ def test_meta_peak_bytes_sees_inside_a_composite_op():
     def scores():
         return torch.einsum("bskgd,btkd->bkgst", q, k)
     # the copy of k, then the scores beside it
-    assert SMOKE.meta_peak_bytes(scores) >= k.numel() * 2
+    assert meta_peak_bytes(scores) >= k.numel() * 2
 
 
 def test_meta_peak_bytes_counts_a_cuda_temporary():
@@ -342,8 +656,8 @@ def test_meta_peak_bytes_counts_a_cuda_temporary():
     op runs."""
     y, g = (torch.empty(64, 4096, device="meta") for _ in range(2))
     op = torch.ops.aten._softmax_backward_data.default
-    assert SMOKE.CUDA_OP_TEMPORARIES[op] == 1
-    assert SMOKE.meta_peak_bytes(
+    assert program.CUDA_OP_TEMPORARIES[op] == 1
+    assert meta_peak_bytes(
         lambda: op(g, y, -1, torch.float32)) == 2 * 64 * 4096 * 4
 
 
@@ -354,11 +668,11 @@ def test_kernel_shaped_matmul_allocates_as_the_wrapper(m, n, k):
     a = torch.empty(m, k, dtype=torch.bfloat16, device="meta")
     b = torch.empty(k, n, dtype=torch.bfloat16, device="meta")
     splits = select_matmul_block(m, n, k).splits
-    c = SMOKE.kernel_shaped().matmul(a, b)
+    c = program.kernel_shaped().matmul(a, b)
     assert c.shape == (m, n) and c.dtype == torch.bfloat16
     want = m * n * 2 + (splits * m * n * 4 if splits > 1 else 0)
-    assert SMOKE.meta_peak_bytes(
-        lambda: SMOKE.kernel_shaped().matmul(a, b)) == want
+    assert meta_peak_bytes(
+        lambda: program.kernel_shaped().matmul(a, b)) == want
 
 
 @pytest.mark.parametrize("b,h,kv,window", [(1, 4, 2, 0), (2, 6, 2, 5),

@@ -131,16 +131,16 @@ def test_full_size_training_launches_of_the_trained_models():
 
 
 @pytest.mark.parametrize("text, want", [
-    ("all", {3, 10, 13, 16, 17, 18, 19, 20, 21, 22, 23}),
+    ("all", {3, 10, 13, 16, 17, 18, 19, 20, 21, 22, 23, 24}),
     ("19", {19}), ("19,20", {19, 20}), ("5", {3}), ("11-14,18", {10, 13, 18}),
     ("3-20", {3, 10, 13, 16, 17, 18, 19, 20}), ("21", {21}),
     ("20-21", {20, 21}), ("22", {22}), ("21-22", {21, 22}), ("23", {23}),
-    ("22-23", {22, 23})])
+    ("22-23", {22, 23}), ("24", {24}), ("23-24", {23, 24})])
 def test_phase_selector_takes_whole_groups(text, want):
     assert SMOKE.parse_phases(text) == want
 
 
-@pytest.mark.parametrize("text", ["", "2", "24", "x", "9-3"])
+@pytest.mark.parametrize("text", ["", "2", "25", "x", "9-3"])
 def test_phase_selector_rejects_unknown_phases(text):
     with pytest.raises(ValueError):
         SMOKE.parse_phases(text)

@@ -17,8 +17,19 @@
   non-zero and prints no result;
 * phase 19's remat model (granite under ``full``: its run, held step,
   step under each policy and timing) at reduced size, the CUDA calls
-  stubbed.
+  stubbed;
+* phase 24 (``partitioned_slice``) at reduced size over ``gloo`` and the
+  ``fake`` group with the CUDA calls stubbed and the shapes of its three
+  cells cut: (a) the one-rank partitioned route bit-equal to the
+  unpartitioned one leaf by leaf (the logits still laid out on the
+  mesh, every parameter, gradient and moment placed), its launches --
+  counted by wrappers around the plain versions -- equal to that
+  route's; (b) the collectives rank 0's program issues on the CPU equal
+  to the dry run's on the meta device, cell by cell; ``same_tree``
+  failing a leaf that differs by one bit; and ``--phases 24`` without a
+  card exiting non-zero.
 """
+import dataclasses
 import math
 
 import pytest
@@ -173,7 +184,7 @@ def test_moe_f32_reckoning_of_llama4_at_full_width():
     got = SMOKE.moe_f32_reckoning(cfg, 2048)
     assert got["params"] == 16_232_611_840
     assert got["weights_gb"] == pytest.approx(64.93, abs=0.01)
-    # the most held at once (``meta_peak_bytes``): 0.40 GB
+    # the most held at once (``StepReader``'s peak): 0.40 GB
     assert 0.2 < got["activations_gb"] < 2.0
     assert got["total_gb"] < 70
 
@@ -220,13 +231,7 @@ def test_phase_21_rehearsed_on_the_cpu(monkeypatch):
     assert set(got["held"]) == {"matmul", "fused_add_rmsnorm",
                                 "flash_attention"}
     out = report["llama4"]
-    more = out["serve"]["more"]
-    assert more["bit_equal"] and more["placed"]["sharded"] > 0
-    assert more["placed"]["leaves"] == len(list(SMOKE.leaf_items(
-        Model(cfg).param_defs())))
-    assert more["hidden"] == ["[Replicate(), Replicate()] -> [Shard(dim=0), "
-                              "Shard(dim=1)]", "[Shard(dim=0), Shard(dim=1)] "
-                              "-> [Shard(dim=0), Replicate()]"]
+    assert "more" not in out["serve"]     # phase 24 runs the mesh now
     assert out["compression"]["held_elements_cpu"] > 0
     assert out["moe_f32"]["max_abs"] <= SMOKE.SERVE_F32_ABS
     assert out["moe_f32"]["bf16_control_max_abs"] > SMOKE.SERVE_F32_ABS
@@ -294,4 +299,158 @@ def test_phase_19_remat_model_rehearsed_on_the_cpu(monkeypatch):
 def test_phases_21_without_a_card_exits_nonzero(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert SMOKE.main(["--phases", "21"]) == 1
+    assert '"ok"' not in capsys.readouterr().out
+
+
+# ---- phase 24 --------------------------------------------------------------
+
+# the shapes of phase 24's cells cut for the CPU, their kinds kept
+SMALL_CELLS = {"train_4k": (32, 64), "prefill_32k": (32, 128),
+               "decode_32k": (128, 256)}
+
+
+@pytest.fixture(scope="module")
+def phase_24():
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        yield _phase_24(monkeypatch)
+
+
+def _phase_24(monkeypatch):
+    """``partitioned_slice`` at reduced size on the CPU: Qwen3 reduced
+    (its vocabulary 512, so that it splits), the cells cut to
+    ``SMALL_CELLS``, the dry-run records made in a process of their
+    own, the CUDA calls stubbed, the kernels' plain versions counted as
+    launches."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, shapes
+    full = configs.get_config
+
+    def small(arch):
+        return reduced(full(arch)).replace(vocab_size=512)
+    monkeypatch.setattr(configs, "get_config", small)
+    monkeypatch.setattr(dryrun, "get_config", small)
+    for name, (batch, seq) in SMALL_CELLS.items():
+        monkeypatch.setitem(shapes.SHAPES, name, dataclasses.replace(
+            shapes.SHAPES[name], seq=seq, global_batch=batch))
+    monkeypatch.setattr(SMOKE, "CARD", "cpu")
+    monkeypatch.setattr(SMOKE, "PART_PREFILL", (2, 24))
+    monkeypatch.setattr(SMOKE, "PART_TRAIN", (2, 16))
+    # the CPU has no allocator peak to hold
+    monkeypatch.setattr(SMOKE, "PART_PEAK_MARGIN_GB", float("inf"))
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(SMOKE, "traced_device_ms", lambda fn: (None, 0))
+    monkeypatch.setattr(SMOKE, "start_fake_dryrun",
+                        lambda arch, name, out_dir: (arch, name))
+
+    # the dry run's records, each from a process of its own as on the card
+    # (one default process group a process), at the same cut
+    records = _small_records()
+    monkeypatch.setattr(SMOKE, "fake_dryrun_record",
+                        lambda proc, arch, name, out_dir: records[name])
+    for name, counter in SMOKE._counters().items():
+        if name in ("matmul", "fused_add_rmsnorm", "flash_attention"):
+            def counting(*a, _run=getattr(ops, name), _c=counter, **k):
+                _c.launches += 1
+                return _run(*a, **k)
+            monkeypatch.setattr(ops, name, counting)
+    report = {}
+    got = SMOKE.partitioned_slice(torch.device("cpu"), "cpu", report)
+    return got, report["partitioned"]
+
+
+RECORDS = """
+import dataclasses, json, sys
+import repro_torch.configs as configs
+from repro_torch.launch import dryrun, shapes
+cells = json.loads(sys.argv[1])
+full = configs.get_config
+small = lambda arch: configs.reduced(full(arch)).replace(vocab_size=512)
+configs.get_config = dryrun.get_config = small
+for name, (batch, seq) in cells.items():
+    shapes.SHAPES[name] = dataclasses.replace(shapes.SHAPES[name], seq=seq,
+                                              global_batch=batch)
+with dryrun.fake_world(False):
+    out = {name: dryrun.lower_cell("qwen3-0.6b", name, False)[0]
+           for name in cells}
+print("RECORDS " + json.dumps(out))
+"""
+
+
+def _small_records() -> dict:
+    import json
+    import subprocess
+    import sys
+    from test_torch_ranks import ROOT, env
+    res = subprocess.run([sys.executable, "-c", RECORDS,
+                          json.dumps(SMALL_CELLS)], cwd=ROOT, env=env(),
+                         capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("RECORDS ")]
+    assert lines, res.stdout[-2000:] + res.stderr[-3000:]
+    return json.loads(lines[-1][len("RECORDS "):])
+
+
+def test_phase_24_one_rank_route_is_bit_equal(phase_24):
+    got, out = phase_24
+    one = out["one_rank"]
+    assert one["mesh"] == {"data": 1, "model": 1}
+    n_params = len(list(SMOKE.leaf_items(Model(reduced(get_config(
+        "qwen3-0.6b"))).param_defs())))
+    # the logits and the cache's k, v and positions; the logits and
+    # tokens of each step; parameters, both moments, the optimizer's
+    # step, the gradients, the loss and the gradients' norm
+    assert one["leaves_held"] == {
+        "prefill": 4, **{f"decode{i}": 2 for i in range(
+            SMOKE.PART_DECODE_STEPS)}, "cache": 3,
+        "step": 4 * n_params + 3}
+    assert one["placements"] == ["S(0)", "S(1)"]
+    assert one["logits_local"] == [2, 512]
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_phase_24_launches_are_the_unpartitioned_routes(phase_24):
+    got, out = phase_24
+    cfg = reduced(get_config("qwen3-0.6b"))
+    n = cfg.n_layers
+    launches = out["one_rank"]["launches"]
+    # a prefill and each decode step: 7n + 1 GEMMs, 2n + 1 add+norms,
+    # n attentions in the prefill only; the step under remat "full"
+    assert launches["flash_attention"] >= 2 * n
+    assert launches["matmul"] > (1 + SMOKE.PART_DECODE_STEPS) * (7 * n + 1)
+    assert launches["bn_forward"] == launches["bn_backward"] == 0
+    for name, n_ in out["fake"]["launches"].items():
+        assert got["launches"][name] == launches[name] + n_
+
+
+@pytest.mark.parametrize("cell", sorted(SMALL_CELLS))
+def test_phase_24_collectives_equal_the_dry_run(phase_24, cell):
+    _, out = phase_24
+    read = out["fake"][cell]["card_read"]
+    assert read["collective_bytes"] > 0
+    assert read["collective_by_kind"]["all-gather"] > 0
+    assert out["fake"][cell]["dry_argument_bytes"] > 0
+    assert out["fake"][cell]["temp_bytes"] > 0
+    assert (out["fake"][cell]["alias_bytes"] > 0) == (cell == "decode_32k")
+
+
+def test_same_tree_fails_a_flipped_bit():
+    want = {"a": torch.ones(3), "b": {"c": torch.zeros(2)}}
+    assert SMOKE.same_tree("t", {"a": torch.ones(3), "b": {
+        "c": torch.zeros(2)}}, want) == 2
+    flipped = torch.ones(3)
+    flipped.view(torch.int32)[1] ^= 1
+    with pytest.raises(AssertionError, match="/a"):
+        SMOKE.same_tree("t", {"a": flipped, "b": {"c": torch.zeros(2)}},
+                        want)
+
+
+def test_phases_24_without_a_card_exits_nonzero(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert SMOKE.main(["--phases", "24"]) == 1
     assert '"ok"' not in capsys.readouterr().out
