@@ -1035,10 +1035,11 @@ def time_scored(label, study_kw, wl_kw, obj, device, backends, iters=3,
     Pareto set (the search ends in host copies, so the events bracket all
     of its device work); then the device's busy time in one read search
     on the first backend from the profiler, and so its idle share.  On
-    the 128-step lattice every count is 1, and a scored search there is
-    not warmed again (the drive and the hold have warmed it) nor read on
-    the numpy engine, whose reading walks 5.5M candidates' Pareto set on
-    the host for seconds."""
+    the 128-step lattice every count is 1, a scored search there is not
+    warmed again (the drive and the hold have warmed it), and no search
+    there is read on the numpy engine, whose reading walks 5.5M
+    candidates' Pareto set on the host for 6-7 s (the cycles searches'
+    were until granite joined phase 24: the command's time limit)."""
     lattice = label.startswith("lattice128")
     if lattice:
         iters = read_iters = 1
@@ -1050,7 +1051,7 @@ def time_scored(label, study_kw, wl_kw, obj, device, backends, iters=3,
             lambda b=backend: run_search(study_kw, wl_kw, obj, device,
                                          backend=b),
             iters=iters, warmup=warmup)
-        if lattice and obj != "cycles" and backend == "numpy":
+        if lattice and backend == "numpy":
             continue
         row[f"{backend} search+read_ms"] = cuda_ms(
             lambda b=backend: _search_and_read(study_kw, wl_kw, obj,
@@ -2956,7 +2957,8 @@ def training_slice(device, card, report):
 # ---------------------------------------------------------------------------
 
 SERVE_SEED = 2026
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# 32 greedy steps before granite joined phase 24 (the command's limit)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 16
 # The float32 hold: prefill of SERVE_F32_PROMPT tokens, then
 # SERVE_F32_STEPS teacher-forced decode steps, against one forward over
 # all of them; the limit of tests/test_decode.py.
@@ -3368,8 +3370,10 @@ def serving_slice(device, card, report) -> dict:
 # ---------------------------------------------------------------------------
 
 LLM_ARCH = "smollm-360m"
-LLM_STEPS, LLM_BATCH, LLM_SEQ = 10, 8, 1024
-LLM_CKPT_EVERY, LLM_STOP_AFTER = 5, 5
+# 10 steps (checkpoints every 5) before granite joined phase 24: the
+# command's time limit
+LLM_STEPS, LLM_BATCH, LLM_SEQ = 6, 8, 1024
+LLM_CKPT_EVERY, LLM_STOP_AFTER = 3, 3
 LLM_LR = 3e-3                     # the trainer's command line default
 LLM_SEED = 2026
 # One step of the kernel route against the plain route (Model(cfg,
@@ -3982,16 +3986,18 @@ MIXER_TRAIN_STEPS = 4
 # and recurrentgemma run make_train_step directly: train_loop takes no
 # depth and sets remat off)
 MIXER_RESUMED, MIXER_STOP_AFTER = "mamba2-130m", 2
-# warm steps each route is timed over (after one), where phase 17 takes 3
-MIXER_TIMED_STEPS = 2
-# the policies a remat model's step runs under, two steps each from the
+# warm steps each route is timed over (after one), where phase 17 takes
+# 3 (2 before granite joined phase 24: the command's time limit)
+MIXER_TIMED_STEPS = 1
+# the policies a remat model's step runs under, one step each from the
 # same weights and batch (``hold_policies``); the first is its run's
 REMAT_POLICIES = ("full", "save_dots", "save_mixer")
 # a remat model's rows where its step without remat fits the card too
 # (granite at 4 x 1024: its batch before it trained under remat), for
 # the run through ``train_loop`` (which sets remat off) and the
 # gradients held bit-equal with and without remat (``hold_remat_off``)
-REMAT_OFF_BATCH, REMAT_OFF_STEPS = 4, 2
+REMAT_OFF_BATCH, REMAT_OFF_STEPS = 4, 1   # 2 steps before granite
+                                          # joined phase 24
 CARD_GB = 80.0
 
 
@@ -4063,14 +4069,15 @@ def grads_differ(got: dict, want: dict) -> list:
 
 
 def hold_policies(cfg, params, batch, card) -> dict:
-    """Two steps of the kernel route under each of ``REMAT_POLICIES``, on
-    one model and state from ``params``, both on ``batch`` (``counted``:
-    each step's launches held to that policy's ``train_launches``, every
-    GEMM on `mma`): the first step's gradients bit-equal to the first
-    policy's (the LLM kernels have no atomics; those are kept on the
-    card), the second timed warm: its ms by events, its recomputes'
-    summed ms (``RecomputeEvents``), and its peak memory less the kept
-    gradients."""
+    """One step of the kernel route under each of ``REMAT_POLICIES`` (two
+    until granite's partitioned route joined phase 24: the command's
+    time limit), on one model and state from ``params``, on ``batch``
+    (``counted``: its launches held to that policy's ``train_launches``,
+    every GEMM on `mma`): its gradients bit-equal to the first policy's
+    (the LLM kernels have no atomics; those are kept on the card), one
+    recompute a layer group, its ms by events, its recomputes' summed ms
+    (``RecomputeEvents``), and its peak memory less the first policy's
+    kept gradients."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.models.transformer import Model
@@ -4088,10 +4095,23 @@ def hold_policies(cfg, params, batch, card) -> dict:
                                            recompute_span=timer.span),
                                      opt, None)
         torch.cuda.empty_cache()
-        (state, metrics), got, _ = counted(
-            label, lambda: step(state, batch), want, "mma")
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+
+        def timed_step():
+            start.record()
+            res = step(state, batch)
+            stop.record()
+            return res
+        (state, metrics), got, _ = counted(label, timed_step, want, "mma")
+        torch.cuda.synchronize()
+        rec = {"loss": float(metrics["loss"]), "launches": got,
+               "step_ms": start.elapsed_time(stop),
+               "recompute_ms": timer.ms(), "recomputes": len(timer.pairs),
+               "peak_memory_gb": (torch.cuda.max_memory_allocated()
+                                  - kept) / 1e9}
         grads, opt.grads = dict(leaf_items(opt.grads)), None
-        rec = {"loss": float(metrics["loss"]), "launches": got}
         if first is None:
             first = grads
             kept = sum(g.numel() * g.element_size() for g in first.values())
@@ -4101,35 +4121,16 @@ def hold_policies(cfg, params, batch, card) -> dict:
             check(not differ, f"{label}: {len(differ)} of {len(first)} "
                   f"gradients differ from {REMAT_POLICIES[0]}'s, e.g. "
                   f"{differ[:3]}")
-        del grads, metrics
-        timer.pairs.clear()
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-
-        def warm():
-            start.record()
-            res = step(state, batch)
-            stop.record()
-            return res
-        (state, _), again, _ = counted(f"{label}, warm", warm, want, "mma")
-        add_launches(rec["launches"], again)
-        torch.cuda.synchronize()
-        rec.update(step_ms=start.elapsed_time(stop),
-                   recompute_ms=timer.ms(), recomputes=len(timer.pairs),
-                   peak_memory_gb=(torch.cuda.max_memory_allocated()
-                                   - kept) / 1e9)
         check(rec["recomputes"] == cfg.n_layers // len(cfg.pattern),
               f"{label}: {rec['recomputes']} group recomputes")
-        del step, state, opt
+        del grads, metrics, step, state, opt
         out[policy] = rec
-        print(f"  {label}: launches {want} held on each of two steps; the "
-              f"warm step {rec['step_ms']} ms, recompute "
-              f"{rec['recompute_ms']} ms by events over "
+        print(f"  {label}: launches {want} held; the step {rec['step_ms']} "
+              f"ms, recompute {rec['recompute_ms']} ms by events over "
               f"{rec['recomputes']} groups, peak {rec['peak_memory_gb']} GB"
-              + (f"; the first step's gradients bit-equal to "
-                 f"{REMAT_POLICIES[0]}'s: {rec['grads_bit_equal']}"
-                 if "grads_bit_equal" in rec else "") + f"  [{card}]")
+              + (f"; its gradients bit-equal to {REMAT_POLICIES[0]}'s: "
+                 f"{rec['grads_bit_equal']}" if "grads_bit_equal" in rec
+                 else "") + f"  [{card}]")
     del first
     torch.cuda.empty_cache()
     return out
@@ -4338,11 +4339,13 @@ def train_mixer(arch, layers, batch, seq, policy, device, card,
         out["seconds"]["policies"] = time.perf_counter() - t0
 
     # the plain routes by events alone (granite's profiled plain step, at
-    # 48,000 device records, took about 30 s; the command's time limit)
+    # 48,000 device records, took about 30 s; the command's time limit),
+    # and a remat model's kernel route too (about 25 s: the policies time
+    # its recompute by events)
     t0 = time.perf_counter()
     out["times"] = {
         "kernels": time_llm_route(cfg, ops.differentiable(), params, tokens,
-                                  timed),
+                                  timed, profiled=policy is None),
         "plain": time_llm_route(cfg, F.PLAIN, params, tokens, timed,
                                 profiled=False)}
     out["seconds"]["timing"] = time.perf_counter() - t0
@@ -4394,17 +4397,21 @@ class Served(NamedTuple):
     layers: int = 0
 
 
-MIXER_MODELS = (Served("granite-moe-1b-a400m", 8), Served("mamba2-130m", 8),
-                Served("recurrentgemma-9b", 4))
+# greedy steps halved (8/8/4 before granite joined phase 24): the
+# command's time limit
+MIXER_MODELS = (Served("granite-moe-1b-a400m", 4), Served("mamba2-130m", 4),
+                Served("recurrentgemma-9b", 2))
 # gemma3-27b's bf16 weights take 54.0 GB: batch 2, and its float32 holds
 # at one period of its 5:1 local:global pattern (6 layers, 3.887 B
 # parameters; the 62 layers' 108 GB do not fit the card, so neither
 # does its serve_loop); whisper's decoder positions stop at its
 # learned_pos, 448: 384 prompt tokens + 8 steps + 8 (at most 56 steps)
-ATTENTION_MODELS = (Served("gemma3-27b", 4, batch=2, f32_layers=6,
+# (greedy steps halved, 4/4/8/8 before granite joined phase 24: the
+# command's time limit)
+ATTENTION_MODELS = (Served("gemma3-27b", 2, batch=2, f32_layers=6,
                            loop=False),
-                    Served("pixtral-12b", 4), Served("stablelm-1.6b", 8),
-                    Served("whisper-tiny", 8, prompt=384))
+                    Served("pixtral-12b", 2), Served("stablelm-1.6b", 4),
+                    Served("whisper-tiny", 4, prompt=384))
 # the float32 hold's MoE capacity: tests/test_decode.py's no-drop 8.0 (at
 # the config's 1.25 a prefill drops tokens that a 4-token decode step
 # keeps, a property of the reference)
@@ -5304,7 +5311,10 @@ def start_fake_dryrun(arch: str, shape_name: str, out_dir: str):
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape_name, "--out", out_dir], cwd=ROOT,
             stdout=log, stderr=subprocess.STDOUT,
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            # one thread: six of these run beside the phase's host-bound
+            # work, and the meta device computes nothing
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     OMP_NUM_THREADS="1"))
 
 
 def fake_dryrun_record(proc, arch: str, shape_name: str,
@@ -6042,9 +6052,21 @@ def analysis_slice(device, card, report) -> dict:
 PART_ARCH = "qwen3-0.6b"
 PART_SEED = 2026
 PART_PREFILL = (2, 2048)          # (a)'s prefill: batch, tokens
-PART_DECODE_STEPS = 4
+PART_DECODE_STEPS = 2            # 4 before granite joined the phase
 PART_TRAIN = (2, 1024)            # (a)'s AdamW step: batch, tokens
 PART_LR = 1e-3
+# the MoE config of the phase (the experts on data), its (a) shapes
+PART_MOE_ARCH = "granite-moe-1b-a400m"
+PART_MOE_PREFILL = (2, 1024)
+PART_MOE_DECODE_STEPS = 2
+PART_MOE_TRAIN = (2, 512)
+PART_ARCHS = (PART_ARCH, PART_MOE_ARCH)
+# the configs whose (b) steps are traced for their device ms (Qwen3's
+# were: the command's time limit)
+PART_TRACED = (PART_MOE_ARCH,)
+# phase 24's dry-run processes, started by ``main`` as phase 22 begins
+# (the dry runs take the CPU a minute or more): {"procs": ...}
+PART_DRYRUNS: dict = {}
 # (b)'s cells of launch/shapes.py, each at its full global shape
 PART_CELLS = ("train_4k", "prefill_32k", "decode_32k")
 # the card's peak allocated bytes of a cell, less the dry run's
@@ -6070,16 +6092,19 @@ def same_tree(label: str, got, want) -> int:
     return len(items)
 
 
-def one_rank_partitioned(device, mesh) -> dict:
-    """Phase 24 (a): Qwen3-0.6B's prefill, decode steps and AdamW step on
-    the partitioned route over the one-rank ``mesh``, each held bit-equal
-    to the unpartitioned kernel route from the same weights (on one rank
-    every shard is the whole tensor): the prefill's logits and cache,
-    each decode step's logits (``Model.decode_step`` on a copy of the
-    cache) and the tokens and cache of ``make_serve_step``, the loss,
-    every gradient and the updated state.  The unpartitioned route runs
-    first; the partitioned route's launches are counted alone and held
-    equal to the unpartitioned route's."""
+def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
+                         steps=PART_DECODE_STEPS, train_shape=PART_TRAIN
+                         ) -> dict:
+    """Phase 24 (a): ``arch``'s prefill, ``steps`` decode steps and AdamW
+    step (under remat ``full``) on the partitioned route over the
+    one-rank ``mesh``, each held bit-equal to the unpartitioned kernel
+    route from the same weights (on one rank every shard is the whole
+    tensor, and a MoE layer's exchange is its own rows): the prefill's
+    logits and cache, each decode step's logits (``Model.decode_step``
+    on a copy of the cache) and the tokens and cache of
+    ``make_serve_step``, the loss, every gradient and the updated state.
+    The unpartitioned route runs first; the partitioned route's launches
+    are counted alone and held equal to the unpartitioned route's."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
@@ -6088,16 +6113,16 @@ def one_rank_partitioned(device, mesh) -> dict:
     from repro_torch.models.layers import greedy
     from repro_torch.models.transformer import Model
     from repro_torch.optim import AdamW, constant_schedule
-    cfg = get_config(PART_ARCH)               # bf16; remat "full"
+    cfg = get_config(arch)                    # bf16; remat "full"
     rules = with_axis_sizes(PROD_RULES, mesh)
     gen = torch.Generator(device=device).manual_seed(PART_SEED)
     params = conditioned(Model(cfg).init(gen))
-    (b, s), (tb, ts) = PART_PREFILL, PART_TRAIN
+    (b, s), (tb, ts) = prefill, train_shape
     prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                             device=device, dtype=torch.int32)
     tokens = torch.randint(0, cfg.vocab_size, (tb, ts), generator=gen,
                            device=device, dtype=torch.int32)
-    max_len = s + PART_DECODE_STEPS + 8
+    max_len = s + steps + 8
     opt = AdamW(schedule=constant_schedule(PART_LR))
     part = Model(cfg, impl=ops.partitioned(ops, mesh, rules))
     sh = train.make_state_shardings(part, opt, rules, mesh)
@@ -6110,7 +6135,7 @@ def one_rank_partitioned(device, mesh) -> dict:
         out["prefill"] = {"logits": logits, "cache": cache}
         decode = serve.make_serve_step(model, step_rules)
         tok = greedy(logits)
-        for i in range(PART_DECODE_STEPS):
+        for i in range(steps):
             # the logits from a copy of the cache; the tokens and the
             # cache through the serve step
             lg = model.decode_step(params, tok[:, None], tree_map(
@@ -6148,15 +6173,15 @@ def one_rank_partitioned(device, mesh) -> dict:
     held = {part_: same_tree(f"{part_}: ", got[part_], want[part_])
             for part_ in want}
     local = got["prefill"]["logits"].to_local().shape
-    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+    out = {"arch": arch, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
            "launches": launches, "leaves_held": held,
            "loss": float(_whole(got["step"]["loss"])),
            "grad_norm": float(_whole(got["step"]["grad_norm"])),
            "logits_local": list(local),
            "placements": [str(p) for p in got["prefill"]["logits"]
                           .placements]}
-    print(f"  (a) one-rank {out['mesh']} NCCL mesh: prefill {b} x {s}, "
-          f"{PART_DECODE_STEPS} decode steps, AdamW step {tb} x {ts} under "
+    print(f"  (a) {arch} on a one-rank {out['mesh']} NCCL mesh: prefill "
+          f"{b} x {s}, {steps} decode steps, AdamW step {tb} x {ts} under "
           f"remat full, bit-equal to the unpartitioned kernel route "
           f"(leaves held {held}); loss {out['loss']}, grad_norm "
           f"{out['grad_norm']}; launches {launches} (the unpartitioned "
@@ -6181,12 +6206,14 @@ def traced_device_ms(fn) -> tuple:
 
 
 def fake_partitioned(device, card, record_of) -> dict:
-    """Phase 24 (b): rank 0's program of each ``PART_CELLS`` cell, the
-    last first (``train_4k``'s dry run takes longest), on the ``fake``
-    process group at world 256 with the real kernels: the allocator's
-    peak against the dry run's ``argument_bytes + temp_bytes``
-    (``record_of(name)``), the collectives read on the card against the
-    dry run's, and a warm step timed."""
+    """Phase 24 (b): rank 0's program of each ``PART_CELLS`` cell of both
+    configs, the decode and prefill cells first (``train_4k``'s dry runs
+    take longest), on the ``fake`` process group at world 256 with the
+    real kernels: the allocator's peak against the dry run's
+    ``argument_bytes + temp_bytes`` (``record_of(arch, name)``), the
+    collectives read on the card against the dry run's, and a warm step
+    timed by events, and for ``PART_TRACED``'s configs traced for its
+    device ms."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.dryrun import fake_world
@@ -6194,12 +6221,14 @@ def fake_partitioned(device, card, record_of) -> dict:
     from repro_torch.launch.program import local_program, read_step
     from repro_torch.launch.shapes import SHAPES, adjust_config, cell_rules
     from repro_torch.models.common import with_axis_sizes
-    out, launches = {}, {}
+    out = {arch: {"launches": {}} for arch in PART_ARCHS}
     with fake_world(False):
         mesh = make_production_mesh(device_type=device.type)
-        for name in reversed(PART_CELLS):
+        for name, arch in [(n, a) for n in reversed(PART_CELLS)
+                           for a in PART_ARCHS]:
+            launches = out[arch]["launches"]
             shape = SHAPES[name]
-            cfg = adjust_config(get_config(PART_ARCH), shape)
+            cfg = adjust_config(get_config(arch), shape)
             rules = with_axis_sizes(cell_rules(shape, False, 16), mesh)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -6219,26 +6248,28 @@ def fake_partitioned(device, card, record_of) -> dict:
             peak = torch.cuda.max_memory_allocated() - base
             for k, c in _counters().items():
                 launches[k] = launches.get(k, 0) + c.launches
-            rec = record_of(name)
+            rec = record_of(arch, name)
             mem, roof = rec["memory"], rec["roofline"]
             dry = mem["argument_bytes"] + mem["temp_bytes"]
             per_device = {k: v // 256 for k, v in
                           roof["collective_by_kind"].items()}
             check(abs(peak - dry) <= PART_PEAK_MARGIN_GB * 1e9,
-                  f"{name}: the card's peak {peak} B, the dry run's "
-                  f"argument + temp {dry} B")
+                  f"{arch} {name}: the card's peak {peak} B, the dry "
+                  f"run's argument + temp {dry} B")
             check(read["collective_by_kind"] == per_device
                   and read["collective_bytes"]
                   == roof["collective_bytes_per_device"],
-                  f"{name}: collectives on the card "
+                  f"{arch} {name}: collectives on the card "
                   f"{read['collective_by_kind']}, the dry run's "
                   f"{per_device}")
-            # a warm step by events, then one traced for its device ms
+            # a warm step by events, then (PART_TRACED) one traced for
+            # its device ms
             t0 = time.perf_counter()
             ms = cuda_ms(lambda: step(*inputs), 1, warmup=0)
-            device_ms, records = traced_device_ms(lambda: step(*inputs))
+            device_ms, records = traced_device_ms(lambda: step(*inputs)) \
+                if arch in PART_TRACED else (None, 0)
             timed_s = time.perf_counter() - t0
-            out[name] = {
+            out[arch][name] = {
                 "local_batch": list(inputs[-1]["tokens"].to_local().shape
                                     if isinstance(inputs[-1], dict) else
                                     inputs[-1].to_local().shape),
@@ -6251,9 +6282,10 @@ def fake_partitioned(device, card, record_of) -> dict:
                 "seconds": {"read": read_s, "timed": timed_s},
                 "t_collective_s": roof["t_collective_s"],
                 "step_time_s": roof["step_time_s"], "bound": roof["bound"]}
-            print(f"  (b) {name} rank 0 of 16 x 16 (fake): local "
-                  f"{out[name]['local_batch']}, peak {peak / 1e9:.4f} GB "
-                  f"against the dry run's argument + temp {dry / 1e9:.4f} "
+            print(f"  (b) {arch} {name} rank 0 of 16 x 16 (fake): local "
+                  f"{out[arch][name]['local_batch']}, peak "
+                  f"{peak / 1e9:.4f} GB against the dry run's argument + "
+                  f"temp {dry / 1e9:.4f} "
                   f"GB ({(peak - dry) / 1e9:+.4f}); collectives "
                   f"{read['collective_by_kind']} B equal to the dry run's; "
                   f"{ms:.2f} ms by events, {device_ms} device ms in "
@@ -6261,45 +6293,75 @@ def fake_partitioned(device, card, record_of) -> dict:
                   f"(fake collectives move nothing); dry-run roofline "
                   f"{roof['step_time_s']} s ({roof['bound']}) [{card}]")
             del step, inputs, read
-    out["launches"] = launches
     return out
 
 
-def partitioned_slice(device, card, report) -> dict:
-    """Phase 24: (a) the one-rank partitioned route held bit-equal to the
-    unpartitioned one, (b) rank 0's program of the 16 x 16 mesh on the
-    ``fake`` group held against the dry run.  Returns the main-path
-    launches of both."""
+def start_part_dryruns() -> dict:
+    """Starts the dry run of every ``PART_CELLS`` cell of both configs,
+    each in a process of its own (``start_fake_dryrun``), in a temporary
+    directory: ``(arch, cell) -> (process, its directory)``.  At exit a
+    process still running is killed and the directory removed."""
+    import atexit
+    import shutil
     import tempfile
-    out, secs = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
+    tmp = tempfile.mkdtemp()
+    procs = {}
+    for arch in PART_ARCHS:
         for name in PART_CELLS:
-            Path(tmp, name).mkdir()
-            procs[name] = start_fake_dryrun(PART_ARCH, name,
-                                            str(Path(tmp, name)))
+            out = Path(tmp, arch, name)
+            out.mkdir(parents=True)
+            procs[arch, name] = (start_fake_dryrun(arch, name, str(out)),
+                                 str(out))
+
+    def stop():
+        for proc, _ in procs.values():
+            if isinstance(proc, subprocess.Popen) and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    atexit.register(stop)
+    return procs
+
+
+def partitioned_slice(device, card, report) -> dict:
+    """Phase 24: for Qwen3-0.6B and granite-moe-1b (``PART_MOE_ARCH``, its
+    experts on ``data``), (a) the one-rank partitioned route held
+    bit-equal to the unpartitioned one, (b) rank 0's program of the 16 x
+    16 mesh on the ``fake`` group held against the dry run, whose
+    processes ``main`` starts two phases ahead (``PART_DRYRUNS``; here
+    when this phase runs alone).  Returns the main-path launches of
+    all four."""
+    archs = {PART_ARCH: (PART_PREFILL, PART_DECODE_STEPS, PART_TRAIN),
+             PART_MOE_ARCH: (PART_MOE_PREFILL, PART_MOE_DECODE_STEPS,
+                             PART_MOE_TRAIN)}
+    procs = PART_DRYRUNS.pop("procs", None) or start_part_dryruns()
+    out, secs, waited = {}, {}, {}
+    for arch, (prefill, steps, train_shape) in archs.items():
         t0 = time.perf_counter()
         with one_rank_mesh(device) as mesh:
-            out["one_rank"] = one_rank_partitioned(device, mesh)
-        secs["one_rank"] = time.perf_counter() - t0
+            out[arch] = {"one_rank": one_rank_partitioned(
+                device, mesh, arch, prefill, steps, train_shape)}
+        secs[f"{arch}/one_rank"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        waited = {}
 
-        def record_of(name):
-            t = time.perf_counter()
-            rec = fake_dryrun_record(procs[name], PART_ARCH, name,
-                                     str(Path(tmp, name)))
-            waited[name] = time.perf_counter() - t
-            return rec
-        t0 = time.perf_counter()
-        out["fake"] = fake_partitioned(device, card, record_of)
-        secs["fake"] = time.perf_counter() - t0
-        secs["dry_run_wait"] = waited
+    def record_of(arch, name):
+        t = time.perf_counter()
+        proc, path = procs[arch, name]
+        rec = fake_dryrun_record(proc, arch, name, path)
+        waited[f"{arch}/{name}"] = time.perf_counter() - t
+        return rec
+    t0 = time.perf_counter()
+    for arch, part in fake_partitioned(device, card, record_of).items():
+        out[arch]["fake"] = part
+    secs["fake"] = time.perf_counter() - t0
+    secs["dry_run_wait"] = waited
     out["seconds"] = secs
     report["partitioned"] = out
-    launches = dict(out["one_rank"]["launches"])
-    for k, n in out["fake"]["launches"].items():
-        launches[k] = launches.get(k, 0) + n
+    launches = {}
+    for arch in archs:
+        for part in ("one_rank", "fake"):
+            for k, n in out[arch][part]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
     print(f"partitioned phase: main-path launches {launches}; seconds "
           f"{secs}")
     return {"launches": launches}
@@ -6528,6 +6590,9 @@ def main(argv=None) -> int:
                       (22, dryrun_slice), (23, analysis_slice),
                       (24, partitioned_slice)):
         if first in run:
+            if 24 in run and first in (22, 23) and not PART_DRYRUNS:
+                # phase 24's dry runs on the CPU while the card works
+                PART_DRYRUNS["procs"] = start_part_dryruns()
             more.append(timed(first, fn, device, card, report))
     for entry in kernels["kernels"]:
         name = entry["name"]

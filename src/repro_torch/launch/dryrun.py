@@ -37,8 +37,8 @@ runs nothing.  The port runs nothing either:
   chips times rank 0's (``collective_bytes_per_device``) and
   ``t_collective_s`` is rank 0's bytes over the NVLink rate.  A cell the
   partitioned route does not run (``models.transformer.
-  outside_partitioned``: MoE, the SSD and RG-LRU mixers, whisper,
-  pixtral) or whose KV cache is split on the sequence or int8
+  outside_partitioned``: the SSD and RG-LRU mixers, whisper, pixtral)
+  or whose KV cache is split on the sequence or int8
   (``long_500k``, the ``--optimized`` decode cells) keeps ``None``, with a
   ``"why"`` that names the ROADMAP item; its ``bound`` and
   ``step_time_s`` are taken over compute and memory.

@@ -13,8 +13,10 @@ collectives) and reads:
 
 * ``temp_bytes``: the most bytes the step's ops hold at once on top of
   its arguments -- every storage an op makes, from its making to its
-  free (a storage autograd keeps for the backward stays counted), and
-  the temporaries of ``CUDA_OP_TEMPORARIES`` while their op runs;
+  free (a storage autograd keeps for the backward stays counted; an
+  ``IDENTITY_OPS`` output, a collective's wait, carries its input's
+  bytes from then on),
+  and the temporaries of ``CUDA_OP_TEMPORARIES`` while their op runs;
 * ``alias_bytes``: the bytes of the step's arguments that an op writes
   in place (the decode cache), the counterpart of XLA's donated and
   aliased buffers;
@@ -65,6 +67,12 @@ COLLECTIVE_KINDS = {
     "all_to_all_single": "all-to-all",
 }
 
+# ``_c10d_functional`` ops whose output is their input's memory: a card
+# allocates nothing for them (``_wrap_tensor_autograd`` wraps its input
+# in an ``AsyncCollectiveTensor``), where the meta device gives the
+# output a storage of its own, which may outlive the input's
+IDENTITY_OPS = ("wait_tensor", "_wrap_tensor_autograd")
+
 # a decode cell's cache is filled this many rows short of its end
 DECODE_ROWS_LEFT = 8
 
@@ -94,6 +102,14 @@ def kernel_shaped() -> SimpleNamespace:
         flash_attention=lambda q, k, v, *a, **kw: torch.empty_like(q))
 
 
+def _group_size(args) -> int:
+    """The ranks of a ``_c10d_functional`` collective's process group,
+    named by its last string argument."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = [a for a in args if isinstance(a, str)][-1]
+    return _resolve_process_group(name).size()
+
+
 def _storage(t: torch.Tensor):
     return t.untyped_storage()
 
@@ -103,7 +119,8 @@ class StepReader(TorchDispatchMode):
     ``peak``, the most bytes held at once by storages the ops made;
     ``written``, the bytes of ``arguments``' storages written in place;
     ``collectives``, output bytes by kind; ``calls``, each collective's
-    ``(kind, output shape)`` in order."""
+    ``(kind, output shape)`` in order, and ``sizes`` the ranks of its
+    process group."""
 
     def __init__(self, arguments=()):
         super().__init__()
@@ -111,11 +128,27 @@ class StepReader(TorchDispatchMode):
         self.args = {_storage(t)._cdata: _storage(t).nbytes()
                      for t in arguments}
         self.written = {}
+        self.held = {}               # storage -> its finalizer
         self.collectives: Dict[str, int] = {}
         self.calls = []
+        self.sizes = []
 
     def _free(self, n: int) -> None:
         self.now -= n
+
+    def _move(self, inputs: set, res) -> None:
+        """An ``IDENTITY_OPS`` output with a storage of its own: the
+        input's bytes are no longer counted on the input's storage, but
+        on the output's (counted as made), for as long as it lives."""
+        outs = {_storage(t)._cdata for t in tree_leaves(res)
+                if isinstance(t, torch.Tensor)}
+        if outs & inputs:
+            return
+        for key in inputs:
+            fin = self.held.pop(key, None)
+            info = fin.detach() if fin is not None else None
+            if info is not None:
+                self.now -= info[2][0]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -137,10 +170,12 @@ class StepReader(TorchDispatchMode):
             return res
         self._writes(func, args, kwargs)
         res = func(*args, **kwargs)
-        kind = (COLLECTIVE_KINDS.get(func._opname)
-                if func.namespace == "_c10d_functional" else None)
+        collective = func.namespace == "_c10d_functional"
+        kind = COLLECTIVE_KINDS.get(func._opname) if collective else None
         seen, made = {_storage(t)._cdata for t in tree_leaves((args, kwargs))
                       if isinstance(t, torch.Tensor)}, 0
+        if collective and func._opname in IDENTITY_OPS:
+            self._move(seen, res)
         for t in tree_leaves(res):
             if not isinstance(t, torch.Tensor):
                 continue
@@ -148,6 +183,7 @@ class StepReader(TorchDispatchMode):
                 self.collectives[kind] = (self.collectives.get(kind, 0)
                                           + t.numel() * t.element_size())
                 self.calls.append((kind, tuple(t.shape)))
+                self.sizes.append(_group_size(args))
             st = _storage(t)
             if st._cdata in seen:
                 continue
@@ -155,7 +191,7 @@ class StepReader(TorchDispatchMode):
             n = st.nbytes()
             made += n
             self.now += n
-            weakref.finalize(st, self._free, n)
+            self.held[st._cdata] = weakref.finalize(st, self._free, n)
         self.peak = max(self.peak, self.now + made
                         * CUDA_OP_TEMPORARIES.get(func, 0))
         return res

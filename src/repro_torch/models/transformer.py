@@ -66,7 +66,8 @@ runs the same code.  On the local shards (``local_map``): every kernel
 table, qk-norm, rotary embeddings, the cache's append and decode
 attention (``attention._attend_placed``), the cross-entropy and the
 greedy argmax over vocab-split logits (``layers.VocabParallelCE``,
-``layers.greedy``).  On the ``DTensor``s as PyTorch's sharding
+``layers.greedy``), the MoE routing, dispatch, experts and combine with
+the experts on ``data`` and an explicit all-to-all (``moe.py``).  On the ``DTensor``s as PyTorch's sharding
 propagation lays them out: the weights' reshapes and the tied head's
 transpose, the heads' split and merge, ``unbind`` of the stacked
 layers, the MLP's activation and product, the loss's chunk slices, its
@@ -110,9 +111,8 @@ _MIXERS = ("attn", "mamba2", "rglru")
 def outside_partitioned(cfg: ModelConfig) -> Optional[str]:
     """The ROADMAP item (Queue 1) that will partition what ``cfg`` has
     and the partitioned route does not run, or None for a config in
-    its slice (attention decoders with dense FFNs, no front end)."""
-    if cfg.n_experts:
-        return "MoE with experts on data"
+    its slice (attention decoders with dense or MoE FFNs, no front
+    end)."""
     kinds = {_mixer_kind(e) for e in cfg.pattern}
     if kinds - {"attn"}:
         return "the SSD and RG-LRU mixers"

@@ -198,9 +198,9 @@ REF_ROOFLINE = ["bound", "chips", "collective_by_kind", "collective_bytes",
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_lower_cell_on_the_fake_backend(fake, cell):
-    """Qwen3's cells are on the partitioned route: their temp, alias and
-    collective terms are read from rank 0's step; granite's (MoE) keep
-    ``None`` with a ``"why"`` naming the ROADMAP item."""
+    """Qwen3's and granite's (MoE) cells are on the partitioned route:
+    their temp, alias and collective terms are read from rank 0's
+    step."""
     got = fake[cell]
     assert got["status"] == "ok"
     chips = 512 if cell.endswith("2x16x16") else 256
@@ -209,24 +209,17 @@ def test_lower_cell_on_the_fake_backend(fake, cell):
     assert got["argument"] == got["want_argument"]
     assert got["output"] > 0
     assert got["flops"] == got["cost"][0] and got["hbm"] == got["cost"][1]
-    if cell.startswith("qwen3"):
-        assert got["memory"] == sorted(REF_MEMORY)
-        assert got["roofline"] == sorted(
-            REF_ROOFLINE + ["collective_bytes_per_device", "gemm_flops"])
-        assert got["temp"] > 0 and got["per_device"] > 0
-        assert got["coll"] == chips * got["per_device"]
-        assert sum(got["by_kind"].values()) == got["coll"]
-        assert got["t_collective"] == pytest.approx(
-            got["per_device"] / 450e9, rel=1e-12)
-        # the decode cache is written in place; nothing else is
-        assert (got["alias"] > 0) == ("decode" in cell)
-        assert got["bound"] in ("compute", "memory", "collective")
-    else:
-        assert got["memory"] == sorted(REF_MEMORY + ["why"])
-        assert got["roofline"] == sorted(REF_ROOFLINE + ["gemm_flops",
-                                                         "why"])
-        assert got["t_collective"] is None and got["temp"] is None
-        assert got["bound"] in ("compute", "memory")
+    assert got["memory"] == sorted(REF_MEMORY)
+    assert got["roofline"] == sorted(
+        REF_ROOFLINE + ["collective_bytes_per_device", "gemm_flops"])
+    assert got["temp"] > 0 and got["per_device"] > 0
+    assert got["coll"] == chips * got["per_device"]
+    assert sum(got["by_kind"].values()) == got["coll"]
+    assert got["t_collective"] == pytest.approx(
+        got["per_device"] / 450e9, rel=1e-12)
+    # the decode cache is written in place; nothing else is
+    assert (got["alias"] > 0) == ("decode" in cell)
+    assert got["bound"] in ("compute", "memory", "collective")
 
 
 PARTITIONED = r"""
@@ -358,7 +351,7 @@ HLO_KW = {"vocab_size": 512}
 
 HLO_COMMON = r"""
 import dataclasses, json, sys
-cells, kw = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+cells, kw, arch = json.loads(sys.argv[1]), json.loads(sys.argv[2]), sys.argv[3]
 """
 
 # the reference: jax.jit(in_shardings=...) of each cell's step on 4 forced
@@ -381,11 +374,14 @@ from repro.launch.train import make_train_step
 from repro.models.common import with_axis_sizes
 from repro.models.transformer import Model
 from repro.optim.optimizers import AdamW, constant_schedule
+import re
+COLLECTIVE = re.compile(r"(all-reduce|all-gather|reduce-scatter|"
+                        r"all-to-all|collective-permute)(-start)?\(")
 
 out = {}
 for name, (b, s) in cells.items():
     shape = dataclasses.replace(SHAPES[name], global_batch=b, seq=s)
-    cfg = adjust_config(reduced(get_config("qwen3-0.6b")), shape).replace(
+    cfg = adjust_config(reduced(get_config(arch)), shape).replace(
         dtype=jnp.float32, **kw)
     rules = with_axis_sizes(cell_rules(shape, False, 2), mesh)
     model = Model(cfg)
@@ -422,6 +418,12 @@ for name, (b, s) in cells.items():
                 params_abs, cache_abs, specs["tokens"])
         hlo = lowered.compile().as_text()
     out[name] = roofline.collective_bytes(hlo)[1]
+    # the MoE layer's: those inside the map over token blocks, a loop in
+    # the layers' loop (two "while/body" in an op's name)
+    moe = "\n".join(line for line in hlo.splitlines()
+                    if not COLLECTIVE.search(line)
+                    or line.count("while/body") >= 2)
+    out[name + "/moe"] = roofline.collective_bytes(moe)[1]
 print("HLO " + json.dumps(out))
 """
 
@@ -440,34 +442,63 @@ dist.init_process_group("fake", store=dist.HashStore(), rank=0,
                         world_size=4)
 mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
 out = {}
+# the MoE layers' collectives: those issued inside apply_moe (the
+# forward's; a backward's run outside it)
+from repro_torch.models import moe as MOE
+inside, apply_moe = {}, MOE.apply_moe
+
+
+def counted(*args, **kwargs):
+    reader = program.StepReader()
+    with reader:
+        res = apply_moe(*args, **kwargs)
+    for k, v in reader.collectives.items():
+        inside[k] = inside.get(k, 0) + v
+    return res
+
+
+MOE.apply_moe = counted
 for name, (b, s) in cells.items():
     shape = dataclasses.replace(SHAPES[name], global_batch=b, seq=s)
-    cfg = adjust_config(reduced(get_config("qwen3-0.6b")), shape).replace(
+    cfg = adjust_config(reduced(get_config(arch)), shape).replace(
         dtype=torch.float32, **kw)
     rules = with_axis_sizes(cell_rules(shape, False, 2), mesh)
     step, inputs = program.local_program(cfg, shape.kind, b, s, mesh, rules)
+    inside.clear()
     out[name] = program.read_step(step, *inputs)["collective_by_kind"]
+    out[name + "/moe"] = dict(inside)
 dist.destroy_process_group()
 print("HLO " + json.dumps(out))
 """
 
 
-@pytest.fixture(scope="module")
-def against_hlo():
-    """``(reference, port)``: each cell's per-device collective bytes by
-    kind, from the reference's HLO and from the port's read."""
-    args = [json.dumps(HLO_CELLS), json.dumps(HLO_KW)]
+def hlo_collectives(cells, kw, arch="qwen3-0.6b"):
+    """``(reference, port)``: each reduced cell's per-device collective
+    bytes by kind, from the reference's HLO and from the port's read."""
+    args = [json.dumps(cells), json.dumps(kw), arch]
     procs = [subprocess.Popen([sys.executable, "-c", script, *args],
                               cwd=ROOT, text=True, env=env(),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for script in (HLO_JAX, HLO_PORT)]
     got = []
-    for proc in procs:
-        out, err = proc.communicate(timeout=600)
-        lines = [ln for ln in out.splitlines() if ln.startswith("HLO ")]
-        assert proc.returncode == 0 and lines, out[-2000:] + err[-3000:]
-        got.append(json.loads(lines[-1][len("HLO "):]))
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            lines = [ln for ln in out.splitlines() if ln.startswith("HLO ")]
+            assert proc.returncode == 0 and lines, out[-2000:] + err[-3000:]
+            got.append(json.loads(lines[-1][len("HLO "):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     return tuple(got)
+
+
+@pytest.fixture(scope="module")
+def against_hlo():
+    """``(reference, port)`` of Qwen3's reduced cells."""
+    return hlo_collectives(HLO_CELLS, HLO_KW)
 
 
 @pytest.mark.parametrize("cell", sorted(HLO_CELLS))

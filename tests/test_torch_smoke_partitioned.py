@@ -1,0 +1,234 @@
+"""Phase 24 of ``chip_smoke.py`` (``partitioned_slice``) rehearsed on the
+CPU at reduced size over ``gloo`` and the ``fake`` group, with the CUDA
+calls stubbed and the shapes of its three cells cut, for both of its
+configs: Qwen3-0.6B (its vocabulary 512, so that it splits) and
+granite-moe-1b (16 experts, so that each of the 16 data ranks of the
+``fake`` mesh holds one and the dispatch crosses by all-to-all).
+
+* (a) the one-rank partitioned route bit-equal to the unpartitioned one
+  leaf by leaf (the logits still laid out on the mesh, every parameter,
+  gradient and moment placed), its launches -- counted by wrappers
+  around the plain versions -- equal to that route's;
+* (b) the collectives rank 0's program issues on the CPU equal to the
+  dry run's on the meta device, cell by cell, granite's train and
+  prefill cells with their all-to-alls.
+
+In a file of its own so that parallel workers take it apart from the
+other helpers (``tests/test_torch_smoke_helpers.py``).
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_serve import _smoke  # noqa: E402
+from test_torch_smoke_helpers import _Event  # noqa: E402
+
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.models.transformer import Model  # noqa: E402
+
+SMOKE = _smoke()
+
+# the shapes of phase 24's cells cut for the CPU, their kinds kept
+SMALL_CELLS = {"train_4k": (32, 64), "prefill_32k": (32, 128),
+               "decode_32k": (128, 256)}
+# the configs at the rehearsal's size: reduced, with Qwen3's vocabulary
+# split and one of granite's experts on each of 16 data ranks
+SMALL = {"qwen3-0.6b": {"vocab_size": 512},
+         "granite-moe-1b-a400m": {"vocab_size": 512, "n_experts": 16}}
+
+
+def small_config(full):
+    def small(arch):
+        return reduced(full(arch)).replace(**SMALL.get(arch, {}))
+    return small
+
+
+@pytest.fixture(scope="module")
+def phase_24():
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        yield _phase_24(monkeypatch)
+
+
+def _phase_24(monkeypatch):
+    """``partitioned_slice`` at reduced size on the CPU: the configs of
+    ``SMALL``, the cells cut to ``SMALL_CELLS``, the dry-run records made
+    in a process of their own, the CUDA calls stubbed, the kernels'
+    plain versions counted as launches."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, shapes
+    small = small_config(configs.get_config)
+    monkeypatch.setattr(configs, "get_config", small)
+    monkeypatch.setattr(dryrun, "get_config", small)
+    for name, (batch, seq) in SMALL_CELLS.items():
+        monkeypatch.setitem(shapes.SHAPES, name, dataclasses.replace(
+            shapes.SHAPES[name], seq=seq, global_batch=batch))
+    monkeypatch.setattr(SMOKE, "CARD", "cpu")
+    monkeypatch.setattr(SMOKE, "PART_PREFILL", (2, 24))
+    monkeypatch.setattr(SMOKE, "PART_TRAIN", (2, 16))
+    monkeypatch.setattr(SMOKE, "PART_MOE_PREFILL", (2, 24))
+    monkeypatch.setattr(SMOKE, "PART_MOE_TRAIN", (2, 16))
+    # the CPU has no allocator peak to hold
+    monkeypatch.setattr(SMOKE, "PART_PEAK_MARGIN_GB", float("inf"))
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(SMOKE, "traced_device_ms", lambda fn: (None, 0))
+    monkeypatch.setattr(SMOKE, "start_fake_dryrun",
+                        lambda arch, name, out_dir: (arch, name))
+
+    # the dry run's records, each config's from a process of its own as
+    # on the card (one default process group a process), at the same cut
+    records = _small_records()
+    monkeypatch.setattr(SMOKE, "fake_dryrun_record",
+                        lambda proc, arch, name, out_dir: records[arch][name])
+    for name, counter in SMOKE._counters().items():
+        if name in ("matmul", "fused_add_rmsnorm", "flash_attention"):
+            def counting(*a, _run=getattr(ops, name), _c=counter, **k):
+                _c.launches += 1
+                return _run(*a, **k)
+            monkeypatch.setattr(ops, name, counting)
+    report = {}
+    got = SMOKE.partitioned_slice(torch.device("cpu"), "cpu", report)
+    return got, report["partitioned"]
+
+
+RECORDS = """
+import dataclasses, json, sys
+import repro_torch.configs as configs
+from repro_torch.launch import dryrun, shapes
+cells, arch, kw = (json.loads(a) for a in sys.argv[1:])
+full = configs.get_config
+small = lambda name: configs.reduced(full(name)).replace(**kw)
+configs.get_config = dryrun.get_config = small
+for name, (batch, seq) in cells.items():
+    shapes.SHAPES[name] = dataclasses.replace(shapes.SHAPES[name], seq=seq,
+                                              global_batch=batch)
+with dryrun.fake_world(False):
+    out = {name: dryrun.lower_cell(arch, name, False)[0] for name in cells}
+print("RECORDS " + json.dumps(out))
+"""
+
+
+def _small_records() -> dict:
+    """Each config's records of ``SMALL_CELLS``, both configs at once."""
+    import json
+    import subprocess
+    import sys
+    from test_torch_ranks import ROOT, env
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-c", RECORDS, json.dumps(SMALL_CELLS),
+         json.dumps(arch), json.dumps(kw)], cwd=ROOT, env=env(), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for arch, kw in SMALL.items()}
+    out = {}
+    try:
+        for arch, proc in procs.items():
+            text, err = proc.communicate(timeout=300)
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith("RECORDS ")]
+            assert lines, text[-2000:] + err[-3000:]
+            out[arch] = json.loads(lines[-1][len("RECORDS "):])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def _leaves_held(arch, steps):
+    """The logits and the cache's k, v and positions; the logits and
+    tokens of each step; parameters, both moments, the optimizer's step,
+    the gradients, the loss and the gradients' norm."""
+    cfg = small_config(get_config)(arch)
+    n_params = len(list(SMOKE.leaf_items(Model(cfg).param_defs())))
+    return {"prefill": 4, **{f"decode{i}": 2 for i in range(steps)},
+            "cache": 3, "step": 4 * n_params + 3}
+
+
+def test_phase_24_one_rank_route_is_bit_equal(phase_24):
+    got, out = phase_24
+    one = out[SMOKE.PART_ARCH]["one_rank"]
+    assert one["mesh"] == {"data": 1, "model": 1}
+    assert one["leaves_held"] == _leaves_held(SMOKE.PART_ARCH,
+                                              SMOKE.PART_DECODE_STEPS)
+    assert one["placements"] == ["S(0)", "S(1)"]
+    assert one["logits_local"] == [2, 512]
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_phase_24_moe_one_rank_route_is_bit_equal(phase_24):
+    """granite's prefill, two decode steps and AdamW step under remat
+    ``full``: every leaf bit-equal on one rank."""
+    _, out = phase_24
+    one = out[SMOKE.PART_MOE_ARCH]["one_rank"]
+    assert one["arch"] == "granite-moe-1b-a400m"
+    assert one["mesh"] == {"data": 1, "model": 1}
+    assert one["leaves_held"] == _leaves_held(SMOKE.PART_MOE_ARCH,
+                                              SMOKE.PART_MOE_DECODE_STEPS)
+    assert one["logits_local"] == [2, 512]
+
+
+def test_phase_24_launches_are_the_unpartitioned_routes(phase_24):
+    got, out = phase_24
+    cfg = reduced(get_config("qwen3-0.6b"))
+    n = cfg.n_layers
+    launches = out[SMOKE.PART_ARCH]["one_rank"]["launches"]
+    # a prefill and each decode step: 7n + 1 GEMMs, 2n + 1 add+norms,
+    # n attentions in the prefill only; the step under remat "full"
+    assert launches["flash_attention"] >= 2 * n
+    assert launches["matmul"] > (1 + SMOKE.PART_DECODE_STEPS) * (7 * n + 1)
+    assert launches["bn_forward"] == launches["bn_backward"] == 0
+    total = {}
+    for arch in (SMOKE.PART_ARCH, SMOKE.PART_MOE_ARCH):
+        for part in ("one_rank", "fake"):
+            for name, n_ in out[arch][part]["launches"].items():
+                total[name] = total.get(name, 0) + n_
+    assert got["launches"] == total
+
+
+def test_phase_24_moe_launches_are_the_unpartitioned_routes(phase_24):
+    """granite's experts run as many GEMMs on the partitioned route as on
+    the unpartitioned one (held inside the phase): three a local expert
+    and token pass, every expert local on one rank."""
+    _, out = phase_24
+    cfg = small_config(get_config)("granite-moe-1b-a400m")
+    n = cfg.n_layers
+    launches = out[SMOKE.PART_MOE_ARCH]["one_rank"]["launches"]
+    # the prefill and each decode step: the router, 3 GEMMs an expert and
+    # 4 attention products a layer, and the head
+    assert launches["matmul"] > (1 + SMOKE.PART_MOE_DECODE_STEPS) * (
+        (1 + 3 * cfg.n_experts + 4) * n + 1)
+    assert launches["flash_attention"] >= 2 * n
+
+
+@pytest.mark.parametrize("cell", sorted(SMALL_CELLS))
+def test_phase_24_collectives_equal_the_dry_run(phase_24, cell):
+    _, out = phase_24
+    fake = out[SMOKE.PART_ARCH]["fake"][cell]
+    read = fake["card_read"]
+    assert read["collective_bytes"] > 0
+    assert read["collective_by_kind"]["all-gather"] > 0
+    assert fake["dry_argument_bytes"] > 0
+    assert fake["temp_bytes"] > 0
+    assert (fake["alias_bytes"] > 0) == (cell == "decode_32k")
+
+
+@pytest.mark.parametrize("cell", sorted(SMALL_CELLS))
+def test_phase_24_moe_collectives_equal_the_dry_run(phase_24, cell):
+    """granite's cells (held equal to the dry run's inside the phase):
+    train and prefill hold whole blocks a rank and exchange them by
+    all-to-all; decode's blocks span 8 ranks and are reduce-scattered."""
+    _, out = phase_24
+    fake = out[SMOKE.PART_MOE_ARCH]["fake"][cell]
+    kinds = fake["card_read"]["collective_by_kind"]
+    assert (kinds.get("all-to-all", 0) > 0) == (cell != "decode_32k")
+    assert kinds["reduce-scatter"] > 0
+    assert fake["temp_bytes"] > 0
+    assert (fake["alias_bytes"] > 0) == (cell == "decode_32k")
