@@ -158,15 +158,16 @@ what ran):
     on `mma`, its launches held);
 17. trains SmolLM-360M at full width and depth through the port's
     trainer (``launch/train.py::train_loop``: float32, batch 8 x 1024,
-    10 AdamW steps at lr 3e-3, seeded, a checkpoint every 5 steps in a
-    temporary directory) on ``Model(cfg, impl=ops.differentiable())``,
-    every launch counter set to 0 before each run and held after it
-    (``train_launches``: 675 ``matmul`` -- forward, dX, dW -- all on
-    `mma`, 65 ``fused_add_rmsnorm`` and 32 ``flash_attention`` a step);
-    holds every loss finite and prints whether the last 3 average below
-    the first 3; reads the step-10 checkpoint back bit for bit; stops a
-    second run after 5 steps, resumes it from its checkpoint and holds
-    steps 6-10 against the uninterrupted run (``LLM_RESUME_TOL``);
+    ``LLM_STEPS`` (4) AdamW steps at lr 3e-3, seeded, a checkpoint every
+    2 steps in a temporary directory) on ``Model(cfg,
+    impl=ops.differentiable())``, every launch counter set to 0 before
+    each run and held after it (``train_launches``: 675 ``matmul`` --
+    forward, dX, dW -- all on `mma`, 65 ``fused_add_rmsnorm`` and 32
+    ``flash_attention`` a step); holds every loss finite and prints
+    whether the last half average below the first half; reads the
+    last checkpoint back bit for bit; stops a second run after 2 steps,
+    resumes it from its checkpoint and holds steps 3-4 against the
+    uninterrupted run (``LLM_RESUME_TOL``);
     holds one step (its launches exactly) against the plain route from
     the same weights, with the attention projections rescaled
     (``conditioned``), by the loss, gradient norm, every gradient and
@@ -211,13 +212,13 @@ what ran):
     the backward) through ``make_train_step``, 2 AdamW steps, its peak
     memory held under the card's 80 GB and printed beside the meta
     reckoning (``dry_reckoning``, in a process of its own on the CPU);
-    mamba2-130m (24 layers, 8 x 1024) through ``train_loop``, 4 steps;
+    mamba2-130m (24 layers, 8 x 1024) through ``train_loop``, 2 steps;
     and recurrentgemma-9b at one period of its pattern (3 layers, 4 x
-    2048) through ``make_train_step``, 4 steps; float32, on ``Model(cfg,
+    2048) through ``make_train_step``, 2 steps; float32, on ``Model(cfg,
     impl=ops.differentiable())``: every counter set to 0 before each run
     or step and held after it (``train_launches``: 9,699 / 97 / 48,
     147 / 25 / 0 and 72 / 7 / 1 a step, every GEMM on `mma`), finite
-    losses; mamba2 stopped after 2 steps and resumed from its
+    losses; mamba2 stopped after 1 step and resumed from its
     checkpoint against the uninterrupted run, the checkpoint read back
     bit for bit; one step of each against the plain route from
     ``conditioned`` weights (``LLM_STEP_REL``, granite under ``full`` on
@@ -234,11 +235,10 @@ what ran):
     (``hold_policies``: two steps a policy on one model and state,
     launches held on each, 9,699 / 9,579 / 9,675 GEMMs, the first
     step's gradients bit-equal to ``full``'s; the warm second step's
-    ms, its recomputes' ms by CUDA events, its peak memory); and both
-    routes' warm steps timed (events, the median of 2 after one, one
-    after one for granite; tokens/s, peak memory; the kernel route's
-    device time by phase and the recompute's share, idle share; the
-    plain routes by events alone);
+    ms, its recomputes' ms by CUDA events, its peak memory); and the
+    kernel route's warm step timed (events, one after one; tokens/s,
+    peak memory; device time by phase and the recompute's share, idle
+    share; granite's by events alone);
 20. serves gemma3-27b (batch 2 x 2048, 4 steps: the 5:1 local:global
     schedule with window 1024), pixtral-12b (4 x 2048 after 64 stub
     patches, 4 steps), stablelm-1.6b (4 x 2048, 8 steps: LayerNorm, no
@@ -292,7 +292,7 @@ what ran):
     ``FlopCounterMode``'s over the same traces, the kernel route on the
     card with its launches held (``chunked_train_launches`` a training
     step, ``serve_launches`` a prefill and each of 8 decode steps), ms by
-    events (median of 3; decode a step over 8), device ms and idle share
+    events (one call; decode a step over 8), device ms and idle share
     from the profiler, peak memory; the roofline step time at most
     ``DRY_SLACK`` x the device ms, the state's bytes at most the peak;
     prints roofline / device ms and the model-FLOPs utilisation; then
@@ -335,8 +335,19 @@ what ran):
     of the dry run's ``argument_bytes + temp_bytes`` for the cell (the
     record from ``python -m repro_torch.launch.dryrun`` in a process of
     its own), the collectives' bytes by kind read on the card equal to
-    the dry run's, a warm step's ms by events and device ms from the
-    profiler.
+    the dry run's (the steps not timed: a fake collective moves nothing).
+    granite-moe-1b (its experts on ``data``) runs beside Qwen3
+    (``PART_MOE_*``), and mamba2-130m and recurrentgemma-9b (the SSD and
+    RG-LRU mixers on ``DTensor``s) beside both (``PART_SSM_*``,
+    ``PART_RG_*``): (a) mamba2 at full width and depth (prefill 2 x 2048,
+    8 chunks of the SSD loop; 2 decode steps; a step at 2 x 1024),
+    recurrentgemma at full width and one period of 3 layers (prefill 2 x
+    2048, 2 decode steps, a step at 2 x 512); (b) their ``train_4k``,
+    ``prefill_32k`` and ``decode_32k`` cells and mamba2's ``long_500k``
+    (batch 1, its state whole on every rank; recurrentgemma's lays its
+    KV cache on the sequence, ROADMAP Queue 1 item 9).  The dry runs of
+    all thirteen cells start as phase 19 begins, each on one thread,
+    ``PART_DRYRUN_LANES`` at a time.
 
 Each phase group's seconds are printed, with its float32 GEMM launches by
 how the kernel's ring was filled (TMA or cp.async; phase 17's all on
@@ -3370,10 +3381,10 @@ def serving_slice(device, card, report) -> dict:
 # ---------------------------------------------------------------------------
 
 LLM_ARCH = "smollm-360m"
-# 10 steps (checkpoints every 5) before granite joined phase 24: the
-# command's time limit
-LLM_STEPS, LLM_BATCH, LLM_SEQ = 6, 8, 1024
-LLM_CKPT_EVERY, LLM_STOP_AFTER = 3, 3
+# 10 steps (checkpoints every 5) before granite joined phase 24, 6 (every
+# 3) before mamba2 and recurrentgemma did: the command's time limit
+LLM_STEPS, LLM_BATCH, LLM_SEQ = 4, 8, 1024
+LLM_CKPT_EVERY, LLM_STOP_AFTER = 2, 2
 LLM_LR = 3e-3                     # the trainer's command line default
 LLM_SEED = 2026
 # One step of the kernel route against the plain route (Model(cfg,
@@ -3768,16 +3779,17 @@ def add_launches(total: dict, more: dict) -> None:
 
 def report_losses(out: dict, res: dict) -> None:
     """The run's losses and gradient norms into ``out``, and whether the
-    mean of the last 3 losses is below the first 3's."""
+    mean of the last half of the losses is below the first half's."""
     losses = res["losses"]
+    half = max(1, len(losses) // 2)
     out.update(losses=losses, grad_norms=res["grad_norms"],
-               first3=float(np.mean(losses[:3])),
-               last3=float(np.mean(losses[-3:])))
-    out["lowered"] = out["last3"] < out["first3"]
+               first_half=float(np.mean(losses[:half])),
+               last_half=float(np.mean(losses[-half:])))
+    out["lowered"] = out["last_half"] < out["first_half"]
     print(f"  losses {losses}")
     print(f"  gradient norms before clipping {res['grad_norms']}")
-    print(f"  mean of the last 3 {out['last3']} below the first 3 "
-          f"{out['first3']}: {out['lowered']}")
+    print(f"  mean of the last {half} {out['last_half']} below the first "
+          f"{half} {out['first_half']}: {out['lowered']}")
 
 
 def train_and_resume(arch: str, per_step: dict, kw: dict, every: int,
@@ -3980,14 +3992,15 @@ def training_llm_slice(device, card, report) -> dict:
 MIXER_TRAIN = (("granite-moe-1b-a400m", None, 8, 1024, "full"),
                ("mamba2-130m", None, 8, 1024, None),
                ("recurrentgemma-9b", 3, 4, 2048, None))
-MIXER_TRAIN_STEPS = 4
+# 4 before mamba2 and recurrentgemma joined phase 24: the command's limit
+MIXER_TRAIN_STEPS = 2
 # mamba2's run is stopped after MIXER_STOP_AFTER steps and resumed from
 # its checkpoint (1.5 GB a save; granite's would be 16 GB, and granite
 # and recurrentgemma run make_train_step directly: train_loop takes no
 # depth and sets remat off)
-MIXER_RESUMED, MIXER_STOP_AFTER = "mamba2-130m", 2
-# warm steps each route is timed over (after one), where phase 17 takes
-# 3 (2 before granite joined phase 24: the command's time limit)
+MIXER_RESUMED, MIXER_STOP_AFTER = "mamba2-130m", 1
+# warm steps the kernel route is timed over (after one), where phase 17
+# takes 3 (2 before granite joined phase 24: the command's time limit)
 MIXER_TIMED_STEPS = 1
 # the policies a remat model's step runs under, one step each from the
 # same weights and batch (``hold_policies``); the first is its run's
@@ -4221,11 +4234,10 @@ def train_mixer(arch, layers, batch, seq, policy, device, card,
     ``make_train_step``, under ``policy``'s remat where it has one, with
     the peak beside the meta reckoning), one step held against the plain
     route with a control, each kernel on the step's inputs, a remat
-    model's step under each of ``REMAT_POLICIES``, and both routes
+    model's step under each of ``REMAT_POLICIES``, and the kernel route
     timed."""
     import tempfile
     from repro_torch.configs import get_config
-    from repro_torch.kernels import forward as F
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
     cfg = get_config(arch).replace(dtype=torch.float32,
@@ -4235,9 +4247,8 @@ def train_mixer(arch, layers, batch, seq, policy, device, card,
         cfg = cfg.replace(n_layers=layers)
     per_step = train_launches(cfg)
     # a remat model's run (granite: 8 x 1024 with its recompute) takes 2
-    # steps and its routes one timed step each, for the command's limit
+    # steps, for the command's limit
     steps = 2 if policy else MIXER_TRAIN_STEPS
-    timed = 1 if policy else MIXER_TIMED_STEPS
     remat = f", remat {policy}" if policy else ""
     out = {"config": f"{arch}, {cfg.n_layers} layers, d {cfg.d_model}, "
                      f"float32, batch {batch} x {seq}, {steps} AdamW steps "
@@ -4338,16 +4349,15 @@ def train_mixer(arch, layers, batch, seq, policy, device, card,
             add_launches(launches, rec_["launches"])
         out["seconds"]["policies"] = time.perf_counter() - t0
 
-    # the plain routes by events alone (granite's profiled plain step, at
-    # 48,000 device records, took about 30 s; the command's time limit),
-    # and a remat model's kernel route too (about 25 s: the policies time
-    # its recompute by events)
+    # the kernel route alone (the plain route's timing went for the
+    # command's time limit; phase 17 times SmolLM's), a remat model's by
+    # events alone (about 25 s profiled: the policies time its recompute
+    # by events)
     t0 = time.perf_counter()
     out["times"] = {
         "kernels": time_llm_route(cfg, ops.differentiable(), params, tokens,
-                                  timed, profiled=policy is None),
-        "plain": time_llm_route(cfg, F.PLAIN, params, tokens, timed,
-                                profiled=False)}
+                                  MIXER_TIMED_STEPS,
+                                  profiled=policy is None)}
     out["seconds"]["timing"] = time.perf_counter() - t0
     print_route_times(out["times"], card)
     print(f"  seconds by part: {out['seconds']}")
@@ -4617,7 +4627,7 @@ def serve_model(spec: Served, device, card, held, more=None) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models.frontends import synth_frontend_inputs
     from repro_torch.models.moe import Routing
-    from repro_torch.models.transformer import Model
+    from repro_torch.models.transformer import Model, has_attention
     arch, gen = spec.arch, spec.gen
     cfg = get_config(arch)
     if spec.layers:
@@ -4636,7 +4646,7 @@ def serve_model(spec: Served, device, card, held, more=None) -> dict:
     # the cache holds the patches ahead of the prompt (early fusion)
     skip = cfg.n_patches if "patches" in extras else 0
     max_len = skip + spec.prompt + gen + 8
-    attention = any(e.startswith("attn") for e in cfg.pattern)
+    attention = has_attention(cfg)
     pinned = (lambda: chosen.pinned()) if moe else (lambda: None)
     reference_init = None
     if attention:
@@ -5184,7 +5194,6 @@ DRY_ARCH = "qwen3-0.6b"
 DRY_SEED = 2026
 # (cell of launch/shapes.py, its batch cut to fit one card)
 DRY_CELLS = (("train_4k", 2), ("prefill_32k", 1), ("decode_32k", 8))
-DRY_TIMED = 3                     # timed steps or prefills, the median kept
 DRY_DECODE_STEPS = 8
 # the walker's roofline step time may exceed the measured device time by
 # this much at most: a faster reading means the count is wrong.  The
@@ -5311,8 +5320,8 @@ def start_fake_dryrun(arch: str, shape_name: str, out_dir: str):
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape_name, "--out", out_dir], cwd=ROOT,
             stdout=log, stderr=subprocess.STDOUT,
-            # one thread: six of these run beside the phase's host-bound
-            # work, and the meta device computes nothing
+            # one thread: thirteen of these run beside the phases'
+            # host-bound work, and the meta device computes nothing
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                      OMP_NUM_THREADS="1"))
 
@@ -5639,18 +5648,16 @@ def dry_cell(cfg, shape_name: str, batch: int, device, card, held) -> dict:
                                          .all()) for o in outs)
     del outs
 
-    times = []
-    for _ in range(DRY_TIMED if kind != "decode" else 1):
-        reset()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / reps)
-    out["ms_each"] = times
-    out["ms"] = sorted(times)[len(times) // 2]
+    # one timed call (decode: the 8 steps; three calls, the median kept,
+    # until the command's time limit)
+    reset()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    stop.record()
+    torch.cuda.synchronize()
+    out["ms"] = start.elapsed_time(stop) / reps
     # the trace of one call (decode: the 8 steps), split by kernel
     reset()
     prof = profile_step(run, SERVE_KERNELS)
@@ -5700,7 +5707,7 @@ def dry_cell(cfg, shape_name: str, batch: int, device, card, held) -> dict:
               f"memory {rr['t_memory_s'] * 1e3} ms, bound {rr['bound']}, "
               f"step {rr['step_time_s'] * 1e3} ms, model FLOPs ratio "
               f"{rr['model_flops_ratio']}")
-    print(f"    measured: {out['ms']} ms by events ({out['ms_each']}), "
+    print(f"    measured: {out['ms']} ms by events, "
           f"device {out['device_ms']} ms (by part "
           f"{out['device_parts_ms']}; records {out['trace_records']}), "
           f"idle {out['idle']}; roofline / device "
@@ -6060,15 +6067,36 @@ PART_MOE_ARCH = "granite-moe-1b-a400m"
 PART_MOE_PREFILL = (2, 1024)
 PART_MOE_DECODE_STEPS = 2
 PART_MOE_TRAIN = (2, 512)
-PART_ARCHS = (PART_ARCH, PART_MOE_ARCH)
-# the configs whose (b) steps are traced for their device ms (Qwen3's
-# were: the command's time limit)
-PART_TRACED = (PART_MOE_ARCH,)
-# phase 24's dry-run processes, started by ``main`` as phase 22 begins
-# (the dry runs take the CPU a minute or more): {"procs": ...}
+# the SSD and RG-LRU configs of the phase, their (a) shapes; recurrentgemma
+# at one period of its layers (38 layers' AdamW state is 150 GB)
+PART_SSM_ARCH = "mamba2-130m"
+PART_SSM_PREFILL = (2, 2048)      # 8 chunks of 256
+PART_SSM_DECODE_STEPS = 2
+PART_SSM_TRAIN = (2, 1024)
+PART_RG_ARCH = "recurrentgemma-9b"
+PART_RG_LAYERS = 3
+PART_RG_PREFILL = (2, 2048)
+PART_RG_DECODE_STEPS = 2
+PART_RG_TRAIN = (2, 512)
+PART_ARCHS = (PART_ARCH, PART_MOE_ARCH, PART_SSM_ARCH, PART_RG_ARCH)
+# phase 24's dry runs (``PartDryRuns``), started by ``main`` as phase 19
+# begins: {"runs": ...}.  Thirteen at once, as phase 22 began, slowed its
+# CPU walk 2x (train_4k's 18.5 -> 42 s); PART_DRYRUN_LANES at a time take
+# about 500 CPU seconds beside phase 19's float32 steps, which wait on the
+# card.
 PART_DRYRUNS: dict = {}
-# (b)'s cells of launch/shapes.py, each at its full global shape
+PART_DRYRUN_LANES = 3
+PART_DRYRUN_WAIT_S = 900
+# (b)'s cells of launch/shapes.py, each at its full global shape, and a
+# config's cells beyond them (mamba2's long_500k has no KV cache to lay
+# on the sequence)
 PART_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+PART_EXTRA_CELLS = {PART_SSM_ARCH: ("long_500k",)}
+
+
+def part_cells(arch: str) -> tuple:
+    """(b)'s cells of ``arch``."""
+    return PART_CELLS + PART_EXTRA_CELLS.get(arch, ())
 # the card's peak allocated bytes of a cell, less the dry run's
 # argument_bytes + temp_bytes, in GB (phase 22's limit for its peak)
 PART_PEAK_MARGIN_GB = 0.1
@@ -6086,6 +6114,7 @@ def same_tree(label: str, got, want) -> int:
     got_items = dict(leaf_items(got))
     for name, w in items:
         g = _whole(got_items[name])
+        w = w.to(g.device)
         check(g.dtype == w.dtype and g.shape == w.shape
               and torch.equal(g, w), f"{label}{name}: the partitioned "
               f"route differs from the unpartitioned one on one rank")
@@ -6093,8 +6122,8 @@ def same_tree(label: str, got, want) -> int:
 
 
 def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
-                         steps=PART_DECODE_STEPS, train_shape=PART_TRAIN
-                         ) -> dict:
+                         steps=PART_DECODE_STEPS, train_shape=PART_TRAIN,
+                         layers=None, want_on_host=False) -> dict:
     """Phase 24 (a): ``arch``'s prefill, ``steps`` decode steps and AdamW
     step (under remat ``full``) on the partitioned route over the
     one-rank ``mesh``, each held bit-equal to the unpartitioned kernel
@@ -6104,16 +6133,23 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
     on a copy of the cache) and the tokens and cache of
     ``make_serve_step``, the loss, every gradient and the updated state.
     The unpartitioned route runs first; the partitioned route's launches
-    are counted alone and held equal to the unpartitioned route's."""
+    are counted alone and held equal to the unpartitioned route's.
+    ``layers``: the config's depth cut to that many layers (None: its
+    own); ``want_on_host``: the unpartitioned route's outputs are moved
+    to the host before the partitioned route runs (recurrentgemma's: its
+    20.5 GB of new state and gradients beside the partitioned step's ran
+    out of the card's 80 GB in its AdamW update)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
     from repro_torch.models.common import (PROD_RULES, place, tree_map,
                                            with_axis_sizes)
     from repro_torch.models.layers import greedy
-    from repro_torch.models.transformer import Model
+    from repro_torch.models.transformer import Model, has_attention
     from repro_torch.optim import AdamW, constant_schedule
     cfg = get_config(arch)                    # bf16; remat "full"
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     rules = with_axis_sizes(PROD_RULES, mesh)
     gen = torch.Generator(device=device).manual_seed(PART_SEED)
     params = conditioned(Model(cfg).init(gen))
@@ -6158,6 +6194,9 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
     want = run(Model(cfg), params, lambda t: t, None)
     torch.cuda.synchronize()
     want_launches = {k: c.launches for k, c in _counters().items()}
+    if want_on_host:
+        from torch.utils._pytree import tree_map as map_leaves
+        want = map_leaves(lambda t: t.cpu(), want)
     dparams = place(params, sh["params"])
     batch_pl = train.batch_shardings(mesh, rules, {"tokens": None})
     zero_counters()
@@ -6165,22 +6204,24 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
               lambda t: place({"tokens": t}, batch_pl)["tokens"], rules)
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in _counters().items()}
-    check(launches == want_launches and all(
-        launches[k] > 0 for k in ("matmul", "fused_add_rmsnorm",
-                                  "flash_attention")),
+    # every kernel of the config's path: attention's where it has any
+    used = ("matmul", "fused_add_rmsnorm") + (
+        ("flash_attention",) if has_attention(cfg) else ())
+    check(launches == want_launches and all(launches[k] > 0 for k in used),
           f"the partitioned route launched {launches}, the unpartitioned "
           f"{want_launches}")
     held = {part_: same_tree(f"{part_}: ", got[part_], want[part_])
             for part_ in want}
     local = got["prefill"]["logits"].to_local().shape
     out = {"arch": arch, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-           "launches": launches, "leaves_held": held,
+           "layers": cfg.n_layers, "launches": launches, "leaves_held": held,
            "loss": float(_whole(got["step"]["loss"])),
            "grad_norm": float(_whole(got["step"]["grad_norm"])),
            "logits_local": list(local),
            "placements": [str(p) for p in got["prefill"]["logits"]
                           .placements]}
-    print(f"  (a) {arch} on a one-rank {out['mesh']} NCCL mesh: prefill "
+    print(f"  (a) {arch} ({cfg.n_layers} layers) on a one-rank "
+          f"{out['mesh']} NCCL mesh: prefill "
           f"{b} x {s}, {steps} decode steps, AdamW step {tb} x {ts} under "
           f"remat full, bit-equal to the unpartitioned kernel route "
           f"(leaves held {held}); loss {out['loss']}, grad_norm "
@@ -6189,31 +6230,15 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
     return out
 
 
-def traced_device_ms(fn) -> tuple:
-    """``(ms, records)``: the device milliseconds of one call of ``fn``
-    from a trace of the card's activity alone (the host's ops, thousands
-    on the partitioned route, are not recorded; ms None where the trace
-    holds none) and the device records it holds."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    us = sum(e.device_time_total for e in device)
-    return (us / 1e3 if us else None), len(device)
-
-
 def fake_partitioned(device, card, record_of) -> dict:
-    """Phase 24 (b): rank 0's program of each ``PART_CELLS`` cell of both
-    configs, the decode and prefill cells first (``train_4k``'s dry runs
-    take longest), on the ``fake`` process group at world 256 with the
-    real kernels: the allocator's peak against the dry run's
-    ``argument_bytes + temp_bytes`` (``record_of(arch, name)``), the
-    collectives read on the card against the dry run's, and a warm step
-    timed by events, and for ``PART_TRACED``'s configs traced for its
-    device ms."""
+    """Phase 24 (b): rank 0's program of each ``part_cells`` cell of every
+    ``PART_ARCHS`` config, ``long_500k`` and the decode and prefill cells
+    first (``train_4k``'s dry runs take longest), on the ``fake`` process
+    group at world 256 with the real kernels: the allocator's peak
+    against the dry run's ``argument_bytes + temp_bytes``
+    (``record_of(arch, name)``) and the collectives read on the card
+    against the dry run's.  The steps are not timed: on the ``fake`` group
+    the collectives move nothing, and the command's time limit."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.dryrun import fake_world
@@ -6224,8 +6249,9 @@ def fake_partitioned(device, card, record_of) -> dict:
     out = {arch: {"launches": {}} for arch in PART_ARCHS}
     with fake_world(False):
         mesh = make_production_mesh(device_type=device.type)
-        for name, arch in [(n, a) for n in reversed(PART_CELLS)
-                           for a in PART_ARCHS]:
+        for name, arch in [(n, a) for n in ("long_500k",)
+                           + PART_CELLS[::-1] for a in PART_ARCHS
+                           if n in part_cells(a)]:
             launches = out[arch]["launches"]
             shape = SHAPES[name]
             cfg = adjust_config(get_config(arch), shape)
@@ -6262,13 +6288,6 @@ def fake_partitioned(device, card, record_of) -> dict:
                   f"{arch} {name}: collectives on the card "
                   f"{read['collective_by_kind']}, the dry run's "
                   f"{per_device}")
-            # a warm step by events, then (PART_TRACED) one traced for
-            # its device ms
-            t0 = time.perf_counter()
-            ms = cuda_ms(lambda: step(*inputs), 1, warmup=0)
-            device_ms, records = traced_device_ms(lambda: step(*inputs)) \
-                if arch in PART_TRACED else (None, 0)
-            timed_s = time.perf_counter() - t0
             out[arch][name] = {
                 "local_batch": list(inputs[-1]["tokens"].to_local().shape
                                     if isinstance(inputs[-1], dict) else
@@ -6278,8 +6297,7 @@ def fake_partitioned(device, card, record_of) -> dict:
                 "dry_bytes": dry, "peak_minus_dry_gb": (peak - dry) / 1e9,
                 "temp_bytes": mem["temp_bytes"],
                 "alias_bytes": mem["alias_bytes"], "card_read": read,
-                "ms": ms, "device_ms": device_ms, "records": records,
-                "seconds": {"read": read_s, "timed": timed_s},
+                "read_s": read_s,
                 "t_collective_s": roof["t_collective_s"],
                 "step_time_s": roof["step_time_s"], "bound": roof["bound"]}
             print(f"  (b) {arch} {name} rank 0 of 16 x 16 (fake): local "
@@ -6288,66 +6306,105 @@ def fake_partitioned(device, card, record_of) -> dict:
                   f"temp {dry / 1e9:.4f} "
                   f"GB ({(peak - dry) / 1e9:+.4f}); collectives "
                   f"{read['collective_by_kind']} B equal to the dry run's; "
-                  f"{ms:.2f} ms by events, {device_ms} device ms in "
-                  f"{records} records "
-                  f"(fake collectives move nothing); dry-run roofline "
+                  f"dry-run roofline "
                   f"{roof['step_time_s']} s ({roof['bound']}) [{card}]")
             del step, inputs, read
     return out
 
 
-def start_part_dryruns() -> dict:
-    """Starts the dry run of every ``PART_CELLS`` cell of both configs,
-    each in a process of its own (``start_fake_dryrun``), in a temporary
-    directory: ``(arch, cell) -> (process, its directory)``.  At exit a
-    process still running is killed and the directory removed."""
-    import atexit
-    import shutil
-    import tempfile
-    tmp = tempfile.mkdtemp()
-    procs = {}
-    for arch in PART_ARCHS:
-        for name in PART_CELLS:
-            out = Path(tmp, arch, name)
-            out.mkdir(parents=True)
-            procs[arch, name] = (start_fake_dryrun(arch, name, str(out)),
-                                 str(out))
+class PartDryRuns:
+    """The dry run of every ``part_cells`` cell of every ``PART_ARCHS``
+    config, each in a process of its own (``start_fake_dryrun``), at most
+    ``lanes`` at a time (daemon threads that start the next as one ends),
+    in a temporary directory.  ``stop`` (also at exit) starts no more,
+    kills a process still running and removes the directory."""
 
-    def stop():
-        for proc, _ in procs.values():
+    def __init__(self, lanes: int):
+        import atexit
+        import tempfile
+        self.tmp = tempfile.mkdtemp()
+        self.todo = [(arch, name) for arch in PART_ARCHS
+                     for name in part_cells(arch)]
+        self.done = {key: threading.Event() for key in self.todo}
+        self.procs, self.stopped = {}, False
+        self.lock = threading.Lock()
+        for _ in range(lanes):
+            threading.Thread(target=self._lane, daemon=True).start()
+        atexit.register(self.stop)
+
+    def _dir(self, arch: str, name: str) -> str:
+        return str(Path(self.tmp, arch, name))
+
+    def _lane(self) -> None:
+        while True:
+            with self.lock:
+                if self.stopped or not self.todo:
+                    return
+                key = self.todo.pop(0)
+                try:
+                    Path(self._dir(*key)).mkdir(parents=True)
+                    self.procs[key] = proc = start_fake_dryrun(
+                        *key, self._dir(*key))
+                except BaseException:
+                    self.done[key].set()
+                    raise
+            if isinstance(proc, subprocess.Popen):
+                proc.wait()
+            self.done[key].set()
+
+    def record(self, arch: str, name: str) -> dict:
+        """The cell's record once its process has ended."""
+        check(self.done[arch, name].wait(PART_DRYRUN_WAIT_S)
+              and (arch, name) in self.procs, f"the dry run of {arch} x "
+              f"{name} did not start, or did not end in "
+              f"{PART_DRYRUN_WAIT_S} s")
+        return fake_dryrun_record(self.procs[arch, name], arch, name,
+                                  self._dir(arch, name))
+
+    def stop(self) -> None:
+        import shutil
+        with self.lock:
+            self.stopped = True
+        for proc in self.procs.values():
             if isinstance(proc, subprocess.Popen) and proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
-    atexit.register(stop)
-    return procs
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def partitioned_slice(device, card, report) -> dict:
-    """Phase 24: for Qwen3-0.6B and granite-moe-1b (``PART_MOE_ARCH``, its
-    experts on ``data``), (a) the one-rank partitioned route held
-    bit-equal to the unpartitioned one, (b) rank 0's program of the 16 x
-    16 mesh on the ``fake`` group held against the dry run, whose
-    processes ``main`` starts two phases ahead (``PART_DRYRUNS``; here
-    when this phase runs alone).  Returns the main-path launches of
-    all four."""
-    archs = {PART_ARCH: (PART_PREFILL, PART_DECODE_STEPS, PART_TRAIN),
+    """Phase 24: for Qwen3-0.6B, granite-moe-1b (``PART_MOE_ARCH``, its
+    experts on ``data``), mamba2-130m and recurrentgemma-9b
+    (``PART_SSM_ARCH``, ``PART_RG_ARCH``: the SSD and RG-LRU mixers),
+    (a) the one-rank partitioned route held bit-equal to the
+    unpartitioned one, (b) rank 0's program of the 16 x 16 mesh on the
+    ``fake`` group held against the dry run, whose processes ``main``
+    starts as phase 19 begins (``PART_DRYRUNS``; here, all at once, when
+    none of phases 19-23 runs).  Returns the main-path launches of all of
+    them."""
+    archs = {PART_ARCH: (PART_PREFILL, PART_DECODE_STEPS, PART_TRAIN, None),
              PART_MOE_ARCH: (PART_MOE_PREFILL, PART_MOE_DECODE_STEPS,
-                             PART_MOE_TRAIN)}
-    procs = PART_DRYRUNS.pop("procs", None) or start_part_dryruns()
+                             PART_MOE_TRAIN, None),
+             PART_SSM_ARCH: (PART_SSM_PREFILL, PART_SSM_DECODE_STEPS,
+                             PART_SSM_TRAIN, None),
+             PART_RG_ARCH: (PART_RG_PREFILL, PART_RG_DECODE_STEPS,
+                            PART_RG_TRAIN, PART_RG_LAYERS)}
+    on_host = {PART_RG_ARCH}
+    runs = PART_DRYRUNS.pop("runs", None) or PartDryRuns(
+        sum(len(part_cells(arch)) for arch in PART_ARCHS))
     out, secs, waited = {}, {}, {}
-    for arch, (prefill, steps, train_shape) in archs.items():
+    for arch, (prefill, steps, train_shape, layers) in archs.items():
         t0 = time.perf_counter()
         with one_rank_mesh(device) as mesh:
             out[arch] = {"one_rank": one_rank_partitioned(
-                device, mesh, arch, prefill, steps, train_shape)}
+                device, mesh, arch, prefill, steps, train_shape, layers,
+                want_on_host=arch in on_host)}
         secs[f"{arch}/one_rank"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
 
     def record_of(arch, name):
         t = time.perf_counter()
-        proc, path = procs[arch, name]
-        rec = fake_dryrun_record(proc, arch, name, path)
+        rec = runs.record(arch, name)
         waited[f"{arch}/{name}"] = time.perf_counter() - t
         return rec
     t0 = time.perf_counter()
@@ -6590,9 +6647,9 @@ def main(argv=None) -> int:
                       (22, dryrun_slice), (23, analysis_slice),
                       (24, partitioned_slice)):
         if first in run:
-            if 24 in run and first in (22, 23) and not PART_DRYRUNS:
+            if 24 in run and 19 <= first < 24 and not PART_DRYRUNS:
                 # phase 24's dry runs on the CPU while the card works
-                PART_DRYRUNS["procs"] = start_part_dryruns()
+                PART_DRYRUNS["runs"] = PartDryRuns(PART_DRYRUN_LANES)
             more.append(timed(first, fn, device, card, report))
     for entry in kernels["kernels"]:
         name = entry["name"]

@@ -37,11 +37,12 @@ runs nothing.  The port runs nothing either:
   chips times rank 0's (``collective_bytes_per_device``) and
   ``t_collective_s`` is rank 0's bytes over the NVLink rate.  A cell the
   partitioned route does not run (``models.transformer.
-  outside_partitioned``: the SSD and RG-LRU mixers, whisper, pixtral)
-  or whose KV cache is split on the sequence or int8
-  (``long_500k``, the ``--optimized`` decode cells) keeps ``None``, with a
-  ``"why"`` that names the ROADMAP item; its ``bound`` and
-  ``step_time_s`` are taken over compute and memory.
+  outside_partitioned``: whisper, pixtral) or whose KV cache is split on
+  the sequence or int8 (``long_500k`` and the ``--optimized`` decode
+  cells of a config with attention layers; mamba2-130m has no KV cache,
+  so its ``long_500k`` is read) keeps ``None``, with a ``"why"`` that
+  names the ROADMAP item; its ``bound`` and ``step_time_s`` are taken
+  over compute and memory.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -67,7 +68,8 @@ from ..configs import ARCHS, get_config
 from ..kernels.forward import PLAIN
 from ..models.common import (ModelConfig, P, TensorSpec, placements,
                              tree_map, with_axis_sizes)
-from ..models.transformer import Model, outside_partitioned
+from ..models.transformer import (Model, has_attention,
+                                  outside_partitioned)
 from ..optim.optimizers import AdamW, constant_schedule
 from . import roofline as RL
 from .costmodel import Cost, graph_cost
@@ -86,7 +88,7 @@ ART_DIR = (pathlib.Path(__file__).resolve().parents[3] / "artifacts"
 # why a cell has no partitioned program to read: its config is outside
 # the partitioned route's slice, or its cache is split on the sequence
 # or int8 (long_500k's and the optimized decode variants)
-OUTSIDE = ("the partitioned route does not run this cell (ROADMAP Queue 1: "
+OUTSIDE = ("the partitioned route does not run this cell (ROADMAP Queue 1 "
            "{}), so nothing says what a device holds while the step runs "
            "or what crosses the interconnect; bound and step_time_s are "
            "taken over compute and memory")
@@ -283,8 +285,10 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         training = False
     cost = step_cost(cfg, shape.kind, b, shape.seq, rules, mv, in_specs)
     why = outside_partitioned(cfg) or (
-        "sequence-sharded and int8 KV caches"
-        if rules.get("cache_seq") or cfg.cache_dtype is not None else None)
+        "item 9, sequence-sharded and int8 KV caches"
+        if has_attention(cfg) and (rules.get("cache_seq")
+                                   or cfg.cache_dtype is not None)
+        else None)
     read = None
     if why is None:
         step, inputs = local_program(cfg, shape.kind, b, shape.seq, mesh,

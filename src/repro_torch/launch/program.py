@@ -274,7 +274,8 @@ def local_program(cfg: ModelConfig, kind: str, batch: int, seq: int, mesh,
         return step, (params, {"tokens": tokens(seq)})
     cache = placed_cache(model, batch, seq, mesh, rules, device)
     for part in cache.values():
-        part["pos"].fill_(seq - DECODE_ROWS_LEFT)
+        if "pos" in part:           # an attention layer's KV cache
+            part["pos"].fill_(seq - DECODE_ROWS_LEFT)
     return make_serve_step(model, rules), (params, cache, tokens(1))
 
 

@@ -154,11 +154,11 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     causal = cfg.causal if causal is None else causal
     src = x if kv_x is None else kv_x
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = linear(impl, x, p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
+    q = linear(impl, x, _flat(p["wq"], d, h * hd)).reshape(b, s, h, hd)
     t_src = src.shape[1]
-    k = linear(impl, src, p["wk"].reshape(d, kvh * hd)).reshape(
+    k = linear(impl, src, _flat(p["wk"], d, kvh * hd)).reshape(
         b, t_src, kvh, hd)
-    v = linear(impl, src, p["wv"].reshape(d, kvh * hd)).reshape(
+    v = linear(impl, src, _flat(p["wv"], d, kvh * hd)).reshape(
         b, t_src, kvh, hd)
     q = shard(q, rules, "batch", "seq", "act_heads", None)
     k = shard(k, rules, "batch", "seq", "cache_heads", None)
@@ -179,9 +179,25 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                                          q_offset, flash)
         out = _attend(cfg, q, k, v, q_pos, k_pos, causal, w, flash, impl)
     out = shard(out, rules, "batch", "seq", "act_heads", None)
-    y = linear(impl, out.reshape(b, s, h * hd),
-               p["wo"].reshape(h * hd, d))
+    y = linear(impl, out.reshape(b, s, h * hd), _flat(p["wo"], h * hd, d))
     return shard(y, rules, "batch", "seq", "act_embed"), cache
+
+
+def _flat(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """A projection weight as its (rows, cols) matrix.  A ``DTensor``
+    split on a dimension of size 1 over a mesh dimension of one rank (the
+    one KV head of an MQA config on a (4, 1) mesh, which the rules split
+    since 1 divides 1) is first made whole there, which moves nothing:
+    PyTorch's view propagation refuses to merge a split dimension of
+    size 1."""
+    if is_placed(w):
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [Replicate() if isinstance(q, Shard) and w.shape[q.dim] == 1
+              and w.device_mesh.size(i) == 1 else q
+              for i, q in enumerate(w.placements)]
+        if pl != list(w.placements):
+            w = w.redistribute(w.device_mesh, pl)
+    return w.reshape(rows, cols)
 
 
 def _prepare(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],

@@ -67,7 +67,10 @@ table, qk-norm, rotary embeddings, the cache's append and decode
 attention (``attention._attend_placed``), the cross-entropy and the
 greedy argmax over vocab-split logits (``layers.VocabParallelCE``,
 ``layers.greedy``), the MoE routing, dispatch, experts and combine with
-the experts on ``data`` and an explicit all-to-all (``moe.py``).  On the ``DTensor``s as PyTorch's sharding
+the experts on ``data`` and an explicit all-to-all (``moe.py``), the
+SSD mixer between its projections, each rank on its heads (``ssm.py``),
+and the RG-LRU block's conv and recurrence on its channels
+(``rglru.py``).  On the ``DTensor``s as PyTorch's sharding
 propagation lays them out: the weights' reshapes and the tied head's
 transpose, the heads' split and merge, ``unbind`` of the stacked
 layers, the MLP's activation and product, the loss's chunk slices, its
@@ -101,6 +104,12 @@ def _mixer_kind(entry: str) -> str:
     return entry.split("+")[0]
 
 
+def has_attention(cfg: ModelConfig) -> bool:
+    """Whether any layer of ``cfg`` mixes by attention (and so keeps a KV
+    cache and runs ``flash_attention``)."""
+    return any(_mixer_kind(e) == "attn" for e in cfg.pattern)
+
+
 def _is_moe(entry: str) -> bool:
     return entry.endswith("+moe")
 
@@ -111,15 +120,12 @@ _MIXERS = ("attn", "mamba2", "rglru")
 def outside_partitioned(cfg: ModelConfig) -> Optional[str]:
     """The ROADMAP item (Queue 1) that will partition what ``cfg`` has
     and the partitioned route does not run, or None for a config in
-    its slice (attention decoders with dense or MoE FFNs, no front
-    end)."""
-    kinds = {_mixer_kind(e) for e in cfg.pattern}
-    if kinds - {"attn"}:
-        return "the SSD and RG-LRU mixers"
+    its slice (decoders of attention, SSD and RG-LRU mixers with dense
+    or MoE FFNs, no front end)."""
     if cfg.encoder_layers or cfg.learned_pos:
-        return "whisper's encoder and cross-attention"
+        return "item 7, whisper's encoder and cross-attention"
     if cfg.n_patches:
-        return "pixtral's patches"
+        return "item 7, pixtral's patches"
     return None
 
 
@@ -297,7 +303,7 @@ class Model:
                 raise NotImplementedError(
                     f"{self.cfg.name} on a {self.impl.mesh.size()}-rank "
                     f"mesh: the partitioned route does not run it yet "
-                    f"(ROADMAP Queue 1: {why})")
+                    f"(ROADMAP Queue 1 {why})")
 
     # ---- structure ---------------------------------------------------------
     @property

@@ -242,10 +242,10 @@ with tempfile.TemporaryDirectory() as tmp:
         dryrun.main(["--arch", "qwen3-0.6b", "--shape", shape, "--out", tmp])
         out[shape] = json.loads(open(
             f"{tmp}/qwen3-0.6b.{shape}.16x16.json").read())
-    dryrun.main(["--arch", "mamba2-130m", "--shape", "long_500k",
+    dryrun.main(["--arch", "recurrentgemma-9b", "--shape", "long_500k",
                  "--out", tmp])
-    out["mamba2"] = json.loads(open(
-        f"{tmp}/mamba2-130m.long_500k.16x16.json").read())
+    out["recurrentgemma"] = json.loads(open(
+        f"{tmp}/recurrentgemma-9b.long_500k.16x16.json").read())
 
 # one FSDP product alone: Qwen3's MLP input weight, one layer of it
 with dryrun.fake_world(False):
@@ -317,11 +317,17 @@ def test_qwen3_cells_read_the_partitioned_step(partitioned, shape):
 
 
 def test_a_cell_outside_the_slice_keeps_none(partitioned):
-    rec = partitioned["mamba2"]
+    """recurrentgemma-9b's ``long_500k`` lays its local attention's KV
+    cache on ``cache_seq`` (batch 1 does not split over 16 data ranks):
+    the sequence-sharded cache is ROADMAP Queue 1 item 9.  (mamba2-130m's
+    ``long_500k`` has no KV cache and is read:
+    ``tests/test_torch_dryrun_recurrent.py``.)"""
+    rec = partitioned["recurrentgemma"]
     assert rec["memory"]["temp_bytes"] is None
     assert rec["roofline"]["t_collective_s"] is None
     for part in (rec["memory"], rec["roofline"]):
-        assert "ROADMAP Queue 1: the SSD and RG-LRU mixers" in part["why"]
+        assert ("ROADMAP Queue 1 item 9, sequence-sharded and int8 KV "
+                "caches") in part["why"]
 
 
 def test_fsdp_product_collectives_have_the_closed_form(partitioned):
@@ -442,31 +448,40 @@ dist.init_process_group("fake", store=dist.HashStore(), rank=0,
                         world_size=4)
 mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
 out = {}
-# the MoE layers' collectives: those issued inside apply_moe (the
-# forward's; a backward's run outside it)
-from repro_torch.models import moe as MOE
-inside, apply_moe = {}, MOE.apply_moe
+# the MoE layers' and the SSD and RG-LRU mixers' collectives: those
+# issued inside apply_moe, apply_ssm and apply_rglru (the forward's and a
+# recompute's; a backward's run outside them)
+from repro_torch.models import moe as MOE, rglru as RG, ssm as SSM
+inside = {"moe": {}, "ssm": {}, "rglru": {}}
 
 
-def counted(*args, **kwargs):
-    reader = program.StepReader()
-    with reader:
-        res = apply_moe(*args, **kwargs)
-    for k, v in reader.collectives.items():
-        inside[k] = inside.get(k, 0) + v
-    return res
+def counted(module, fn_name, part):
+    fn = getattr(module, fn_name)
+
+    def wrapped(*args, **kwargs):
+        reader = program.StepReader()
+        with reader:
+            res = fn(*args, **kwargs)
+        for k, v in reader.collectives.items():
+            inside[part][k] = inside[part].get(k, 0) + v
+        return res
+    setattr(module, fn_name, wrapped)
 
 
-MOE.apply_moe = counted
+counted(MOE, "apply_moe", "moe")
+counted(SSM, "apply_ssm", "ssm")
+counted(RG, "apply_rglru", "rglru")
 for name, (b, s) in cells.items():
     shape = dataclasses.replace(SHAPES[name], global_batch=b, seq=s)
     cfg = adjust_config(reduced(get_config(arch)), shape).replace(
         dtype=torch.float32, **kw)
     rules = with_axis_sizes(cell_rules(shape, False, 2), mesh)
     step, inputs = program.local_program(cfg, shape.kind, b, s, mesh, rules)
-    inside.clear()
+    for part in inside.values():
+        part.clear()
     out[name] = program.read_step(step, *inputs)["collective_by_kind"]
-    out[name + "/moe"] = dict(inside)
+    for part, got in inside.items():
+        out[f"{name}/{part}"] = dict(got)
 dist.destroy_process_group()
 print("HLO " + json.dumps(out))
 """

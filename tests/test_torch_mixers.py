@@ -299,6 +299,46 @@ def test_ssd_chunked_matches_jax_and_the_recurrence(s, chunk, with_state):
     close(tfinal, want_state, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("group", [1, 2])
+def test_ssd_chunked_in_groups_of_chunks(group, with_state, monkeypatch):
+    """Chunks taken ``group`` at a time (``SSD_GROUP_BYTES`` cut to that
+    many chunks' (B, L, L, H) float32 terms): 5 chunks of 4 with a ragged
+    tail, the state carried across the groups, against the JAX function,
+    the float64 recurrence and the call that takes all chunks at once."""
+    s, chunk = 18, 4
+    xh, dt, a_log, bb, cc, st = ssd_inputs(7 + group, s=s)
+    init = st if with_state else None
+    args = [torch.from_numpy(a) for a in (xh, dt, a_log, bb, cc)]
+    t_init = None if init is None else torch.from_numpy(init)
+    whole_y, whole_final = SSM.ssd_chunked(*args, chunk, t_init)
+    b, h = xh.shape[0], xh.shape[2]
+    monkeypatch.setattr(SSM, "SSD_GROUP_BYTES",
+                        group * 4 * b * chunk * chunk * h)
+    sizes = []
+    inner = SSM._ssd_group
+
+    def counted(xh_, *a):
+        sizes.append(xh_.shape[1] // chunk)
+        return inner(xh_, *a)
+    monkeypatch.setattr(SSM, "_ssd_group", counted)
+    ty, tfinal = SSM.ssd_chunked(*args, chunk, t_init)
+    assert sizes == [group] * (5 // group) + [5 % group] * (5 % group > 0)
+    assert tuple(ty.shape) == xh.shape
+    close(ty, whole_y, atol=1e-6, rtol=1e-6)
+    close(tfinal, whole_final, atol=1e-6, rtol=1e-6)
+    jy, jfinal = JSSM.ssd_chunked(
+        *(jnp.asarray(a) for a in (xh, dt, a_log, bb, cc)), chunk,
+        None if init is None else jnp.asarray(init))
+    close(ty, jy)
+    close(tfinal, jfinal)
+    want_y, want_state = step_ssd(xh, dt, a_log, bb, cc,
+                                  np.zeros_like(st) if init is None
+                                  else init)
+    close(ty, want_y, atol=1e-4, rtol=1e-4)
+    close(tfinal, want_state, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("dt_scale", [1.0, 4.0])
 def test_ssd_gradients_stay_finite_past_exps_range(dt_scale):
     """A chunk of 256 steps whose decay sums pass float32's exp range

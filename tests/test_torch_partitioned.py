@@ -34,10 +34,13 @@ limits of ``tests/test_torch_train.py``.  Local shapes are held too:
 Qwen3's logits stay split on the vocabulary, and no collective of its
 training step returns the vocabulary whole.
 
-Outside the slice: Mamba2, whisper and pixtral on a mesh of more than one
-rank raise and name their ROADMAP item (the MoE configs build: their
-cases are in ``tests/test_torch_partitioned_moe.py``); a ``DTensor``
-handed to a kernel wrapper outside ``local_map`` raises.
+Outside the slice: whisper and pixtral on a mesh of more than one rank
+raise and name their ROADMAP item (Queue 1 item 7).  The MoE configs
+build (their cases are in ``tests/test_torch_partitioned_moe.py``), and
+so do mamba2-130m and recurrentgemma-9b (``tests/
+test_torch_partitioned_ssm.py``, ``tests/test_torch_partitioned_rglru
+.py``).  A ``DTensor`` handed to a kernel wrapper outside ``local_map``
+raises.
 """
 import json
 import subprocess
@@ -425,7 +428,8 @@ dist.init_process_group("fake", store=dist.HashStore(), rank=0,
 mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
 rules = with_axis_sizes(PROD_RULES, mesh)
 for arch in ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
-             "mamba2-130m", "whisper-tiny", "pixtral-12b", "qwen3-0.6b"):
+             "mamba2-130m", "recurrentgemma-9b", "whisper-tiny",
+             "pixtral-12b", "qwen3-0.6b"):
     try:
         Model(reduced(get_config(arch)),
               impl=ops.partitioned(None, mesh, rules))
@@ -457,11 +461,19 @@ def outside():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("mamba2-130m", "the SSD and RG-LRU mixers"),
     ("whisper-tiny", "whisper"),
     ("pixtral-12b", "pixtral")])
 def test_a_config_outside_the_slice_raises_on_a_mesh(outside, arch, item):
-    assert "ROADMAP Queue 1" in outside[arch] and item in outside[arch]
+    assert "ROADMAP Queue 1 item 7" in outside[arch] \
+        and item in outside[arch]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+def test_a_recurrent_config_builds_on_a_mesh(outside, arch):
+    """mamba2-130m and recurrentgemma-9b (the SSD and RG-LRU mixers on
+    ``DTensor``s, ``tests/test_torch_partitioned_ssm.py`` and
+    ``tests/test_torch_partitioned_rglru.py``) are in the slice."""
+    assert outside[arch] == "built"
 
 
 def test_an_attention_decoder_builds_on_a_mesh(outside):

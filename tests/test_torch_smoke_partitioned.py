@@ -1,9 +1,12 @@
 """Phase 24 of ``chip_smoke.py`` (``partitioned_slice``) rehearsed on the
 CPU at reduced size over ``gloo`` and the ``fake`` group, with the CUDA
-calls stubbed and the shapes of its three cells cut, for both of its
-configs: Qwen3-0.6B (its vocabulary 512, so that it splits) and
-granite-moe-1b (16 experts, so that each of the 16 data ranks of the
-``fake`` mesh holds one and the dispatch crosses by all-to-all).
+calls stubbed and the shapes of its cells cut, for its four configs:
+Qwen3-0.6B (its vocabulary 512, so that it splits), granite-moe-1b (16
+experts, so that each of the 16 data ranks of the ``fake`` mesh holds
+one and the dispatch crosses by all-to-all), mamba2-130m (its 8 heads
+whole on the 16-way ``model``, as the full config's 24 are; the conv's
+160 channels split) and recurrentgemma-9b at one period of 3 layers
+(rnn 64, split 16 ways, so that r and i are reduce-scattered).
 
 * (a) the one-rank partitioned route bit-equal to the unpartitioned one
   leaf by leaf (the logits still laid out on the mesh, every parameter,
@@ -11,7 +14,8 @@ granite-moe-1b (16 experts, so that each of the 16 data ranks of the
   around the plain versions -- equal to that route's;
 * (b) the collectives rank 0's program issues on the CPU equal to the
   dry run's on the meta device, cell by cell, granite's train and
-  prefill cells with their all-to-alls.
+  prefill cells with their all-to-alls, mamba2's ``long_500k`` beside
+  the three.
 
 In a file of its own so that parallel workers take it apart from the
 other helpers (``tests/test_torch_smoke_helpers.py``).
@@ -23,7 +27,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_serve import _smoke  # noqa: E402
-from test_torch_smoke_helpers import _Event  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
@@ -32,11 +35,13 @@ SMOKE = _smoke()
 
 # the shapes of phase 24's cells cut for the CPU, their kinds kept
 SMALL_CELLS = {"train_4k": (32, 64), "prefill_32k": (32, 128),
-               "decode_32k": (128, 256)}
-# the configs at the rehearsal's size: reduced, with Qwen3's vocabulary
-# split and one of granite's experts on each of 16 data ranks
+               "decode_32k": (128, 256), "long_500k": (1, 512)}
+# the configs at the rehearsal's size: reduced, with the vocabulary split
+# and one of granite's experts on each of 16 data ranks
 SMALL = {"qwen3-0.6b": {"vocab_size": 512},
-         "granite-moe-1b-a400m": {"vocab_size": 512, "n_experts": 16}}
+         "granite-moe-1b-a400m": {"vocab_size": 512, "n_experts": 16},
+         "mamba2-130m": {"vocab_size": 512},
+         "recurrentgemma-9b": {"vocab_size": 512}}
 
 
 def small_config(full):
@@ -68,16 +73,15 @@ def _phase_24(monkeypatch):
     monkeypatch.setattr(SMOKE, "CARD", "cpu")
     monkeypatch.setattr(SMOKE, "PART_PREFILL", (2, 24))
     monkeypatch.setattr(SMOKE, "PART_TRAIN", (2, 16))
-    monkeypatch.setattr(SMOKE, "PART_MOE_PREFILL", (2, 24))
-    monkeypatch.setattr(SMOKE, "PART_MOE_TRAIN", (2, 16))
+    for arch in ("MOE", "SSM", "RG"):
+        monkeypatch.setattr(SMOKE, f"PART_{arch}_PREFILL", (2, 24))
+        monkeypatch.setattr(SMOKE, f"PART_{arch}_TRAIN", (2, 16))
     # the CPU has no allocator peak to hold
     monkeypatch.setattr(SMOKE, "PART_PEAK_MARGIN_GB", float("inf"))
-    monkeypatch.setattr(torch.cuda, "Event", _Event)
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
-    monkeypatch.setattr(SMOKE, "traced_device_ms", lambda fn: (None, 0))
     monkeypatch.setattr(SMOKE, "start_fake_dryrun",
                         lambda arch, name, out_dir: (arch, name))
 
@@ -115,13 +119,15 @@ print("RECORDS " + json.dumps(out))
 
 
 def _small_records() -> dict:
-    """Each config's records of ``SMALL_CELLS``, both configs at once."""
+    """Each config's records of its cells of ``SMALL_CELLS``, every
+    config at once."""
     import json
     import subprocess
     import sys
     from test_torch_ranks import ROOT, env
     procs = {arch: subprocess.Popen(
-        [sys.executable, "-c", RECORDS, json.dumps(SMALL_CELLS),
+        [sys.executable, "-c", RECORDS, json.dumps(
+            {n: SMALL_CELLS[n] for n in SMOKE.part_cells(arch)}),
          json.dumps(arch), json.dumps(kw)], cwd=ROOT, env=env(), text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         for arch, kw in SMALL.items()}
@@ -141,14 +147,21 @@ def _small_records() -> dict:
     return out
 
 
-def _leaves_held(arch, steps):
-    """The logits and the cache's k, v and positions; the logits and
-    tokens of each step; parameters, both moments, the optimizer's step,
-    the gradients, the loss and the gradients' norm."""
+def _leaves_held(arch, steps, layers=None):
+    """The logits and the cache's leaves (an attention layer's k, v and
+    positions, an SSD layer's state and conv tail, an RG-LRU layer's);
+    the logits and tokens of each step; parameters, both moments, the
+    optimizer's step, the gradients, the loss and the gradients' norm."""
     cfg = small_config(get_config)(arch)
-    n_params = len(list(SMOKE.leaf_items(Model(cfg).param_defs())))
-    return {"prefill": 4, **{f"decode{i}": 2 for i in range(steps)},
-            "cache": 3, "step": 4 * n_params + 3}
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    model = Model(cfg)
+    n_params = len(list(SMOKE.leaf_items(model.param_defs())))
+    n_cache = len(list(SMOKE.leaf_items(model.make_cache(1, 1,
+                                                         abstract=True))))
+    return {"prefill": 1 + n_cache, **{f"decode{i}": 2
+                                       for i in range(steps)},
+            "cache": n_cache, "step": 4 * n_params + 3}
 
 
 def test_phase_24_one_rank_route_is_bit_equal(phase_24):
@@ -186,7 +199,7 @@ def test_phase_24_launches_are_the_unpartitioned_routes(phase_24):
     assert launches["matmul"] > (1 + SMOKE.PART_DECODE_STEPS) * (7 * n + 1)
     assert launches["bn_forward"] == launches["bn_backward"] == 0
     total = {}
-    for arch in (SMOKE.PART_ARCH, SMOKE.PART_MOE_ARCH):
+    for arch in SMOKE.PART_ARCHS:
         for part in ("one_rank", "fake"):
             for name, n_ in out[arch][part]["launches"].items():
                 total[name] = total.get(name, 0) + n_
@@ -208,7 +221,7 @@ def test_phase_24_moe_launches_are_the_unpartitioned_routes(phase_24):
     assert launches["flash_attention"] >= 2 * n
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL_CELLS))
+@pytest.mark.parametrize("cell", sorted(SMOKE.PART_CELLS))
 def test_phase_24_collectives_equal_the_dry_run(phase_24, cell):
     _, out = phase_24
     fake = out[SMOKE.PART_ARCH]["fake"][cell]
@@ -220,7 +233,7 @@ def test_phase_24_collectives_equal_the_dry_run(phase_24, cell):
     assert (fake["alias_bytes"] > 0) == (cell == "decode_32k")
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL_CELLS))
+@pytest.mark.parametrize("cell", sorted(SMOKE.PART_CELLS))
 def test_phase_24_moe_collectives_equal_the_dry_run(phase_24, cell):
     """granite's cells (held equal to the dry run's inside the phase):
     train and prefill hold whole blocks a rank and exchange them by
@@ -232,3 +245,46 @@ def test_phase_24_moe_collectives_equal_the_dry_run(phase_24, cell):
     assert kinds["reduce-scatter"] > 0
     assert fake["temp_bytes"] > 0
     assert (fake["alias_bytes"] > 0) == (cell == "decode_32k")
+
+
+RECURRENT = {"mamba2-130m": ("SSM", None), "recurrentgemma-9b": ("RG", 3)}
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_phase_24_recurrent_one_rank_route_is_bit_equal(phase_24, arch):
+    """mamba2's and recurrentgemma's (one period, 3 layers) prefill, two
+    decode steps and AdamW step under remat ``full``: every leaf
+    bit-equal on one rank, each kernel's launches equal to the
+    unpartitioned route's (held inside the phase)."""
+    _, out = phase_24
+    tag, layers = RECURRENT[arch]
+    one = out[arch]["one_rank"]
+    assert one["mesh"] == {"data": 1, "model": 1}
+    assert one["layers"] == (layers or small_config(get_config)(
+        arch).n_layers)
+    assert one["leaves_held"] == _leaves_held(
+        arch, getattr(SMOKE, f"PART_{tag}_DECODE_STEPS"), layers)
+    assert one["logits_local"] == [2, 512]
+    launches = one["launches"]
+    assert launches["matmul"] > 0 and launches["fused_add_rmsnorm"] > 0
+    assert (launches["flash_attention"] > 0) == (arch != "mamba2-130m")
+
+
+@pytest.mark.parametrize("arch,cell", [
+    (a, c) for a in sorted(RECURRENT) for c in sorted(SMALL_CELLS)
+    if c != "long_500k" or a == "mamba2-130m"])
+def test_phase_24_recurrent_collectives_equal_the_dry_run(phase_24, arch,
+                                                          cell):
+    """The recurrent configs' cells (held equal to the dry run's inside
+    the phase): recurrentgemma reduce-scatters r and i in every cell;
+    mamba2 gathers its conv weight (160 channels split 16 ways) and,
+    with its heads whole, sums no norm over ``model``; the decode cells
+    (mamba2's ``long_500k`` among them) write their caches in place."""
+    _, out = phase_24
+    fake = out[arch]["fake"][cell]
+    kinds = fake["card_read"]["collective_by_kind"]
+    assert kinds["all-gather"] > 0 and fake["temp_bytes"] > 0
+    if arch == "recurrentgemma-9b":
+        assert kinds["reduce-scatter"] > 0
+    assert (fake["alias_bytes"] > 0) == (cell in ("decode_32k",
+                                                  "long_500k"))
