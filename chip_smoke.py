@@ -345,9 +345,16 @@ what ran):
     2048, 2 decode steps, a step at 2 x 512); (b) their ``train_4k``,
     ``prefill_32k`` and ``decode_32k`` cells and mamba2's ``long_500k``
     (batch 1, its state whole on every rank; recurrentgemma's lays its
-    KV cache on the sequence, ROADMAP Queue 1 item 9).  The dry runs of
-    all thirteen cells start as phase 19 begins, each on one thread,
-    ``PART_DRYRUN_LANES`` at a time.
+    KV cache on the sequence, ROADMAP Queue 1 item 9).  whisper-tiny
+    (its encoder, cross-attention and learned positions) and pixtral-12b
+    (its 64 patches ahead of the prompt) join them (``PART_WHISPER_*``,
+    ``PART_PIXTRAL_*``), their front-end inputs seeded: (a) whisper at
+    full width and depth (prefill 2 x 384 after 1,500 frames, 2 decode
+    steps, a step at 2 x 384; LayerNorm, so no fused add+norm), pixtral
+    at full width and 4 of its 40 layers (prefill 2 x 2048 after the
+    patches, 2 decode steps, a step at 2 x 512); (b) the three cells of
+    each.  The dry runs of all nineteen cells start as phase 17 begins,
+    each on one thread, ``PART_DRYRUN_LANES`` at a time.
 
 Each phase group's seconds are printed, with its float32 GEMM launches by
 how the kernel's ring was filled (TMA or cp.async; phase 17's all on
@@ -1037,7 +1044,7 @@ def _search_and_read(study_kw, wl_kw, obj, device, backend):
     return len(res.points), len(res.pareto())
 
 
-def time_scored(label, study_kw, wl_kw, obj, device, backends, iters=3,
+def time_scored(label, study_kw, wl_kw, obj, device, backends, iters=1,
                 read_iters=None, warmup=1) -> dict:
     """One warm search's row (its tables cached by an earlier search): per
     backend of ``backends``, CUDA events around ``iters`` calls of the
@@ -1050,7 +1057,8 @@ def time_scored(label, study_kw, wl_kw, obj, device, backends, iters=3,
     warmed again (the drive and the hold have warmed it), and no search
     there is read on the numpy engine, whose reading walks 5.5M
     candidates' Pareto set on the host for 6-7 s (the cycles searches'
-    were until granite joined phase 24: the command's time limit)."""
+    were until granite joined phase 24: the command's time limit).
+    ``iters`` was 3 until whisper and pixtral joined phase 24."""
     lattice = label.startswith("lattice128")
     if lattice:
         iters = read_iters = 1
@@ -4767,8 +4775,8 @@ def serve_model(spec: Served, device, card, held, more=None) -> dict:
              f"({out['routing_unpinned']['share']})" if moe else ""))
     del chosen
 
-    # times of the kernel route, where its device time goes, and the
-    # plain route's prefill
+    # times of the kernel route and where its device time goes (the plain
+    # route's prefill went untimed for the command's time limit)
     out["times"] = time_route(prefill, step, params, prompts, gen, extras,
                               traced=False)
     batch = {"tokens": prompts, **extras}
@@ -4782,18 +4790,12 @@ def serve_model(spec: Served, device, card, held, more=None) -> dict:
     traced_shares(out["times"], out["trace"]["prefill"]["device_ms"],
                   out["trace"]["decode step"]["device_ms"])
     del last, cache, prefill, step, model, rec
-    plain = Model(cfg, impl=F.PLAIN)
-    out["plain_prefill_ms"] = cuda_ms(    # warm: it ran teacher-forced
-        lambda: plain.prefill(params, prompts, max_len, **extras), iters=1,
-        warmup=0)
-    del plain
     t = out["times"]
     print(f"  kernels route: prefill {t['prefill_ms']} ms (device "
           f"{t['prefill_device_ms']} ms, idle {t['prefill_idle']}); decode "
           f"{t['decode_ms_per_step']} ms a step ({t['tokens_per_s']} "
           f"tokens/s), device {t['decode_device_ms']} ms, idle "
-          f"{t['decode_idle']}; plain route prefill "
-          f"{out['plain_prefill_ms']} ms  [{card}]")
+          f"{t['decode_idle']}  [{card}]")
     for name, tr in out["trace"].items():
         print(f"    one {name} in the profiler's trace: device "
               f"{tr['device_ms']} ms, by part {tr['parts_ms']} ms, records "
@@ -5195,6 +5197,11 @@ DRY_SEED = 2026
 # (cell of launch/shapes.py, its batch cut to fit one card)
 DRY_CELLS = (("train_4k", 2), ("prefill_32k", 1), ("decode_32k", 8))
 DRY_DECODE_STEPS = 8
+# the CPU part of the cells (``walk_cell``), computed in a process of its
+# own while phases 20-21 use the card (``DryWalks``, started by ``main``):
+# {"run": ...}.  Inline, beside phase 24's dry runs, Qwen3's train_4k
+# walk alone took 33.8 s of the phase's 131 s on a slow machine.
+DRY_WALKS: dict = {}
 # the walker's roofline step time may exceed the measured device time by
 # this much at most: a faster reading means the count is wrong.  The
 # check is one-sided: a count that is too low always passes it.
@@ -5320,7 +5327,7 @@ def start_fake_dryrun(arch: str, shape_name: str, out_dir: str):
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape_name, "--out", out_dir], cwd=ROOT,
             stdout=log, stderr=subprocess.STDOUT,
-            # one thread: thirteen of these run beside the phases'
+            # one thread: nineteen of these run beside the phases'
             # host-bound work, and the meta device computes nothing
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                      OMP_NUM_THREADS="1"))
@@ -5404,7 +5411,8 @@ def dryrun_slice(device, card, report) -> dict:
     record of Qwen3-0.6B's ``train_4k`` on the ``fake`` backend (in its
     own process, on the CPU while the rest runs); Qwen3-0.6B at full
     width and depth on three cells cut in batch (``DRY_CELLS``,
-    ``dry_cell``); then gemma3-27b's attention layer under the
+    ``dry_cell``, their CPU part read from ``DryWalks`` where ``main``
+    started it); then gemma3-27b's attention layer under the
     hill-climb's substitution.  Returns the main-path launches and the
     kernel checks by kernel."""
     import tempfile
@@ -5412,6 +5420,10 @@ def dryrun_slice(device, card, report) -> dict:
     from repro_torch.launch.shapes import SHAPES, adjust_config
     held = Held()
     out, secs, launches = {}, {}, {}
+    t0 = time.perf_counter()
+    walks = DRY_WALKS.pop("run", None)
+    walked = walks.result() if walks else {}
+    secs["walks_wait"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         proc = start_fake_dryrun(DRY_ARCH, "train_4k", tmp)
         try:
@@ -5419,7 +5431,8 @@ def dryrun_slice(device, card, report) -> dict:
                 t0 = time.perf_counter()
                 cfg = adjust_config(get_config(DRY_ARCH), SHAPES[shape_name])
                 out[shape_name] = dry_cell(cfg, shape_name, batch, device,
-                                           card, held)
+                                           card, held,
+                                           walked.get(shape_name))
                 add_launches(launches, out[shape_name]["launches"])
                 secs[shape_name] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -5482,6 +5495,71 @@ def dry_reckoning(cfg, kind: str, batch: int, seq: int) -> dict:
     return {"state_gb": made / 1e9,
             "step_peak_gb": (peak - made) / 1e9,
             "total_gb": peak / 1e9}
+
+
+def walk_cell(cfg, kind: str, batch: int, seq: int) -> dict:
+    """The CPU part of ``dry_cell``, on the meta device: the cell's
+    ``dry_reckoning``, the walker's ``Cost`` (as a dict) and
+    ``FlopCounterMode``'s FLOPs (``walked_and_counted``), and the walk's
+    seconds."""
+    import dataclasses
+    reckoning = dry_reckoning(cfg, kind, batch, seq)
+    t0 = time.perf_counter()
+    cost, counted_flops = walked_and_counted(cfg, kind, batch, seq)
+    return {"reckoning": reckoning, "cost": dataclasses.asdict(cost),
+            "counted_flops": counted_flops,
+            "walk_s": time.perf_counter() - t0}
+
+
+def dry_walks(out_path: str) -> None:
+    """``walk_cell`` of every ``DRY_CELLS`` cell, as JSON to
+    ``out_path``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES, adjust_config
+    out = {}
+    for shape_name, batch in DRY_CELLS:
+        shape = SHAPES[shape_name]
+        cfg = adjust_config(get_config(DRY_ARCH), shape)
+        out[shape_name] = walk_cell(cfg, shape.kind, batch, shape.seq)
+    Path(out_path).write_text(json.dumps(out))
+
+
+class DryWalks:
+    """``dry_walks`` in a process of its own that sees no card, one
+    thread, in a temporary directory; ``result`` waits for it and reads
+    its JSON once.  ``stop`` (also at exit) kills a process still running
+    and removes the directory."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+        self.tmp = tempfile.mkdtemp()
+        self.path = str(Path(self.tmp, "walks.json"))
+        code = ("import sys; sys.path.insert(0, 'src'); "
+                "import chip_smoke as S; S.dry_walks(sys.argv[1])")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code, self.path], cwd=ROOT,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                 "OMP_NUM_THREADS": "1"},
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        self.walks = None
+        atexit.register(self.stop)
+
+    def result(self) -> dict:
+        if self.walks is None:
+            _, err = self.proc.communicate(timeout=PART_DRYRUN_WAIT_S)
+            check(self.proc.returncode == 0,
+                  f"phase 22's walks failed: {err[-3000:]}")
+            self.walks = json.loads(Path(self.path).read_text())
+            self.stop()
+        return self.walks
+
+    def stop(self) -> None:
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def walked_and_counted(cfg, kind: str, batch: int, seq: int):
@@ -5548,7 +5626,8 @@ def hold_dry_recorded(held, rec, label: str) -> dict:
     return got
 
 
-def dry_cell(cfg, shape_name: str, batch: int, device, card, held) -> dict:
+def dry_cell(cfg, shape_name: str, batch: int, device, card, held,
+             walked: Optional[dict] = None) -> dict:
     """One of Qwen3-0.6B's cells at full width and depth: the walker's
     roofline (``analyze`` on one card, and for train/prefill after the
     kernel's flash substitution with block skipping); the kernel route
@@ -5564,10 +5643,13 @@ def dry_cell(cfg, shape_name: str, batch: int, device, card, held) -> dict:
     row, of the plain route's from the same state (``grouped_plain``;
     training also the first step's loss within ``TRAIN_REL``); each
     kernel on the inputs the first call gave it against its plain
-    version (``hold_dry_recorded``)."""
+    version (``hold_dry_recorded``).  ``walked``: the cell's
+    ``walk_cell``, computed in a process of its own while the card
+    worked (``DryWalks``); by default here."""
     from repro_torch.core.gpu_model import PEAK_FLOPS_BF16
     from repro_torch.kernels import ops
     from repro_torch.launch import hillclimb, roofline
+    from repro_torch.launch.costmodel import Cost
     from repro_torch.launch.shapes import SHAPES
     from repro_torch.models.transformer import Model
     shape = SHAPES[shape_name]
@@ -5575,14 +5657,15 @@ def dry_cell(cfg, shape_name: str, batch: int, device, card, held) -> dict:
     label = f"{cfg.name} {shape_name} at {batch}"
     out = {"cell": shape_name, "batch": batch, "seq": seq,
            "cut": f"batch {shape.global_batch} -> {batch}"}
-    out["reckoning"] = dry_reckoning(cfg, kind, batch, seq)
+    walked = walked or walk_cell(cfg, kind, batch, seq)
+    out["reckoning"] = walked["reckoning"]
     free, _ = torch.cuda.mem_get_info()
     check(out["reckoning"]["total_gb"] * 1e9 < free, f"{label}: reckoned "
           f"{out['reckoning']['total_gb']} GB, {free / 1e9} GB free")
 
-    t0 = time.perf_counter()
-    cost, counted_flops = walked_and_counted(cfg, kind, batch, seq)
-    out["walk_s"] = time.perf_counter() - t0
+    cost = Cost(**walked["cost"])
+    counted_flops = walked["counted_flops"]
+    out["walk_s"] = walked["walk_s"]
     _, n_active = roofline.count_params(Model(cfg).param_defs())
     tokens = batch * (1 if kind == "decode" else seq)
     rec = {"roofline": roofline.analyze(cost, 1, n_active, tokens,
@@ -6078,12 +6161,27 @@ PART_RG_LAYERS = 3
 PART_RG_PREFILL = (2, 2048)
 PART_RG_DECODE_STEPS = 2
 PART_RG_TRAIN = (2, 512)
-PART_ARCHS = (PART_ARCH, PART_MOE_ARCH, PART_SSM_ARCH, PART_RG_ARCH)
-# phase 24's dry runs (``PartDryRuns``), started by ``main`` as phase 19
+# the front-end configs of the phase, their (a) shapes: whisper-tiny at
+# full width and depth (its learned positions stop at 448), pixtral-12b
+# at full width and 4 of its 40 layers (12.25 B parameters' bf16 weights
+# and gradients and float32 moments are 147 GB; 4 layers 2.43 B)
+PART_WHISPER_ARCH = "whisper-tiny"
+PART_WHISPER_PREFILL = (2, 384)   # after its 1,500 encoder frames
+PART_WHISPER_DECODE_STEPS = 2
+PART_WHISPER_TRAIN = (2, 384)
+PART_PIXTRAL_ARCH = "pixtral-12b"
+PART_PIXTRAL_LAYERS = 4
+PART_PIXTRAL_PREFILL = (2, 2048)  # after its 64 patches
+PART_PIXTRAL_DECODE_STEPS = 2
+PART_PIXTRAL_TRAIN = (2, 512)
+PART_ARCHS = (PART_ARCH, PART_MOE_ARCH, PART_SSM_ARCH, PART_RG_ARCH,
+              PART_WHISPER_ARCH, PART_PIXTRAL_ARCH)
+# phase 24's dry runs (``PartDryRuns``), started by ``main`` as phase 17
 # begins: {"runs": ...}.  Thirteen at once, as phase 22 began, slowed its
-# CPU walk 2x (train_4k's 18.5 -> 42 s); PART_DRYRUN_LANES at a time take
-# about 500 CPU seconds beside phase 19's float32 steps, which wait on the
-# card.
+# CPU walk 2x (train_4k's 18.5 -> 42 s); PART_DRYRUN_LANES at a time, from
+# phase 19 on, still ran into phase 22 with nineteen cells (its walk 33.8
+# s on a slow machine): from phase 17 on, whose float32 steps wait on the
+# card, they have two more phases' time.
 PART_DRYRUNS: dict = {}
 PART_DRYRUN_LANES = 3
 PART_DRYRUN_WAIT_S = 900
@@ -6132,18 +6230,26 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
     logits and cache, each decode step's logits (``Model.decode_step``
     on a copy of the cache) and the tokens and cache of
     ``make_serve_step``, the loss, every gradient and the updated state.
-    The unpartitioned route runs first; the partitioned route's launches
-    are counted alone and held equal to the unpartitioned route's.
+    The prefill and the step take the config's seeded front-end inputs
+    too (whisper's frames, pixtral's patches ahead of the prompt, for
+    which the cache has room).  The unpartitioned route runs first; the
+    partitioned route's launches are counted alone and held equal to
+    the unpartitioned route's, each kernel of the config's path
+    launched.
     ``layers``: the config's depth cut to that many layers (None: its
     own); ``want_on_host``: the unpartitioned route's outputs are moved
     to the host before the partitioned route runs (recurrentgemma's: its
     20.5 GB of new state and gradients beside the partitioned step's ran
-    out of the card's 80 GB in its AdamW update)."""
+    out of the card's 80 GB in its AdamW update), detached first (a host
+    copy of a parameter that requires grad keeps the card's alive
+    through its graph).  The weights are placed by copying their shards,
+    and the unplaced ones are dropped then."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
     from repro_torch.models.common import (PROD_RULES, place, tree_map,
                                            with_axis_sizes)
+    from repro_torch.models.frontends import synth_frontend_inputs
     from repro_torch.models.layers import greedy
     from repro_torch.models.transformer import Model, has_attention
     from repro_torch.optim import AdamW, constant_schedule
@@ -6158,7 +6264,11 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
                             device=device, dtype=torch.int32)
     tokens = torch.randint(0, cfg.vocab_size, (tb, ts), generator=gen,
                            device=device, dtype=torch.int32)
-    max_len = s + steps + 8
+    serve_batch = {"tokens": prompts, **synth_frontend_inputs(
+        cfg, b, generator=gen, device=device)}
+    train_batch = {"tokens": tokens, **synth_frontend_inputs(
+        cfg, tb, generator=gen, device=device)}
+    max_len = cfg.n_patches + s + steps + 8
     opt = AdamW(schedule=constant_schedule(PART_LR))
     part = Model(cfg, impl=ops.partitioned(ops, mesh, rules))
     sh = train.make_state_shardings(part, opt, rules, mesh)
@@ -6167,7 +6277,7 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
         """Prefill, decode steps and one step; their outputs."""
         out = {}
         logits, cache = serve.make_prefill_step(model, step_rules, max_len)(
-            params, {"tokens": place_batch(prompts)})
+            params, place_batch(serve_batch))
         out["prefill"] = {"logits": logits, "cache": cache}
         decode = serve.make_serve_step(model, step_rules)
         tok = greedy(logits)
@@ -6184,7 +6294,7 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
         new, metrics = train.make_train_step(
             model if step_rules else Model(cfg, impl=ops.differentiable()),
             keep, step_rules)({"params": p, "opt": opt.init(p)},
-                              {"tokens": place_batch(tokens)})
+                              place_batch(train_batch))
         out["step"] = {"state": new, "grads": keep.grads,
                        "loss": metrics["loss"],
                        "grad_norm": metrics["grad_norm"]}
@@ -6196,16 +6306,20 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
     want_launches = {k: c.launches for k, c in _counters().items()}
     if want_on_host:
         from torch.utils._pytree import tree_map as map_leaves
-        want = map_leaves(lambda t: t.cpu(), want)
+        want = map_leaves(lambda t: t.detach().cpu(), want)
     dparams = place(params, sh["params"])
-    batch_pl = train.batch_shardings(mesh, rules, {"tokens": None})
+    del params
+    torch.cuda.reset_peak_memory_stats()
     zero_counters()
-    got = run(part, dparams,
-              lambda t: place({"tokens": t}, batch_pl)["tokens"], rules)
+    got = run(part, dparams, lambda batch: place(
+        batch, train.batch_shardings(mesh, rules, batch)), rules)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     launches = {k: c.launches for k, c in _counters().items()}
-    # every kernel of the config's path: attention's where it has any
-    used = ("matmul", "fused_add_rmsnorm") + (
+    # every kernel of the config's path: the fused norm's where it norms
+    # by RMSNorm, attention's where it has any
+    used = ("matmul",) + (
+        ("fused_add_rmsnorm",) if cfg.norm_type == "rmsnorm" else ()) + (
         ("flash_attention",) if has_attention(cfg) else ())
     check(launches == want_launches and all(launches[k] > 0 for k in used),
           f"the partitioned route launched {launches}, the unpartitioned "
@@ -6215,18 +6329,22 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
     local = got["prefill"]["logits"].to_local().shape
     out = {"arch": arch, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
            "layers": cfg.n_layers, "launches": launches, "leaves_held": held,
+           "peak_gb": peak / 1e9,
            "loss": float(_whole(got["step"]["loss"])),
            "grad_norm": float(_whole(got["step"]["grad_norm"])),
            "logits_local": list(local),
            "placements": [str(p) for p in got["prefill"]["logits"]
                           .placements]}
+    front = {k: list(v.shape[1:2]) for k, v in serve_batch.items()
+             if k != "tokens"}
     print(f"  (a) {arch} ({cfg.n_layers} layers) on a one-rank "
           f"{out['mesh']} NCCL mesh: prefill "
-          f"{b} x {s}, {steps} decode steps, AdamW step {tb} x {ts} under "
+          f"{b} x {s}{f' after {front}' if front else ''}, {steps} decode "
+          f"steps, AdamW step {tb} x {ts} under "
           f"remat full, bit-equal to the unpartitioned kernel route "
           f"(leaves held {held}); loss {out['loss']}, grad_norm "
           f"{out['grad_norm']}; launches {launches} (the unpartitioned "
-          f"route's too)")
+          f"route's too); the partitioned route's peak {out['peak_gb']} GB")
     return out
 
 
@@ -6327,6 +6445,8 @@ class PartDryRuns:
                      for name in part_cells(arch)]
         self.done = {key: threading.Event() for key in self.todo}
         self.procs, self.stopped = {}, False
+        # each process's start and end, seconds after this object's
+        self.t0, self.spans = time.perf_counter(), {}
         self.lock = threading.Lock()
         for _ in range(lanes):
             threading.Thread(target=self._lane, daemon=True).start()
@@ -6348,8 +6468,10 @@ class PartDryRuns:
                 except BaseException:
                     self.done[key].set()
                     raise
+            start = time.perf_counter() - self.t0
             if isinstance(proc, subprocess.Popen):
                 proc.wait()
+            self.spans[key] = (start, time.perf_counter() - self.t0)
             self.done[key].set()
 
     def record(self, arch: str, name: str) -> dict:
@@ -6376,11 +6498,14 @@ def partitioned_slice(device, card, report) -> dict:
     """Phase 24: for Qwen3-0.6B, granite-moe-1b (``PART_MOE_ARCH``, its
     experts on ``data``), mamba2-130m and recurrentgemma-9b
     (``PART_SSM_ARCH``, ``PART_RG_ARCH``: the SSD and RG-LRU mixers),
+    whisper-tiny and pixtral-12b (``PART_WHISPER_ARCH``,
+    ``PART_PIXTRAL_ARCH``: the encoder, cross-attention, learned
+    positions and the patch prefix),
     (a) the one-rank partitioned route held bit-equal to the
     unpartitioned one, (b) rank 0's program of the 16 x 16 mesh on the
     ``fake`` group held against the dry run, whose processes ``main``
-    starts as phase 19 begins (``PART_DRYRUNS``; here, all at once, when
-    none of phases 19-23 runs).  Returns the main-path launches of all of
+    starts as phase 17 begins (``PART_DRYRUNS``; here, all at once, when
+    none of phases 17-23 runs).  Returns the main-path launches of all of
     them."""
     archs = {PART_ARCH: (PART_PREFILL, PART_DECODE_STEPS, PART_TRAIN, None),
              PART_MOE_ARCH: (PART_MOE_PREFILL, PART_MOE_DECODE_STEPS,
@@ -6388,8 +6513,14 @@ def partitioned_slice(device, card, report) -> dict:
              PART_SSM_ARCH: (PART_SSM_PREFILL, PART_SSM_DECODE_STEPS,
                              PART_SSM_TRAIN, None),
              PART_RG_ARCH: (PART_RG_PREFILL, PART_RG_DECODE_STEPS,
-                            PART_RG_TRAIN, PART_RG_LAYERS)}
-    on_host = {PART_RG_ARCH}
+                            PART_RG_TRAIN, PART_RG_LAYERS),
+             PART_WHISPER_ARCH: (PART_WHISPER_PREFILL,
+                                 PART_WHISPER_DECODE_STEPS,
+                                 PART_WHISPER_TRAIN, None),
+             PART_PIXTRAL_ARCH: (PART_PIXTRAL_PREFILL,
+                                 PART_PIXTRAL_DECODE_STEPS,
+                                 PART_PIXTRAL_TRAIN, PART_PIXTRAL_LAYERS)}
+    on_host = {PART_RG_ARCH, PART_PIXTRAL_ARCH}
     runs = PART_DRYRUNS.pop("runs", None) or PartDryRuns(
         sum(len(part_cells(arch)) for arch in PART_ARCHS))
     out, secs, waited = {}, {}, {}
@@ -6412,6 +6543,8 @@ def partitioned_slice(device, card, report) -> dict:
         out[arch]["fake"] = part
     secs["fake"] = time.perf_counter() - t0
     secs["dry_run_wait"] = waited
+    secs["dry_run_spans"] = {f"{a}/{n}": span
+                             for (a, n), span in runs.spans.items()}
     out["seconds"] = secs
     report["partitioned"] = out
     launches = {}
@@ -6647,9 +6780,12 @@ def main(argv=None) -> int:
                       (22, dryrun_slice), (23, analysis_slice),
                       (24, partitioned_slice)):
         if first in run:
-            if 24 in run and 19 <= first < 24 and not PART_DRYRUNS:
+            if 24 in run and 17 <= first < 24 and not PART_DRYRUNS:
                 # phase 24's dry runs on the CPU while the card works
                 PART_DRYRUNS["runs"] = PartDryRuns(PART_DRYRUN_LANES)
+            if 22 in run and 20 <= first < 22 and not DRY_WALKS:
+                # and phase 22's walks, away from phase 19's
+                DRY_WALKS["run"] = DryWalks()
             more.append(timed(first, fn, device, card, report))
     for entry in kernels["kernels"]:
         name = entry["name"]

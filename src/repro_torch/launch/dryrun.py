@@ -35,14 +35,14 @@ runs nothing.  The port runs nothing either:
   output bytes of every collective it issues, by kind.  Every rank runs
   the same program, so the roofline's ``collective_bytes`` is the
   chips times rank 0's (``collective_bytes_per_device``) and
-  ``t_collective_s`` is rank 0's bytes over the NVLink rate.  A cell the
-  partitioned route does not run (``models.transformer.
-  outside_partitioned``: whisper, pixtral) or whose KV cache is split on
-  the sequence or int8 (``long_500k`` and the ``--optimized`` decode
-  cells of a config with attention layers; mamba2-130m has no KV cache,
-  so its ``long_500k`` is read) keeps ``None``, with a ``"why"`` that
-  names the ROADMAP item; its ``bound`` and ``step_time_s`` are taken
-  over compute and memory.
+  ``t_collective_s`` is rank 0's bytes over the NVLink rate.  The
+  program of a train or prefill cell takes the cell's front-end inputs
+  too (whisper's frames, pixtral's patches).  A cell whose KV cache is
+  split on the sequence or int8 (``long_500k`` and the ``--optimized``
+  decode cells of a config with attention layers; mamba2-130m has no KV
+  cache, so its ``long_500k`` is read) keeps ``None``, with a ``"why"``
+  that names the ROADMAP item; its ``bound`` and ``step_time_s`` are
+  taken over compute and memory.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -68,8 +68,7 @@ from ..configs import ARCHS, get_config
 from ..kernels.forward import PLAIN
 from ..models.common import (ModelConfig, P, TensorSpec, placements,
                              tree_map, with_axis_sizes)
-from ..models.transformer import (Model, has_attention,
-                                  outside_partitioned)
+from ..models.transformer import Model, has_attention
 from ..optim.optimizers import AdamW, constant_schedule
 from . import roofline as RL
 from .costmodel import Cost, graph_cost
@@ -85,9 +84,8 @@ from .train import leaves, make_state_shardings, make_train_step
 ART_DIR = (pathlib.Path(__file__).resolve().parents[3] / "artifacts"
            / "dryrun_torch")
 
-# why a cell has no partitioned program to read: its config is outside
-# the partitioned route's slice, or its cache is split on the sequence
-# or int8 (long_500k's and the optimized decode variants)
+# why a cell has no partitioned program to read: its cache is split on
+# the sequence or int8 (long_500k's and the optimized decode variants)
 OUTSIDE = ("the partitioned route does not run this cell (ROADMAP Queue 1 "
            "{}), so nothing says what a device holds while the step runs "
            "or what crosses the interconnect; bound and step_time_s are "
@@ -284,11 +282,10 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         tokens = shape.global_batch
         training = False
     cost = step_cost(cfg, shape.kind, b, shape.seq, rules, mv, in_specs)
-    why = outside_partitioned(cfg) or (
-        "item 9, sequence-sharded and int8 KV caches"
-        if has_attention(cfg) and (rules.get("cache_seq")
-                                   or cfg.cache_dtype is not None)
-        else None)
+    why = ("item 9, sequence-sharded and int8 KV caches"
+           if has_attention(cfg) and (rules.get("cache_seq")
+                                      or cfg.cache_dtype is not None)
+           else None)
     read = None
     if why is None:
         step, inputs = local_program(cfg, shape.kind, b, shape.seq, mesh,

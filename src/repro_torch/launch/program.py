@@ -41,7 +41,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from ..kernels import ops
-from ..models.common import ModelConfig, is_placed, placed_zeros
+from ..models.common import (ModelConfig, TensorSpec, is_placed,
+                             placed_zeros)
+from ..models.frontends import frontend_input_specs
 from ..models.transformer import Model
 from ..optim.optimizers import AdamW, constant_schedule
 from .serve import make_prefill_step, make_serve_step, placed_cache
@@ -234,10 +236,14 @@ def local_program(cfg: ModelConfig, kind: str, batch: int, seq: int, mesh,
     """``(step, inputs)``: one step of ``kind`` (``train``, ``prefill``,
     ``decode``) of the global ``batch`` x ``seq`` cell on the
     partitioned route over ``mesh``, its state, batch and cache made
-    from this rank's shards on ``device``.  ``impl``: the kernels
-    (``kernel_shaped()`` on ``meta`` by default, else ``kernels.ops``);
-    ``generator`` draws the parameters and tokens on a real device
-    (``meta`` holds no values)."""
+    from this rank's shards on ``device``: a train or prefill batch
+    holds the config's front-end inputs beside the tokens (whisper's
+    frames, pixtral's patches: ``models.frontends.frontend_input_specs``),
+    a decode cache is filled to ``DECODE_ROWS_LEFT`` rows short of its
+    end.  ``impl``: the kernels (``kernel_shaped()`` on ``meta`` by
+    default, else ``kernels.ops``); ``generator`` draws the parameters,
+    tokens and front-end inputs on a real device (``meta`` holds no
+    values)."""
     device = torch.device(device)
     if impl is None:
         impl = kernel_shaped() if device.type == "meta" else ops
@@ -259,24 +265,30 @@ def local_program(cfg: ModelConfig, kind: str, batch: int, seq: int, mesh,
                             fill=lambda local: draw(local, dtype))
     params = _map2(lambda s, pair: placed(s.shape, s.dtype, pair[1]),
                    model.abstract(), shardings["params"])
-    tokens_pl = batch_shardings(mesh, rules, {"tokens": None})["tokens"][1]
-
-    def tokens(rows):
-        return placed((batch, rows), torch.int32, tokens_pl)
+    specs = {"tokens": TensorSpec((batch, 1 if kind == "decode" else seq),
+                                  torch.int32)}
+    if kind != "decode":
+        specs.update(frontend_input_specs(cfg, batch))
+    layouts = batch_shardings(mesh, rules, specs)
+    batch_in = {k: placed(s.shape, s.dtype, layouts[k][1])
+                for k, s in specs.items()}
     if kind == "train":
         p = trainable(params)
         state = {"params": p, "opt": opt.init(p)}
-        return make_train_step(model, opt, rules), (
-            state, {"tokens": tokens(seq)})
+        return make_train_step(model, opt, rules), (state, batch_in)
     if kind == "prefill":
         step = make_prefill_step(model, rules,
                                  max_len=seq + cfg.n_patches + 8)
-        return step, (params, {"tokens": tokens(seq)})
+        return step, (params, batch_in)
     cache = placed_cache(model, batch, seq, mesh, rules, device)
     for part in cache.values():
-        if "pos" in part:           # an attention layer's KV cache
-            part["pos"].fill_(seq - DECODE_ROWS_LEFT)
-    return make_serve_step(model, rules), (params, cache, tokens(1))
+        # an attention layer's KV position, or the learned positions'
+        # offset
+        pos = part.get("pos") if isinstance(part, dict) else part
+        if pos is not None:
+            pos.fill_(seq - DECODE_ROWS_LEFT)
+    return make_serve_step(model, rules), (params, cache,
+                                           batch_in["tokens"])
 
 
 def _map2(fn, tree, other):

@@ -28,8 +28,9 @@ attention run on the local shards (``_attend_placed``: one
 the KV heads they read -- where the KV heads do not divide the model
 axis, as Qwen3's 8 do not divide 16, they are whole on every rank and
 each picks its own); the flash path through the partitioned
-``impl.flash_attention``.  Cross-attention is not partitioned
-(``models/transformer.py`` refuses such configs on a mesh).
+``impl.flash_attention``.  So does cross-attention: against the
+encoder's keys (no rotary, no cache) and against the cache's
+precomputed ones (``attend_precomputed``).
 """
 from __future__ import annotations
 
@@ -171,11 +172,12 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         cache is None or fresh or int(cache["pos"]) == 0)
     norms = ((p["q_norm"], p["k_norm"]) if cfg.qk_norm and "q_norm" in p
              else None)
+    cross = kv_x is not None
     if is_placed(q):
-        out = _attend_placed(cfg, norms, q, k, v, cache, q_offset, causal,
-                             w, flash, impl)
+        out = _attend_placed(cfg, norms, q, k, v, cache, cross, q_offset,
+                             causal, w, flash, impl)
     else:
-        q, k, v, q_pos, k_pos = _prepare(cfg, norms, q, k, v, cache, kv_x,
+        q, k, v, q_pos, k_pos = _prepare(cfg, norms, q, k, v, cache, cross,
                                          q_offset, flash)
         out = _attend(cfg, q, k, v, q_pos, k_pos, causal, w, flash, impl)
     out = shard(out, rules, "batch", "seq", "act_heads", None)
@@ -201,11 +203,12 @@ def _flat(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _prepare(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
-             kv_x, q_offset, flash: bool):
+             cross: bool, q_offset, flash: bool):
     """qk-norm, rotary embeddings and the cache's append, on plain
     tensors; returns ``(q, k, v, q_pos, k_pos)``, ``k`` and ``v`` what
     the queries attend over (with a cache, its whole buffer; on the
-    flash path its fresh rows)."""
+    flash path its fresh rows).  ``cross``: ``k`` and ``v`` are another
+    sequence's (the encoder's), not rotated, at positions 0 .. T."""
     b, s = q.shape[:2]
     device = q.device
     if norms is not None:
@@ -215,7 +218,7 @@ def _prepare(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
     if cache is not None:
         q_offset = cache["pos"]
     q_pos = q_offset + torch.arange(s, device=device)
-    if kv_x is None:
+    if not cross:
         k_pos_new = q_pos
         q = rope(q, q_pos.expand(b, s), cfg.rope_theta, cfg.rope_fraction)
         k = rope(k, k_pos_new.expand(b, s), cfg.rope_theta,
@@ -272,19 +275,18 @@ def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, causal: bool, w,
 
 
 def _attend_placed(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
-                   q_offset, causal: bool, w, flash: bool, impl
+                   cross: bool, q_offset, causal: bool, w, flash: bool, impl
                    ) -> torch.Tensor:
     """``_prepare`` and ``_attend`` on the local shards of placed q, k, v
     (B, S, heads, D) and cache (its leaves updated in place, each rank
     its shard): the flash path through the partitioned
     ``impl.flash_attention``, the others with each rank's query heads
-    against the KV heads they read (``kv_heads_read``; where the KV
-    heads do not divide the mesh axis, every rank holds them all)."""
+    against the KV heads they read (``_read``)."""
     mesh = q.device_mesh
     args = (q, k, v, norms, cache)
     if flash:
         def prepared(q, k, v, norms, cache):
-            return _prepare(cfg, norms, q, k, v, cache, None, q_offset,
+            return _prepare(cfg, norms, q, k, v, cache, False, q_offset,
                             True)[:3]
         # q, k and v each reach their own output, each norm its own
         feeds = ([[0], [1], [2]] + ([[0], [1]] if norms else [[]])
@@ -294,18 +296,26 @@ def _attend_placed(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
                             feeds=feeds)
         return impl.flash_attention(q, k, v, cfg.n_heads, cfg.n_kv_heads,
                                     causal=causal, window=int(w))
-    read = kv_heads_read(shard_offset(mesh, q.placements, 2, cfg.n_heads),
-                         shard_offset(mesh, k.placements, 2, cfg.n_kv_heads),
-                         cfg.n_heads // cfg.n_kv_heads)
+    read = _read(cfg, q, k)
 
     def attended(q, k, v, norms, cache):
-        q, k, v, q_pos, k_pos = _prepare(cfg, norms, q, k, v, cache, None,
+        q, k, v, q_pos, k_pos = _prepare(cfg, norms, q, k, v, cache, cross,
                                          q_offset, False)
         if read is not None:
             k, v = k[:, :, read], v[:, :, read]
         return (_attend(cfg, q, k, v, q_pos, k_pos, causal, w, False,
                         None),)
     return on_shards(attended, mesh, None, [q.placements], *args)[0]
+
+
+def _read(cfg: ModelConfig, q, k):
+    """What this rank's query heads of placed q (B, S, H, D) read of its
+    KV heads of k (B, T, KV, D) (``kv_heads_read``: where the KV heads
+    do not divide the mesh axis, every rank holds them all)."""
+    mesh = q.device_mesh
+    return kv_heads_read(shard_offset(mesh, q.placements, 2, cfg.n_heads),
+                         shard_offset(mesh, k.placements, 2, cfg.n_kv_heads),
+                         cfg.n_heads // cfg.n_kv_heads)
 
 
 def _chunked_attention_dynwin(q, k, v, q_pos, k_pos, causal, window, block):
@@ -360,17 +370,26 @@ def attend_precomputed(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                        k: torch.Tensor, v: torch.Tensor,
                        rules: Optional[Rules], impl=ops) -> torch.Tensor:
     """Cross-attention against precomputed (encoder) K/V — no append, no
-    mask (every encoder position is valid), no rope."""
+    mask (every encoder position is valid), no rope.  On ``DTensor``s
+    (the cache's K/V laid out by ``launch.serve.cache_pspecs``) on the
+    local shards, each rank's query heads against the KV heads they
+    read."""
     b, s, _ = x.shape
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
-    q = linear(impl, x, p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
+    q = linear(impl, x, _flat(p["wq"], d, h * hd)).reshape(b, s, h, hd)
     q = shard(q, rules, "batch", "seq", "act_heads", None)
-    t = k.shape[1]
-    bias = torch.zeros((s, t), dtype=torch.float32, device=x.device)
-    out = _dense_attention(q, k, v, bias)
+    read = _read(cfg, q, k) if is_placed(q) else None
+
+    def attended(q, k, v):
+        if read is not None:
+            k, v = k[:, :, read], v[:, :, read]
+        bias = torch.zeros((q.shape[1], k.shape[1]), dtype=torch.float32,
+                           device=q.device)
+        return (_dense_attention(q, k, v, bias),)
+    out = (on_shards(attended, q.device_mesh, None, [q.placements], q, k,
+                     v) if is_placed(q) else attended(q, k, v))[0]
     out = shard(out, rules, "batch", "seq", "act_heads", None)
-    y = linear(impl, out.reshape(b, s, h * hd),
-               p["wo"].reshape(h * hd, d))
+    y = linear(impl, out.reshape(b, s, h * hd), _flat(p["wo"], h * hd, d))
     return shard(y, rules, "batch", "seq", "act_embed")
 
 

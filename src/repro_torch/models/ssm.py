@@ -138,8 +138,10 @@ class _AllSum(torch.autograd.Function):
 # The bytes of one of ``ssd_chunked``'s (B, G, L, L, H) float32 terms for
 # a group of G chunks: the chunks are taken in groups that fit it, so the
 # transient memory stays bounded at any sequence length and a group's
-# terms are a few batched ops.
-SSD_GROUP_BYTES = 1 << 28
+# terms are a few batched ops.  1 GiB (256 MiB before): mamba2-130m's
+# ``train_4k`` rows on one rank (16 x 4,096, 24 heads) take 10 chunks a
+# group (2 before), in fewer and larger ops.
+SSD_GROUP_BYTES = 1 << 30
 
 
 def ssd_chunked(xh, dt, a_log, bb, cc, chunk: int,

@@ -67,17 +67,21 @@ table, qk-norm, rotary embeddings, the cache's append and decode
 attention (``attention._attend_placed``), the cross-entropy and the
 greedy argmax over vocab-split logits (``layers.VocabParallelCE``,
 ``layers.greedy``), the MoE routing, dispatch, experts and combine with
-the experts on ``data`` and an explicit all-to-all (``moe.py``), the
-SSD mixer between its projections, each rank on its heads (``ssm.py``),
-and the RG-LRU block's conv and recurrence on its channels
-(``rglru.py``).  On the ``DTensor``s as PyTorch's sharding
-propagation lays them out: the weights' reshapes and the tied head's
-transpose, the heads' split and merge, ``unbind`` of the stacked
-layers, the MLP's activation and product, the loss's chunk slices, its
-mean (replicated, ``_replicated``) and the optimizer; the chunked loss's
-pads and concatenation run on the local shards (``_local``: PyTorch
-2.11's propagation of ``pad`` fails).  Configs outside the slice
-(``outside_partitioned``) raise on a mesh of more than one rank.
+the experts on ``data`` and an explicit all-to-all (``moe.py``), the SSD
+mixer between its projections, each rank on its heads (``ssm.py``), the
+RG-LRU block's conv and recurrence on its channels (``rglru.py``), the
+cross-attention against the encoder's or the cache's K/V, and the rows
+of a learned-position table (``_positions``: each rank cuts its shard's
+rows, which are then gathered whole).  On the ``DTensor``s as PyTorch's
+sharding propagation lays them out: the weights' reshapes and the tied
+head's transpose, the heads' split and merge, ``unbind`` of the stacked
+layers, the MLP's activation and product, the patch prefix's
+concatenation and cut, the loss's chunk slices, its mean (replicated,
+``_replicated``) and the optimizer; the chunked loss's pads and
+concatenation run on the local shards (``_local``: PyTorch 2.11's
+propagation of ``pad`` fails).  The encoder's K/V are written into the
+cache's placed ``_cross`` buffers (``_write``), laid out as
+``launch.serve.cache_pspecs`` lays them.
 """
 from __future__ import annotations
 
@@ -96,7 +100,7 @@ from . import rglru as RG
 from . import ssm as SSM
 from .common import (ModelConfig, ParamDef, Rules, TensorSpec,
                      abstract_params, init_params, is_placed, on_shards,
-                     param_count, param_specs)
+                     param_count, param_specs, shard)
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_defs,
                      embed_tokens, linear, lm_logits, mlp_defs, norm_defs)
 
@@ -115,18 +119,6 @@ def _is_moe(entry: str) -> bool:
 
 
 _MIXERS = ("attn", "mamba2", "rglru")
-
-
-def outside_partitioned(cfg: ModelConfig) -> Optional[str]:
-    """The ROADMAP item (Queue 1) that will partition what ``cfg`` has
-    and the partitioned route does not run, or None for a config in
-    its slice (decoders of attention, SSD and RG-LRU mixers with dense
-    or MoE FFNs, no front end)."""
-    if cfg.encoder_layers or cfg.learned_pos:
-        return "item 7, whisper's encoder and cross-attention"
-    if cfg.n_patches:
-        return "item 7, pixtral's patches"
-    return None
 
 
 def _check_entry(entry: str) -> None:
@@ -167,10 +159,20 @@ def add_norm(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     ``delta`` is None).  In bfloat16 it normalizes the unrounded float32
     sum, where the JAX package rounds ``x + delta`` to bfloat16 first and
     normalizes that; the sum it returns is rounded once, as there.  In
-    float32 the two are the same function."""
+    float32 the two are the same function.  LayerNorm adds and
+    normalizes in plain PyTorch; on ``DTensor``s laid out as the
+    partitioned ``fused_add_rmsnorm`` lays its stream: the sum on
+    ``("batch", "seq_resid", "act_embed")`` (a row-parallel product's
+    ``Partial`` residual reduce-scattered onto it), each rank normalizing
+    its rows, the norm gathered to ``("batch", "seq", "act_embed")``
+    once for its readers."""
     if cfg.norm_type != "rmsnorm":
         x = x if delta is None else x + delta
-        return apply_norm(cfg, p, x), x
+        if not is_placed(x):
+            return apply_norm(cfg, p, x), x
+        x = shard(x, impl.rules, "batch", "seq_resid", "act_embed")
+        return shard(apply_norm(cfg, p, x), impl.rules, "batch", "seq",
+                     "act_embed"), x
     delta = torch.zeros_like(x) if delta is None else delta
     if is_placed(x):
         # the partitioned namespace takes the (B, S, d) stream whole
@@ -255,6 +257,32 @@ def _local(fn, *ts: torch.Tensor) -> torch.Tensor:
                      [ts[0].placements], *ts)[0]
 
 
+def _positions(table: torch.Tensor, first, n: int) -> torch.Tensor:
+    """Rows ``first .. first + n`` of a learned-position table (``first``
+    an int or a 0-dim int tensor, the cache's ``pos_offset``).  On a
+    placed table each rank cuts the rows of its shard (split on
+    ``embed``), and the (n, d) rows are then gathered whole: every rank
+    adds them to its rows of the stream."""
+    def rows(tab, first):
+        return (tab[first + torch.arange(n, device=tab.device)],)
+    if not is_placed(table):
+        return rows(table, first)[0]
+    from torch.distributed.tensor import Replicate
+    mesh = table.device_mesh
+    out = on_shards(rows, mesh, None, [table.placements], table, first)[0]
+    return out.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+def _write(buf: torch.Tensor, value: torch.Tensor) -> None:
+    """``buf`` overwritten by ``value`` in place; on ``DTensor``s
+    ``value`` is laid out as ``buf`` first and each rank writes its
+    shard."""
+    if is_placed(buf):
+        value = value.redistribute(buf.device_mesh, buf.placements)
+        buf, value = buf.to_local(), value.to_local()
+    buf.copy_(value)
+
+
 def _replicated(t: torch.Tensor) -> torch.Tensor:
     """``t`` whole on every rank where it is a ``DTensor`` (a loss that
     is a mean over rows split across ranks), else ``t``."""
@@ -296,14 +324,6 @@ class Model:
     def __post_init__(self):
         for entry in self.pat:
             _check_entry(entry)
-        if isinstance(self.impl, ops.Partitioned) \
-                and self.impl.mesh.size() > 1:
-            why = outside_partitioned(self.cfg)
-            if why is not None:
-                raise NotImplementedError(
-                    f"{self.cfg.name} on a {self.impl.mesh.size()}-rank "
-                    f"mesh: the partitioned route does not run it yet "
-                    f"(ROADMAP Queue 1 {why})")
 
     # ---- structure ---------------------------------------------------------
     @property
@@ -382,7 +402,8 @@ class Model:
                rules: Optional[Rules]) -> torch.Tensor:
         cfg = self.cfg
         x = frames.to(cfg.dtype)
-        x = x + params["enc"]["pos_emb"][:x.shape[1]].to(cfg.dtype)
+        x = x + _positions(params["enc"]["pos_emb"], 0,
+                           x.shape[1]).to(cfg.dtype)
         pending = None
         remat = REMAT.wanted(cfg, None)
         for p in _unbind(params["enc"]["blk"], cfg.encoder_layers):
@@ -476,8 +497,8 @@ class Model:
         if cfg.learned_pos:
             off = cache["pos_offset"] if (cache is not None
                                           and "pos_offset" in cache) else 0
-            pos = off + torch.arange(x.shape[1], device=x.device)
-            x = x + params["pos_emb"][pos].to(cfg.dtype)
+            x = x + _positions(params["pos_emb"], off,
+                               x.shape[1]).to(cfg.dtype)
 
         enc_out = None
         if cfg.encoder_layers > 0 and frames is not None:
@@ -640,13 +661,16 @@ class Model:
 
     def _fill_cross(self, params: Dict, cache: Dict,
                     enc_out: torch.Tensor) -> Dict:
+        """Each decoder layer's cross-attention K/V of ``enc_out``,
+        written into the cache's ``_cross`` buffers in place (placed
+        ones in their own layout)."""
         cfg = self.cfg
         d, kvh, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
         b, t, _ = enc_out.shape
 
         def kv(p):
-            k = linear(self.impl, enc_out, p["wk"].reshape(d, kvh * hd))
-            v = linear(self.impl, enc_out, p["wv"].reshape(d, kvh * hd))
+            k = linear(self.impl, enc_out, ATT._flat(p["wk"], d, kvh * hd))
+            v = linear(self.impl, enc_out, ATT._flat(p["wv"], d, kvh * hd))
             return (k.reshape(b, t, kvh, hd).to(cfg.dtype),
                     v.reshape(b, t, kvh, hd).to(cfg.dtype))
 
@@ -655,14 +679,16 @@ class Model:
             if key in cache and "_cross" in cache[key]:
                 pairs = [kv(_index(params[key]["xattn"], g))
                          for g in range(self.groups)]
-                cache[key]["_cross"] = {
-                    "k": torch.stack([k for k, _ in pairs]),
-                    "v": torch.stack([v for _, v in pairs])}
+                _write(cache[key]["_cross"]["k"],
+                       torch.stack([k for k, _ in pairs]))
+                _write(cache[key]["_cross"]["v"],
+                       torch.stack([v for _, v in pairs]))
         for j in range(self.remainder):
             key = f"rem{j}"
             if key in cache and "_cross" in cache[key]:
                 k, v = kv(params[key]["xattn"])
-                cache[key]["_cross"] = {"k": k, "v": v}
+                _write(cache[key]["_cross"]["k"], k)
+                _write(cache[key]["_cross"]["v"], v)
         return cache
 
     def decode_step(self, params: Dict, tokens: torch.Tensor, cache: Dict,

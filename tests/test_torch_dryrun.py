@@ -24,8 +24,9 @@ package's (``repro.launch.dryrun``), on the CPU:
   ``launch.program.kernel_shaped``'s GEMM allocating as the wrapper;
   ``grouped_plain`` and ``kv_group``
   against the plain attention; ``walked_and_counted``'s two counts
-  equal; the whole phase (``dryrun_slice``) at reduced size with the
-  CUDA calls stubbed.
+  equal; ``dry_walks``' JSON (what ``DryWalks``' process writes) read
+  back equal to the walks made in place; the whole phase
+  (``dryrun_slice``) at reduced size with the CUDA calls stubbed.
 
 Every comparison is exact but the attention's (1e-6, float32) and
 the rehearsal's routes (1e-2).
@@ -680,6 +681,39 @@ def test_walked_and_counted_agree():
     cost, counted = SMOKE.walked_and_counted(cfg, "train", 2, 16)
     assert cost.gemm_flops == counted > 0
     assert math.isfinite(cost.bytes) and cost.bytes > 0
+
+
+def test_phase_22_walks_survive_their_json(monkeypatch, tmp_path):
+    """Phase 22's CPU part, as ``DryWalks``' process writes it
+    (``dry_walks``: every cell's ``walk_cell``, as JSON): read back, the
+    reckoning, the walker's ``Cost`` and the counted FLOPs equal
+    ``dry_reckoning``'s and ``walked_and_counted``'s (reduced Qwen3, the
+    cells cut to 32 tokens)."""
+    import dataclasses
+    import json as json_
+    import repro_torch.configs as configs
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch.costmodel import Cost
+    full = configs.get_config
+    monkeypatch.setattr(configs, "get_config",
+                        lambda arch: reduced(full(arch)))
+    for name in ("train_4k", "prefill_32k", "decode_32k"):
+        monkeypatch.setitem(SH.SHAPES, name, dataclasses.replace(
+            SH.SHAPES[name], seq=32))
+    path = tmp_path / "walks.json"
+    SMOKE.dry_walks(str(path))
+    walks = json_.loads(path.read_text())
+    assert sorted(walks) == sorted(name for name, _ in SMOKE.DRY_CELLS)
+    for name, batch in SMOKE.DRY_CELLS:
+        shape = SH.SHAPES[name]
+        cfg = SH.adjust_config(reduced(full(SMOKE.DRY_ARCH)), shape)
+        cost, counted = SMOKE.walked_and_counted(cfg, shape.kind, batch, 32)
+        got = walks[name]
+        assert Cost(**got["cost"]) == cost
+        assert got["counted_flops"] == counted == cost.gemm_flops
+        assert got["reckoning"] == SMOKE.dry_reckoning(cfg, shape.kind,
+                                                       batch, 32)
+        assert got["walk_s"] > 0
 
 
 def test_meta_peak_bytes_sees_inside_a_composite_op():

@@ -7,9 +7,10 @@ Four ``gloo`` ranks (``test_torch_ranks.run_ranks``) on a (2, 2)
 ``("data", "model")`` mesh, float32, ``PROD_RULES`` sized to it, the
 state placed by ``make_state_shardings`` and the batch by
 ``batch_shardings``; the same numpy weights and tokens
-(``test_torch_decode.numpy_params``) go through both routes and, in a
-subprocess with 4 forced host devices, through the reference's jitted
-steps on a (2, 2) mesh.  The cases:
+(``test_torch_decode.numpy_params``), and a front-end config's frames or
+patches, go through both routes and, in a subprocess with 4 forced host
+devices, through the reference's jitted steps on a (2, 2) mesh; a
+case's cache holds its patch prefix too (``max_len``).  The cases:
 
 * reduced Qwen3-0.6B with a 512-token vocabulary: every head and the
   vocabulary split on ``model``, the weights on ``data`` (FSDP);
@@ -34,13 +35,13 @@ limits of ``tests/test_torch_train.py``.  Local shapes are held too:
 Qwen3's logits stay split on the vocabulary, and no collective of its
 training step returns the vocabulary whole.
 
-Outside the slice: whisper and pixtral on a mesh of more than one rank
-raise and name their ROADMAP item (Queue 1 item 7).  The MoE configs
-build (their cases are in ``tests/test_torch_partitioned_moe.py``), and
-so do mamba2-130m and recurrentgemma-9b (``tests/
+Every config builds on a mesh of more than one rank: the MoE configs
+(their cases are in ``tests/test_torch_partitioned_moe.py``),
+mamba2-130m and recurrentgemma-9b (``tests/
 test_torch_partitioned_ssm.py``, ``tests/test_torch_partitioned_rglru
-.py``).  A ``DTensor`` handed to a kernel wrapper outside ``local_map``
-raises.
+.py``), whisper-tiny and pixtral-12b (``tests/
+test_torch_partitioned_frontends.py``).  A ``DTensor`` handed to a
+kernel wrapper outside ``local_map`` raises.
 """
 import json
 import subprocess
@@ -105,6 +106,15 @@ def flat(tree, prefix=""):
             out.update(flat(tree[k], f"{prefix}/{k}" if prefix else k))
         return out
     return {prefix: tree}
+
+
+# a case's front-end inputs (whisper's frames, pixtral's patches) beside
+# its tokens, and its cache's rows: room for the patch prefix too
+FRONT_ENDS = ("frames", "patches")
+
+
+def max_len(cfg):
+    return MAX_LEN + cfg.n_patches
 """ % (BATCH, SEQ, MAX_LEN, DECODE)
 
 # the port: each rank runs both routes and holds one against the other;
@@ -154,19 +164,21 @@ def one(name, arch, kw, mesh, rules):
     params = params_from_numpy(nested({k[2:]: data[k] for k in data.files
                                        if k.startswith("p/")}), "cpu")
     tokens = torch.from_numpy(data["tokens"])
+    batch = {"tokens": tokens, **{k: torch.from_numpy(data[k])
+                                  for k in FRONT_ENDS if k in data.files}}
     plain = Model(cfg)
     model = Model(cfg, impl=ops.partitioned(None, mesh, rules))
     opt = AdamW(schedule=cosine_schedule(1e-2, 2, 10))
     sh = train.make_state_shardings(model, opt, rules, mesh)
-    bsh = train.batch_shardings(mesh, rules, {"tokens": tokens})
+    bsh = train.batch_shardings(mesh, rules, batch)
     dparams = place(params, sh["params"])
-    dtok = place({"tokens": tokens}, bsh)
+    dtok = place(batch, bsh)
     out, err, keep = {}, {}, {}
     if not cfg.remat:
-        lw, cw = serve.make_prefill_step(plain, None, MAX_LEN)(
-            params, {"tokens": tokens})
-        lg, cg = serve.make_prefill_step(model, rules, MAX_LEN)(dparams,
-                                                                  dtok)
+        lw, cw = serve.make_prefill_step(plain, None, max_len(cfg))(
+            params, batch)
+        lg, cg = serve.make_prefill_step(model, rules, max_len(cfg))(
+            dparams, dtok)
         err["prefill"] = rel(lg, lw)
         keep["prefill"] = full(lg)
         out["logits_local"] = list(lg.to_local().shape)
@@ -197,7 +209,7 @@ def one(name, arch, kw, mesh, rules):
     state = {"params": p, "opt": opt.init(p)}
     dp = train.trainable(dparams)
     dstate = {"params": dp, "opt": opt.init(dp)}
-    lw, _ = plain.loss(p, {"tokens": tokens})
+    lw, _ = plain.loss(p, batch)
     gw = torch.autograd.grad(lw, leaves(p))
     reader = StepReader()
     with reader:
@@ -209,8 +221,7 @@ def one(name, arch, kw, mesh, rules):
     out["whole_vocab_collectives"] = sum(
         1 for _, shape in reader.calls if list(shape[-1:]) == [
             cfg.vocab_size] and np.prod(shape) >= np.prod(logits_shape) // 4)
-    new_w, _ = train.make_train_step(plain, opt, None)(state,
-                                                       {"tokens": tokens})
+    new_w, _ = train.make_train_step(plain, opt, None)(state, batch)
     new_g, _ = train.make_train_step(model, opt, rules)(dstate, dtok)
     for part, got, want in (("params", new_g["params"], new_w["params"]),
                             ("m", new_g["opt"]["m"], new_w["opt"]["m"]),
@@ -262,17 +273,22 @@ for name, (arch, kw) in CASES.items():
     data = np.load(f"{DIR}/{name}.npz")
     params = nested({k[2:]: jnp.asarray(data[k]) for k in data.files
                      if k.startswith("p/")})
-    tokens = jnp.asarray(data["tokens"])
+    batch = {"tokens": jnp.asarray(data["tokens"]),
+             **{k: jnp.asarray(data[k]) for k in FRONT_ENDS
+                if k in data.files}}
     model = Model(cfg)
     opt = AdamW(schedule=cosine_schedule(1e-2, 2, 10))
     sh = train.make_state_shardings(model, opt, rules, mesh)
-    batch_ns = {"tokens": NamedSharding(mesh, P(rules["batch"], None))}
+    batch_ns = {k: NamedSharding(mesh, P(rules["batch"],
+                                         *[None] * (v.ndim - 1)))
+                for k, v in batch.items()}
     keep = {}
     with mesh:
         if not cfg.remat:
-            prefill = jax.jit(serve.make_prefill_step(model, rules, MAX_LEN),
+            prefill = jax.jit(serve.make_prefill_step(model, rules,
+                                                      max_len(cfg)),
                               in_shardings=(sh["params"], batch_ns))
-            logits, cache = prefill(params, {"tokens": tokens})
+            logits, cache = prefill(params, batch)
             keep["prefill"] = logits
             tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
             decode = jax.jit(lambda p, t, c: model.decode_step(p, t, c,
@@ -283,13 +299,13 @@ for name, (arch, kw) in CASES.items():
                 tok = jnp.argmax(lg, -1).astype(jnp.int32)[:, None]
         state = {"params": params, "opt": opt.init(params)}
         loss, grads = jax.jit(jax.value_and_grad(
-            lambda q: model.loss(q, {"tokens": tokens}, rules)[0]),
+            lambda q: model.loss(q, batch, rules)[0]),
             in_shardings=(sh["params"],))(params)
         keep["loss"] = jnp.reshape(loss, (1,))
         keep.update({f"grads/{k}": v for k, v in flat(grads).items()})
         step = jax.jit(train.make_train_step(model, opt, rules),
                        in_shardings=(sh, batch_ns))
-        new, _ = step(state, {"tokens": tokens})
+        new, _ = step(state, batch)
         keep.update({f"params/{k}": v for k, v in flat(new["params"]).items()})
         keep.update({f"m/{k}": v for k, v in flat(new["opt"]["m"]).items()})
         keep.update({f"v/{k}": v for k, v in flat(new["opt"]["v"]).items()})
@@ -314,15 +330,22 @@ def run_cases(tmp, cases: dict, timeout: float = 240) -> list:
     for name, (arch, kw) in cases.items():
         jcfg = _jcfg(arch, kw)
         params = numpy_params(jcfg)
-        tokens = np.random.default_rng(1).integers(
-            0, jcfg.vocab_size, (BATCH, SEQ), dtype=np.int32)
+        rng = np.random.default_rng(1)
+        tokens = rng.integers(0, jcfg.vocab_size, (BATCH, SEQ),
+                              dtype=np.int32)
+        # whisper's frames and pixtral's patches, as the stub front ends
+        # give them (std 0.02)
+        front = {k: (rng.standard_normal((BATCH, n, jcfg.d_model)) * 0.02
+                     ).astype(np.float32)
+                 for k, n in (("frames", jcfg.encoder_seq),
+                              ("patches", jcfg.n_patches)) if n}
 
         def flat(tree, prefix="p"):
             if isinstance(tree, dict):
                 return {k2: v2 for k in tree
                         for k2, v2 in flat(tree[k], f"{prefix}/{k}").items()}
             return {prefix: tree}
-        np.savez(tmp / f"{name}.npz", tokens=tokens, **flat(params))
+        np.savez(tmp / f"{name}.npz", tokens=tokens, **front, **flat(params))
     encoded = json.dumps(cases)
     jax_run = subprocess.Popen(
         [sys.executable, "-c", JAX, encoded, str(tmp)], cwd=ROOT, text=True,
@@ -460,12 +483,12 @@ def outside():
     return json.loads(lines[-1][4:])
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("whisper-tiny", "whisper"),
-    ("pixtral-12b", "pixtral")])
-def test_a_config_outside_the_slice_raises_on_a_mesh(outside, arch, item):
-    assert "ROADMAP Queue 1 item 7" in outside[arch] \
-        and item in outside[arch]
+@pytest.mark.parametrize("arch", ["whisper-tiny", "pixtral-12b"])
+def test_a_front_end_config_builds_on_a_mesh(outside, arch):
+    """whisper-tiny (its encoder, cross-attention and learned positions)
+    and pixtral-12b (its patch prefix) on ``DTensor``s,
+    ``tests/test_torch_partitioned_frontends.py``."""
+    assert outside[arch] == "built"
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])

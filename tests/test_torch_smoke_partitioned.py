@@ -1,12 +1,15 @@
 """Phase 24 of ``chip_smoke.py`` (``partitioned_slice``) rehearsed on the
 CPU at reduced size over ``gloo`` and the ``fake`` group, with the CUDA
-calls stubbed and the shapes of its cells cut, for its four configs:
+calls stubbed and the shapes of its cells cut, for its six configs:
 Qwen3-0.6B (its vocabulary 512, so that it splits), granite-moe-1b (16
 experts, so that each of the 16 data ranks of the ``fake`` mesh holds
 one and the dispatch crosses by all-to-all), mamba2-130m (its 8 heads
 whole on the 16-way ``model``, as the full config's 24 are; the conv's
-160 channels split) and recurrentgemma-9b at one period of 3 layers
-(rnn 64, split 16 ways, so that r and i are reduce-scattered).
+160 channels split), recurrentgemma-9b at one period of 3 layers
+(rnn 64, split 16 ways, so that r and i are reduce-scattered),
+whisper-tiny (its 24 encoder frames, cross-attention and learned
+positions; LayerNorm) and pixtral-12b at 4 layers (its 8 patches ahead
+of the prompt).
 
 * (a) the one-rank partitioned route bit-equal to the unpartitioned one
   leaf by leaf (the logits still laid out on the mesh, every parameter,
@@ -41,7 +44,9 @@ SMALL_CELLS = {"train_4k": (32, 64), "prefill_32k": (32, 128),
 SMALL = {"qwen3-0.6b": {"vocab_size": 512},
          "granite-moe-1b-a400m": {"vocab_size": 512, "n_experts": 16},
          "mamba2-130m": {"vocab_size": 512},
-         "recurrentgemma-9b": {"vocab_size": 512}}
+         "recurrentgemma-9b": {"vocab_size": 512},
+         "whisper-tiny": {"vocab_size": 512},
+         "pixtral-12b": {"vocab_size": 512}}
 
 
 def small_config(full):
@@ -73,7 +78,7 @@ def _phase_24(monkeypatch):
     monkeypatch.setattr(SMOKE, "CARD", "cpu")
     monkeypatch.setattr(SMOKE, "PART_PREFILL", (2, 24))
     monkeypatch.setattr(SMOKE, "PART_TRAIN", (2, 16))
-    for arch in ("MOE", "SSM", "RG"):
+    for arch in ("MOE", "SSM", "RG", "WHISPER", "PIXTRAL"):
         monkeypatch.setattr(SMOKE, f"PART_{arch}_PREFILL", (2, 24))
         monkeypatch.setattr(SMOKE, f"PART_{arch}_TRAIN", (2, 16))
     # the CPU has no allocator peak to hold
@@ -288,3 +293,44 @@ def test_phase_24_recurrent_collectives_equal_the_dry_run(phase_24, arch,
         assert kinds["reduce-scatter"] > 0
     assert (fake["alias_bytes"] > 0) == (cell in ("decode_32k",
                                                   "long_500k"))
+
+
+FRONT_ENDS = {"whisper-tiny": ("WHISPER", None), "pixtral-12b": ("PIXTRAL", 4)}
+
+
+@pytest.mark.parametrize("arch", sorted(FRONT_ENDS))
+def test_phase_24_frontend_one_rank_route_is_bit_equal(phase_24, arch):
+    """whisper's (its frames through the encoder, the cross-attention
+    cache and the learned positions' offset among the leaves) and
+    pixtral's (4 layers, its patches ahead of the prompt) prefill, two
+    decode steps and AdamW step under remat ``full``: every leaf
+    bit-equal on one rank, each kernel's launches equal to the
+    unpartitioned route's (held inside the phase); whisper, a LayerNorm
+    config, launches no fused add+norm."""
+    _, out = phase_24
+    tag, layers = FRONT_ENDS[arch]
+    one = out[arch]["one_rank"]
+    assert one["mesh"] == {"data": 1, "model": 1}
+    assert one["layers"] == (layers or small_config(get_config)(
+        arch).n_layers)
+    assert one["leaves_held"] == _leaves_held(
+        arch, getattr(SMOKE, f"PART_{tag}_DECODE_STEPS"), layers)
+    assert one["logits_local"] == [2, 512]
+    launches = one["launches"]
+    assert launches["matmul"] > 0 and launches["flash_attention"] > 0
+    assert (launches["fused_add_rmsnorm"] > 0) == (arch == "pixtral-12b")
+
+
+@pytest.mark.parametrize("arch,cell", [
+    (a, c) for a in sorted(FRONT_ENDS) for c in sorted(SMOKE.PART_CELLS)])
+def test_phase_24_frontend_collectives_equal_the_dry_run(phase_24, arch,
+                                                         cell):
+    """The front-end configs' cells (held equal to the dry run's inside
+    the phase, their train and prefill steps fed frames or patches): the
+    decode cells write their caches in place, whisper's cross-attention
+    K/V only read."""
+    _, out = phase_24
+    fake = out[arch]["fake"][cell]
+    kinds = fake["card_read"]["collective_by_kind"]
+    assert kinds["all-gather"] > 0 and fake["temp_bytes"] > 0
+    assert (fake["alias_bytes"] > 0) == (cell == "decode_32k")
