@@ -344,8 +344,7 @@ what ran):
     recurrentgemma at full width and one period of 3 layers (prefill 2 x
     2048, 2 decode steps, a step at 2 x 512); (b) their ``train_4k``,
     ``prefill_32k`` and ``decode_32k`` cells and mamba2's ``long_500k``
-    (batch 1, its state whole on every rank; recurrentgemma's lays its
-    KV cache on the sequence, ROADMAP Queue 1 item 9).  whisper-tiny
+    (batch 1, its state whole on every rank).  whisper-tiny
     (its encoder, cross-attention and learned positions) and pixtral-12b
     (its 64 patches ahead of the prompt) join them (``PART_WHISPER_*``,
     ``PART_PIXTRAL_*``), their front-end inputs seeded: (a) whisper at
@@ -353,8 +352,18 @@ what ran):
     steps, a step at 2 x 384; LayerNorm, so no fused add+norm), pixtral
     at full width and 4 of its 40 layers (prefill 2 x 2048 after the
     patches, 2 decode steps, a step at 2 x 512); (b) the three cells of
-    each.  The dry runs of all nineteen cells start as phase 17 begins,
-    each on one thread, ``PART_DRYRUN_LANES`` at a time.
+    each.  KV caches split on the sequence or held in int8 join them
+    (``PART_SPLIT``, ``PART_EXTRA_CELLS``, ``PART_B_ONLY``): (a) from the
+    weights already placed, Qwen3's prefill 2 x 2048 and 2 decode steps
+    under ``--optimized``'s decode layout (int8, ``cache_seq`` on
+    ``model``) and recurrentgemma's under ``long_500k``'s rules (the
+    batch whole, ``cache_seq`` on ``data``), each attention merging its
+    partial softmaxes over a group of one and held against the
+    unpartitioned route within the serving gate, with equal launches;
+    (b) gemma3-27b's and recurrentgemma's ``long_500k`` and Qwen3's
+    ``decode_32k`` under ``--optimized``.  The dry runs of all
+    twenty-two cells start as phase 17 begins, each on one thread,
+    ``PART_DRYRUN_LANES`` at a time.
 
 Each phase group's seconds are printed, with its float32 GEMM launches by
 how the kernel's ring was filled (TMA or cp.async; phase 17's all on
@@ -4007,6 +4016,14 @@ MIXER_TRAIN_STEPS = 2
 # and recurrentgemma run make_train_step directly: train_loop takes no
 # depth and sets remat off)
 MIXER_RESUMED, MIXER_STOP_AFTER = "mamba2-130m", 1
+# the held step's rows (``hold_step``: the kernel route, the plain route
+# and the bf16-GEMM control) where fewer than the run's, for the command's
+# limit: granite and recurrentgemma at half (the whole batch before the
+# sequence-split caches joined phase 24; at 4 x 1024 granite's control
+# still fails every limit).  mamba2 keeps its 8: at 4 x 1024 its kernel
+# route's gradient norm read 1.13e-5 off the plain route's, past the 1e-5
+# limit (an H100, PR 32).
+MIXER_HELD_ROWS = {"granite-moe-1b-a400m": 4, "recurrentgemma-9b": 2}
 # warm steps the kernel route is timed over (after one), where phase 17
 # takes 3 (2 before granite joined phase 24: the command's time limit)
 MIXER_TIMED_STEPS = 1
@@ -4302,8 +4319,11 @@ def train_mixer(arch, layers, batch, seq, policy, device, card,
     params = conditioned(Model(cfg).init(
         torch.Generator(device=device).manual_seed(LLM_SEED)))
     tokens = step_batch(cfg, batch, seq, device)
-    step, rec = hold_step(cfg, params, tokens, per_step,
-                          f"{arch} training step f32{remat}")
+    held_rows = min(batch, MIXER_HELD_ROWS.get(arch, batch))
+    step, rec = hold_step(cfg, params, {k: v[:held_rows] for k, v in
+                                        tokens.items()}, per_step,
+                          f"{arch} training step f32{remat}, {held_rows} x "
+                          f"{seq}")
     out["seconds"]["held_step"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     add_launches(launches, step["launches"])
@@ -5322,10 +5342,12 @@ def start_fake_dryrun(arch: str, shape_name: str, out_dir: str):
     16 x 16 mesh in a process of its own (the ``fake`` process group it
     starts is the only default group there).  It runs on the CPU while
     the phase works on the card; its record and log go to ``out_dir``."""
+    shape_name, optimized = cell_shape(shape_name)
     with open(Path(out_dir) / "log.txt", "w") as log:
         return subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape_name, "--out", out_dir], cwd=ROOT,
+             arch, "--shape", shape_name, "--out", out_dir]
+            + ["--optimized"] * optimized, cwd=ROOT,
             stdout=log, stderr=subprocess.STDOUT,
             # one thread: nineteen of these run beside the phases'
             # host-bound work, and the meta device computes nothing
@@ -5340,7 +5362,9 @@ def fake_dryrun_record(proc, arch: str, shape_name: str,
     log = (Path(out_dir) / "log.txt").read_text()
     check(rc == 0, f"the dry run of {arch} x {shape_name} failed: "
           f"{log[-4000:]}")
-    rec = json.loads((Path(out_dir) / f"{arch}.{shape_name}.16x16.json")
+    shape, optimized = cell_shape(shape_name)
+    tag = ".opt" if optimized else ""
+    rec = json.loads((Path(out_dir) / f"{arch}.{shape}.16x16{tag}.json")
                      .read_text())
     check(rec["status"] == "ok" and rec["memory"]["argument_bytes"] > 0,
           f"the dry run of {arch} x {shape_name}: {rec}")
@@ -6186,15 +6210,43 @@ PART_DRYRUNS: dict = {}
 PART_DRYRUN_LANES = 3
 PART_DRYRUN_WAIT_S = 900
 # (b)'s cells of launch/shapes.py, each at its full global shape, and a
-# config's cells beyond them (mamba2's long_500k has no KV cache to lay
-# on the sequence)
+# config's cells beyond them: long_500k (batch 1: mamba2's has no KV
+# cache; recurrentgemma's and gemma3's lie on cache_seq = data) and
+# Qwen3's decode_32k under the dry run's --optimized (OPT: an int8 cache
+# with cache_seq on model); gemma3-27b has (b)'s cell alone (PART_B_ONLY)
+OPT = ".opt"
 PART_CELLS = ("train_4k", "prefill_32k", "decode_32k")
-PART_EXTRA_CELLS = {PART_SSM_ARCH: ("long_500k",)}
+PART_EXTRA_CELLS = {PART_SSM_ARCH: ("long_500k",),
+                    PART_RG_ARCH: ("long_500k",),
+                    PART_ARCH: ("decode_32k" + OPT,)}
+PART_B_ONLY = {"gemma3-27b": ("long_500k",)}
+# phase 24 (a)'s split layouts, served after the holds from the weights
+# (a) placed (``split_serving``): Qwen3 under --optimized's decode layout
+# (an int8 cache, its sequence on model), recurrentgemma under
+# long_500k's rules (the batch whole, the cache's sequence on data)
+PART_SPLIT = {PART_ARCH: {"label": "int8 cache, cache_seq on model",
+                          "rules": {"cache_seq": "model"},
+                          "cache_dtype": torch.int8},
+              PART_RG_ARCH: {"label": "cache_seq on data, batch whole",
+                             "rules": {"batch": None, "cache_seq": "data"},
+                             "cache_dtype": None}}
 
 
 def part_cells(arch: str) -> tuple:
-    """(b)'s cells of ``arch``."""
+    """(b)'s cells of ``arch``, an ``OPT`` name under ``--optimized``."""
+    if arch in PART_B_ONLY:
+        return PART_B_ONLY[arch]
     return PART_CELLS + PART_EXTRA_CELLS.get(arch, ())
+
+
+def part_b_archs() -> tuple:
+    """The configs of (b): (a)'s and ``PART_B_ONLY``'s."""
+    return PART_ARCHS + tuple(PART_B_ONLY)
+
+
+def cell_shape(name: str) -> tuple:
+    """``(shape name, optimized)`` of a (b) cell's name."""
+    return (name[:-len(OPT)], True) if name.endswith(OPT) else (name, False)
 # the card's peak allocated bytes of a cell, less the dry run's
 # argument_bytes + temp_bytes, in GB (phase 22's limit for its peak)
 PART_PEAK_MARGIN_GB = 0.1
@@ -6221,7 +6273,8 @@ def same_tree(label: str, got, want) -> int:
 
 def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
                          steps=PART_DECODE_STEPS, train_shape=PART_TRAIN,
-                         layers=None, want_on_host=False) -> dict:
+                         layers=None, want_on_host=False,
+                         split=None) -> dict:
     """Phase 24 (a): ``arch``'s prefill, ``steps`` decode steps and AdamW
     step (under remat ``full``) on the partitioned route over the
     one-rank ``mesh``, each held bit-equal to the unpartitioned kernel
@@ -6243,7 +6296,9 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
     out of the card's 80 GB in its AdamW update), detached first (a host
     copy of a parameter that requires grad keeps the card's alive
     through its graph).  The weights are placed by copying their shards,
-    and the unplaced ones are dropped then."""
+    and the unplaced ones are dropped then.  ``split``: a cache layout of
+    ``PART_SPLIT`` served after the holds from the same placed weights
+    (``split_serving``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
@@ -6345,12 +6400,133 @@ def one_rank_partitioned(device, mesh, arch=PART_ARCH, prefill=PART_PREFILL,
           f"(leaves held {held}); loss {out['loss']}, grad_norm "
           f"{out['grad_norm']}; launches {launches} (the unpartitioned "
           f"route's too); the partitioned route's peak {out['peak_gb']} GB")
+    if split is not None:
+        del got, want
+        torch.cuda.empty_cache()
+        out["split"] = split_serving(cfg, dparams, mesh, split, serve_batch,
+                                     steps)
+    return out
+
+
+def split_serving(cfg, dparams, mesh, layout, batch, steps) -> dict:
+    """Phase 24 (a) over a cache split on its sequence or held in int8
+    (``layout``, a ``PART_SPLIT`` entry: the rules' changes and the
+    cache's type), from the weights ``dparams`` placed on the one-rank
+    ``mesh`` (their local tensors are the whole weights, which the
+    unpartitioned route takes): the prefill of ``batch`` and ``steps``
+    decode steps on both routes, teacher-forced on the unpartitioned
+    route's greedy tokens.  The partitioned route takes the merge of
+    partial softmaxes over a group of one (``attention._attend_split``),
+    so its decode logits are held within the serving gate of phase 18:
+    ``SERVE_BF16_ROW_REL`` or ``MIXER_CONTROL_FACTOR`` times the
+    reordered-sum control's reading (the unpartitioned plain route with
+    its GEMM sums reordered, against the kernel route); its prefill
+    (the flash path over the fresh rows) and every cache leaf the prefill
+    wrote are held bit-equal, the rows of the decode steps within the
+    same gate; its launches equal the unpartitioned route's."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.common import (PROD_RULES, place, tree_map,
+                                           with_axis_sizes)
+    from repro_torch.models.layers import greedy
+    from repro_torch.models.transformer import Model
+    from repro_torch.launch.train import batch_shardings
+    t0 = time.perf_counter()
+    cfg = cfg.replace(cache_dtype=layout["cache_dtype"])
+    rules = with_axis_sizes({**PROD_RULES, **layout["rules"]}, mesh)
+    params = tree_map(lambda t: t.to_local(), dparams)
+    prompt = batch["tokens"].shape[1]
+    max_len = cfg.n_patches + prompt + steps + 8
+
+    def run(model, params, step_rules, tokens=None):
+        """The logits of the prefill and of each step, the tokens fed,
+        the cache after the prefill (a copy) and after the steps."""
+        place_batch = (lambda t: t) if step_rules is None else (
+            lambda t: place(t, batch_shardings(mesh, rules, t)))
+        logits, cache = serve.make_prefill_step(model, step_rules, max_len)(
+            params, place_batch(batch))
+        out = {"logits": [logits], "prefill_cache": tree_map(
+            lambda t: _whole(t).clone(), cache), "tokens": []}
+        for i in range(steps):
+            tok = greedy(_whole(logits)) if tokens is None else tokens[i]
+            out["tokens"].append(tok)
+            logits, cache = model.decode_step(params, place_batch(
+                {"tokens": tok[:, None]})["tokens"], cache, step_rules)
+            out["logits"].append(logits)
+        out["logits"] = [_whole(lg).float() for lg in out["logits"]]
+        out["cache"] = tree_map(_whole, cache)
+        return out
+
+    zero_counters()
+    want = run(Model(cfg), params, None)
+    torch.cuda.synchronize()
+    want_launches = {k: c.launches for k, c in _counters().items()}
+    zero_counters()
+    got = run(Model(cfg, impl=ops.partitioned(ops, mesh, rules)), dparams,
+              rules, want["tokens"])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in _counters().items()}
+    control = run(Model(cfg, impl=reordered_plain()), params, None,
+                  want["tokens"])
+    label = f"{cfg.name} {layout['label']}"
+    check(launches == want_launches and all(
+        launches[k] > 0 for k in ("matmul", "fused_add_rmsnorm",
+                                  "flash_attention")),
+          f"{label}: the partitioned route launched {launches}, the "
+          f"unpartitioned {want_launches}")
+    rels = [row_rel(g, w) for g, w in zip(got["logits"], want["logits"])]
+    ctl = [row_rel(c, w) for c, w in zip(control["logits"],
+                                         want["logits"])]
+    limit = max(SERVE_BF16_ROW_REL, MIXER_CONTROL_FACTOR * max(ctl))
+    for i, r in enumerate(rels):
+        check(r <= limit, f"{label}: logits at step {i} (0: the prefill) "
+              f"off the unpartitioned route by {r} (worst row), above "
+              f"{limit} (the reordered control reads {ctl[i]})")
+    same = [bool(torch.equal(g, w)) for g, w in zip(got["logits"],
+                                                    want["logits"])]
+    check(same[0], f"{label}: the prefill's logits differ from the "
+          f"unpartitioned route's")
+    held = same_tree(f"{label} prefill cache: ", got["prefill_cache"],
+                     want["prefill_cache"])
+    # the final cache: the prefill's rows unchanged, the steps' rows (and
+    # a recurrent state) within the gate; bit-equal leaves counted
+    leaves, equal, worst = 0, 0, 0.0
+    for name, w in leaf_items(want["cache"]):
+        g = dict(leaf_items(got["cache"]))[name]
+        leaves += 1
+        equal += bool(torch.equal(g, w))
+        last = name.split("/")[-1]
+        if last in ("k", "v", "k_scale", "v_scale"):
+            # (..., B, T, KV[, D]): the prefill's rows of T
+            dim = g.ndim - (4 if last in ("k", "v") else 3) + 1
+            rows = cfg.n_patches + prompt
+            check(torch.equal(g.narrow(dim, 0, rows), w.narrow(dim, 0, rows)),
+                  f"{label}: the steps changed the prefill's rows of "
+                  f"{name}")
+        err = float((g.double() - w.double()).norm()
+                    / w.double().norm().clamp_min(1e-30))
+        worst = max(worst, err)
+        check(err <= limit, f"{label}: cache leaf {name} off the "
+              f"unpartitioned route's by {err}, above {limit}")
+    out = {"layout": layout["label"], "launches": launches,
+           "logits_row_rel": rels, "control_row_rel": ctl, "limit": limit,
+           "logits_bit_equal": same, "prefill_cache_leaves_equal": held,
+           "cache_leaves": leaves, "cache_leaves_bit_equal": equal,
+           "cache_worst_rel": worst, "seconds": time.perf_counter() - t0}
+    print(f"  (a) {label}: prefill {tuple(batch['tokens'].shape)}, {steps} "
+          f"decode steps on the unpartitioned route's tokens, the merge "
+          f"over a group of one; logits against the unpartitioned route "
+          f"(worst row) {rels} (limit {limit}; the reordered control "
+          f"{ctl}), bit-equal {same}; the prefill's cache bit-equal "
+          f"({held} leaves), the final cache {equal} of {leaves} leaves "
+          f"bit-equal, worst {worst}; launches {launches} (the "
+          f"unpartitioned route's too); {out['seconds']} s")
     return out
 
 
 def fake_partitioned(device, card, record_of) -> dict:
     """Phase 24 (b): rank 0's program of each ``part_cells`` cell of every
-    ``PART_ARCHS`` config, ``long_500k`` and the decode and prefill cells
+    ``part_b_archs`` config, ``long_500k`` and the decode and prefill cells
     first (``train_4k``'s dry runs take longest), on the ``fake`` process
     group at world 256 with the real kernels: the allocator's peak
     against the dry run's ``argument_bytes + temp_bytes``
@@ -6359,21 +6535,25 @@ def fake_partitioned(device, card, record_of) -> dict:
     the collectives move nothing, and the command's time limit."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.dryrun import fake_world, optimized_overrides
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.program import local_program, read_step
     from repro_torch.launch.shapes import SHAPES, adjust_config, cell_rules
     from repro_torch.models.common import with_axis_sizes
-    out = {arch: {"launches": {}} for arch in PART_ARCHS}
+    out = {arch: {"launches": {}} for arch in part_b_archs()}
     with fake_world(False):
         mesh = make_production_mesh(device_type=device.type)
-        for name, arch in [(n, a) for n in ("long_500k",)
-                           + PART_CELLS[::-1] for a in PART_ARCHS
+        for name, arch in [(n, a) for n in ("long_500k", "decode_32k" + OPT)
+                           + PART_CELLS[::-1] for a in part_b_archs()
                            if n in part_cells(a)]:
             launches = out[arch]["launches"]
-            shape = SHAPES[name]
-            cfg = adjust_config(get_config(arch), shape)
-            rules = with_axis_sizes(cell_rules(shape, False, 16), mesh)
+            shape_name, optimized = cell_shape(name)
+            shape = SHAPES[shape_name]
+            rules_o, cfg_o = (optimized_overrides(arch, shape_name)[:2]
+                              if optimized else ({}, {}))
+            cfg = adjust_config(get_config(arch), shape).replace(**cfg_o)
+            rules = with_axis_sizes({**cell_rules(shape, False, 16),
+                                     **rules_o}, mesh)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated()
@@ -6431,7 +6611,7 @@ def fake_partitioned(device, card, record_of) -> dict:
 
 
 class PartDryRuns:
-    """The dry run of every ``part_cells`` cell of every ``PART_ARCHS``
+    """The dry run of every ``part_cells`` cell of every ``part_b_archs``
     config, each in a process of its own (``start_fake_dryrun``), at most
     ``lanes`` at a time (daemon threads that start the next as one ends),
     in a temporary directory.  ``stop`` (also at exit) starts no more,
@@ -6441,7 +6621,7 @@ class PartDryRuns:
         import atexit
         import tempfile
         self.tmp = tempfile.mkdtemp()
-        self.todo = [(arch, name) for arch in PART_ARCHS
+        self.todo = [(arch, name) for arch in part_b_archs()
                      for name in part_cells(arch)]
         self.done = {key: threading.Event() for key in self.todo}
         self.procs, self.stopped = {}, False
@@ -6502,8 +6682,11 @@ def partitioned_slice(device, card, report) -> dict:
     ``PART_PIXTRAL_ARCH``: the encoder, cross-attention, learned
     positions and the patch prefix),
     (a) the one-rank partitioned route held bit-equal to the
-    unpartitioned one, (b) rank 0's program of the 16 x 16 mesh on the
-    ``fake`` group held against the dry run, whose processes ``main``
+    unpartitioned one, and Qwen3's and recurrentgemma's over a cache
+    split on its sequence (``PART_SPLIT``: Qwen3's int8 too) held within
+    the serving gate, (b) rank 0's program of the 16 x 16 mesh on the
+    ``fake`` group held against the dry run (gemma3-27b's ``long_500k``
+    beside them), whose processes ``main``
     starts as phase 17 begins (``PART_DRYRUNS``; here, all at once, when
     none of phases 17-23 runs).  Returns the main-path launches of all of
     them."""
@@ -6522,14 +6705,14 @@ def partitioned_slice(device, card, report) -> dict:
                                  PART_PIXTRAL_TRAIN, PART_PIXTRAL_LAYERS)}
     on_host = {PART_RG_ARCH, PART_PIXTRAL_ARCH}
     runs = PART_DRYRUNS.pop("runs", None) or PartDryRuns(
-        sum(len(part_cells(arch)) for arch in PART_ARCHS))
-    out, secs, waited = {}, {}, {}
+        sum(len(part_cells(arch)) for arch in part_b_archs()))
+    out, secs, waited = {arch: {} for arch in part_b_archs()}, {}, {}
     for arch, (prefill, steps, train_shape, layers) in archs.items():
         t0 = time.perf_counter()
         with one_rank_mesh(device) as mesh:
-            out[arch] = {"one_rank": one_rank_partitioned(
+            out[arch]["one_rank"] = one_rank_partitioned(
                 device, mesh, arch, prefill, steps, train_shape, layers,
-                want_on_host=arch in on_host)}
+                want_on_host=arch in on_host, split=PART_SPLIT.get(arch))
         secs[f"{arch}/one_rank"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
 
@@ -6547,14 +6730,22 @@ def partitioned_slice(device, card, report) -> dict:
                              for (a, n), span in runs.spans.items()}
     out["seconds"] = secs
     report["partitioned"] = out
-    launches = {}
-    for arch in archs:
-        for part in ("one_rank", "fake"):
-            for k, n in out[arch][part]["launches"].items():
-                launches[k] = launches.get(k, 0) + n
+    launches = part_launches(out)
     print(f"partitioned phase: main-path launches {launches}; seconds "
           f"{secs}")
     return {"launches": launches}
+
+
+def part_launches(out: dict) -> dict:
+    """Phase 24's main-path launches: (a)'s partitioned routes, their
+    split layouts' and (b)'s programs."""
+    launches = {}
+    for arch in part_b_archs():
+        one = out[arch].get("one_rank", {})
+        for part in (one, one.get("split", {}), out[arch]["fake"]):
+            for k, n in part.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + n
+    return launches
 
 
 def dse_phases(device, card, report) -> dict:

@@ -37,12 +37,13 @@ runs nothing.  The port runs nothing either:
   chips times rank 0's (``collective_bytes_per_device``) and
   ``t_collective_s`` is rank 0's bytes over the NVLink rate.  The
   program of a train or prefill cell takes the cell's front-end inputs
-  too (whisper's frames, pixtral's patches).  A cell whose KV cache is
-  split on the sequence or int8 (``long_500k`` and the ``--optimized``
-  decode cells of a config with attention layers; mamba2-130m has no KV
-  cache, so its ``long_500k`` is read) keeps ``None``, with a ``"why"``
-  that names the ROADMAP item; its ``bound`` and ``step_time_s`` are
-  taken over compute and memory.
+  too (whisper's frames, pixtral's patches).  Every cell is read: a
+  decode cell whose KV cache is split on the sequence (``long_500k``,
+  whose batch of 1 puts the cache on ``cache_seq``, and the
+  ``--optimized`` decode cells, ``cache_seq`` on ``model``) merges its
+  attention's partial softmaxes across the cache's sequence axes
+  (``models/attention.py``), and an ``--optimized`` decode cell's int8
+  cache quantizes on its local rows.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -68,7 +69,7 @@ from ..configs import ARCHS, get_config
 from ..kernels.forward import PLAIN
 from ..models.common import (ModelConfig, P, TensorSpec, placements,
                              tree_map, with_axis_sizes)
-from ..models.transformer import Model, has_attention
+from ..models.transformer import Model
 from ..optim.optimizers import AdamW, constant_schedule
 from . import roofline as RL
 from .costmodel import Cost, graph_cost
@@ -84,12 +85,6 @@ from .train import leaves, make_state_shardings, make_train_step
 ART_DIR = (pathlib.Path(__file__).resolve().parents[3] / "artifacts"
            / "dryrun_torch")
 
-# why a cell has no partitioned program to read: its cache is split on
-# the sequence or int8 (long_500k's and the optimized decode variants)
-OUTSIDE = ("the partitioned route does not run this cell (ROADMAP Queue 1 "
-           "{}), so nothing says what a device holds while the step runs "
-           "or what crosses the interconnect; bound and step_time_s are "
-           "taken over compute and memory")
 # the train step's metrics: loss, ce, aux, lr, grad_norm (float32 scalars)
 TRAIN_METRICS_BYTES = 5 * 4
 
@@ -282,16 +277,10 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         tokens = shape.global_batch
         training = False
     cost = step_cost(cfg, shape.kind, b, shape.seq, rules, mv, in_specs)
-    why = ("item 9, sequence-sharded and int8 KV caches"
-           if has_attention(cfg) and (rules.get("cache_seq")
-                                      or cfg.cache_dtype is not None)
-           else None)
-    read = None
-    if why is None:
-        step, inputs = local_program(cfg, shape.kind, b, shape.seq, mesh,
-                                     rules, mv_dtype=mv)
-        read = read_step(step, *inputs)
-        del step, inputs
+    step, inputs = local_program(cfg, shape.kind, b, shape.seq, mesh, rules,
+                                 mv_dtype=mv)
+    read = read_step(step, *inputs)
+    del step, inputs
     trace_s = time.time() - t0
 
     record = {
@@ -305,24 +294,18 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "memory": {
             "argument_bytes": argument,
             "output_bytes": output,
-            "temp_bytes": None if read is None else read["temp_bytes"],
-            "alias_bytes": None if read is None else read["alias_bytes"],
+            "temp_bytes": read["temp_bytes"],
+            "alias_bytes": read["alias_bytes"],
         },
     }
-    if read is None:
-        record["memory"]["why"] = OUTSIDE.format(why)
-        record["roofline"] = {**RL.analyze(cost, chips, n_active, tokens,
-                                           training),
-                              "why": OUTSIDE.format(why)}
-    else:
-        # every rank runs rank 0's program: the global bytes are chips
-        # times its own
-        record["roofline"] = {
-            **RL.analyze(cost, chips, n_active, tokens, training,
-                         collective_bytes=chips * read["collective_bytes"],
-                         by_kind={k: chips * v for k, v in
-                                  read["collective_by_kind"].items()}),
-            "collective_bytes_per_device": read["collective_bytes"]}
+    # every rank runs rank 0's program: the global bytes are chips times
+    # its own
+    record["roofline"] = {
+        **RL.analyze(cost, chips, n_active, tokens, training,
+                     collective_bytes=chips * read["collective_bytes"],
+                     by_kind={k: chips * v for k, v in
+                              read["collective_by_kind"].items()}),
+        "collective_bytes_per_device": read["collective_bytes"]}
     return record, cost
 
 

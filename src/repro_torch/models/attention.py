@@ -31,6 +31,19 @@ each picks its own); the flash path through the partitioned
 ``impl.flash_attention``.  So does cross-attention: against the
 encoder's keys (no rotary, no cache) and against the cache's
 precomputed ones (``attend_precomputed``).
+
+A placed cache may be split on its sequence (``cache_seq``: a decode of
+one sequence puts it on ``data``, the optimized decode layout on
+``model``), on any mesh dimension, one of a single rank too
+(``_attend_split``).  Each rank then holds rows ``first .. first +
+count``: it appends the new rows that fall there (``_append_rows``,
+int8 quantized on the local rows alike), judges validity and windows
+on global positions, and takes the partial softmax of every query over
+its rows (``_partials``: the chunked path's running max, denominator
+and accumulator); the ranks merge the partials by log-sum-exp across
+the sequence's mesh dimensions (``_merge``), where the JAX package lets
+XLA partition one softmax over the split keys.  A prefill into such a
+cache attends over its fresh rows on the flash path.
 """
 from __future__ import annotations
 
@@ -44,7 +57,7 @@ from torch.utils._pytree import tree_flatten
 from ..kernels import ops
 from .common import (ModelConfig, ParamDef, Rules, TensorSpec, is_placed,
                      kv_heads_read, on_shards, shard, shard_offset)
-from .layers import linear, rms_head_norm, rope
+from .layers import _all_reduce, linear, rms_head_norm, rope
 
 NEG_INF = -1e30
 
@@ -203,12 +216,14 @@ def _flat(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _prepare(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
-             cross: bool, q_offset, flash: bool):
+             cross: bool, q_offset, flash: bool, rows=None):
     """qk-norm, rotary embeddings and the cache's append, on plain
     tensors; returns ``(q, k, v, q_pos, k_pos)``, ``k`` and ``v`` what
     the queries attend over (with a cache, its whole buffer; on the
     flash path its fresh rows).  ``cross``: ``k`` and ``v`` are another
-    sequence's (the encoder's), not rotated, at positions 0 .. T."""
+    sequence's (the encoder's), not rotated, at positions 0 .. T.
+    ``rows``: ``(first, count)``, the cache holds only those rows of the
+    sequence (a shard of a cache split on it, ``_append_rows``)."""
     b, s = q.shape[:2]
     device = q.device
     if norms is not None:
@@ -226,7 +241,9 @@ def _prepare(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
     else:
         k_pos_new = torch.arange(k.shape[1], device=device)
 
-    if cache is not None:
+    if cache is not None and rows is not None:
+        k, v, k_pos = _append_rows(cfg, cache, k, v, rows, flash)
+    elif cache is not None:
         # append at pos (decode or staged prefill); int8 caches quantize on
         # write with per-(token, kv-head) dynamic scales stored alongside
         pos = cache["pos"]
@@ -259,6 +276,60 @@ def _prepare(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
     return q, k, v, q_pos, k_pos
 
 
+def _append_rows(cfg: ModelConfig, cache: Dict, k, v, rows, flash: bool):
+    """The cache's append where it holds rows ``first .. first + count``
+    of the sequence alone (``rows``): the new rows ``pos .. pos + s``
+    that fall inside written at ``row - first`` (``_write_rows``), int8
+    quantized per (token, KV head) as ``_prepare`` does; returns ``(k, v,
+    k_pos)``: the local rows (dequantized from int8) at their global
+    positions (invalid past ``pos + s``), or on the flash path the fresh
+    rows as the cache holds them."""
+    pos, s = cache["pos"], k.shape[1]
+    first, count = rows
+    dtype = cache["k"].dtype
+    if dtype == torch.int8:
+        (k8, ks), (v8, vs) = _quantize(k), _quantize(v)
+        for name, new in (("k", k8), ("v", v8), ("k_scale", ks),
+                          ("v_scale", vs)):
+            _write_rows(cache[name], new, pos, first)
+        if not flash:
+            k8, ks = cache["k"], cache["k_scale"]
+            v8, vs = cache["v"], cache["v_scale"]
+        k = k8.to(cfg.dtype) * ks[..., None].to(cfg.dtype)
+        v = v8.to(cfg.dtype) * vs[..., None].to(cfg.dtype)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+        _write_rows(cache["k"], k, pos, first)
+        _write_rows(cache["v"], v, pos, first)
+        if not flash:
+            k, v = cache["k"], cache["v"]
+    k_pos = first + torch.arange(count, device=k.device)
+    k_pos = torch.where(k_pos < pos + s, k_pos, -10 ** 9)
+    cache["pos"].add_(s)
+    return k, v, k_pos
+
+
+def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos,
+                first: int) -> None:
+    """Rows ``pos .. pos + s`` of the sequence, ``new`` (B, s, ...),
+    written into ``buf`` (B, count, ...), which holds rows ``first ..
+    first + count``: each row that falls inside at ``row - first``, the
+    others nowhere.  ``pos`` stays on the device: a window of ``min(s,
+    count)`` local rows, its start clamped into ``buf``, holds every row
+    that falls inside; it is read, those rows replaced, and written back
+    at its own (distinct) indices, so that a row outside the new ones is
+    written its own value."""
+    s, count = new.shape[1], buf.shape[1]
+    n = min(s, count)
+    start = torch.clamp(pos - first, 0, count - n)
+    local = start + torch.arange(n, device=buf.device)
+    src = local + (first - pos)
+    inside = ((src >= 0) & (src < s)).view(1, n, *[1] * (buf.ndim - 2))
+    fresh = new.index_select(1, src.clamp(0, s - 1)).to(buf.dtype)
+    buf.index_copy_(1, local, torch.where(inside, fresh,
+                                          buf.index_select(1, local)))
+
+
 def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, causal: bool, w,
             flash: bool, impl) -> torch.Tensor:
     """The attention of ``_prepare``'s outputs: flash, dense, or chunked
@@ -283,6 +354,10 @@ def _attend_placed(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
     ``impl.flash_attention``, the others with each rank's query heads
     against the KV heads they read (``_read``)."""
     mesh = q.device_mesh
+    split = _seq_split(cache) if not cross else []
+    if split:
+        return _attend_split(cfg, norms, q, k, v, cache, q_offset, causal, w,
+                             flash, impl, split)
     args = (q, k, v, norms, cache)
     if flash:
         def prepared(q, k, v, norms, cache):
@@ -296,7 +371,7 @@ def _attend_placed(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
                             feeds=feeds)
         return impl.flash_attention(q, k, v, cfg.n_heads, cfg.n_kv_heads,
                                     causal=causal, window=int(w))
-    read = _read(cfg, q, k)
+    read = _read(cfg, mesh, q.placements, k.placements)
 
     def attended(q, k, v, norms, cache):
         q, k, v, q_pos, k_pos = _prepare(cfg, norms, q, k, v, cache, cross,
@@ -308,18 +383,122 @@ def _attend_placed(cfg: ModelConfig, norms, q, k, v, cache: Optional[Dict],
     return on_shards(attended, mesh, None, [q.placements], *args)[0]
 
 
-def _read(cfg: ModelConfig, q, k):
-    """What this rank's query heads of placed q (B, S, H, D) read of its
-    KV heads of k (B, T, KV, D) (``kv_heads_read``: where the KV heads
-    do not divide the mesh axis, every rank holds them all)."""
-    mesh = q.device_mesh
-    return kv_heads_read(shard_offset(mesh, q.placements, 2, cfg.n_heads),
-                         shard_offset(mesh, k.placements, 2, cfg.n_kv_heads),
+def _seq_split(cache: Optional[Dict]) -> list:
+    """The mesh dimensions whose placements split a placed cache's
+    sequence (dimension 1 of a layer's (B, T, KV, D) keys), one-rank
+    dimensions included; ``[]`` for a whole sequence or no cache."""
+    if cache is None or not is_placed(cache["k"]):
+        return []
+    from torch.distributed.tensor import Shard
+    return [i for i, p in enumerate(cache["k"].placements)
+            if isinstance(p, Shard) and p.dim == 1]
+
+
+def _attend_split(cfg: ModelConfig, norms, q, k, v, cache: Dict, q_offset,
+                  causal: bool, w, flash: bool, impl, split: list
+                  ) -> torch.Tensor:
+    """``_attend_placed`` over a cache whose sequence is split on the mesh
+    dimensions ``split``.  The fresh k and v are made whole there, laid
+    out as the cache's rows otherwise, and each rank appends the new rows
+    that fall in its shard (``_append_rows``).  A prefill's flash path
+    attends over the fresh rows.  Otherwise the query heads are made
+    whole there too, each rank takes the partial softmax of every query
+    over its rows (``_partials``: the running max, denominator and
+    accumulator, in float32) and the ranks merge them by log-sum-exp
+    across ``split`` (``_merge``), each group of one rank too; the output
+    is laid out as the queries were gathered (``attention`` then keeps
+    each rank's heads, which moves nothing)."""
+    from torch.distributed.tensor import Replicate
+    mesh, ck = q.device_mesh, cache["k"]
+
+    def whole(pl):
+        return tuple(Replicate() if i in split else p
+                     for i, p in enumerate(pl))
+    kv_pl = whole(ck.placements)
+    rows = shard_offset(mesh, ck.placements, 1, ck.shape[1])
+    rest = [None] * (len(tree_flatten((norms, cache))[0]))
+    args = (q, k, v, norms, cache)
+    if flash:
+        def prepared(q, k, v, norms, cache):
+            return _prepare(cfg, norms, q, k, v, cache, False, q_offset,
+                            True, rows)[:3]
+        q, k, v = on_shards(prepared, mesh, [None, kv_pl, kv_pl] + rest,
+                            [q.placements, kv_pl, kv_pl], *args)
+        return impl.flash_attention(q, k, v, cfg.n_heads, cfg.n_kv_heads,
+                                    causal=causal, window=int(w))
+    q_pl = whole(q.placements)
+    read = _read(cfg, mesh, q_pl, ck.placements)
+    groups = [mesh.get_group(i) for i in split]
+    t, dense = ck.shape[1], cfg.dense_attn_max_seq
+
+    def max_all(x):
+        for g in groups:
+            x = _all_reduce(x, "max", g)
+        return x
+
+    def sum_all(x):
+        for g in groups:
+            x = _all_reduce(x, "sum", g)
+        return x
+
+    def attended(q, k, v, norms, cache):
+        q, k, v, q_pos, k_pos = _prepare(cfg, norms, q, k, v, cache, False,
+                                         q_offset, False, rows)
+        if read is not None:
+            k, v = k[:, :, read], v[:, :, read]
+        s = q.shape[1]
+        one_block = s == 1 or (s <= dense and t <= dense)
+        parts = _partials(q, k, v, q_pos, k_pos, causal, w,
+                          k.shape[1] if one_block else cfg.attn_block)
+        return (_heads_last(_merge(*parts, max_all, sum_all), q),)
+    return on_shards(attended, mesh, [q_pl, kv_pl, kv_pl] + rest, [q_pl],
+                     *args)[0]
+
+
+def _merge(m, l, acc, max_all, sum_all) -> torch.Tensor:
+    """Softmax-weighted sums from partials ``(m, l, acc)`` over parts of
+    the keys: ``max_all`` and ``sum_all`` reduce a tensor across the
+    parts (all-reduces across ranks).  Each part's denominator and
+    accumulator are rescaled to the global max and summed (the
+    denominator beside the accumulator, one reduction), then divided.  A
+    part whose keys are all masked (``m`` at ``NEG_INF``) adds exact
+    zeros where another part holds a key; where none does, the whole
+    softmax is as uniform as the unsplit one's."""
+    top = max_all(m)
+    corr = torch.exp(m - top)
+    both = sum_all(torch.cat([acc * corr[..., None], (l * corr)[..., None]],
+                             -1))
+    return both[..., :-1] / torch.clamp_min(both[..., -1:], 1e-30)
+
+
+def _heads_last(out: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(B, KV, groups, S, D) weighted sums as q's (B, S, H, D), in q's
+    type."""
+    b, s, h, d = q.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def _read(cfg: ModelConfig, mesh, q_pl, k_pl):
+    """What this rank's query heads of q (B, S, H, D) placed by ``q_pl``
+    read of its KV heads of k (B, T, KV, D) placed by ``k_pl``
+    (``kv_heads_read``: where the KV heads do not divide the mesh axis,
+    every rank holds them all)."""
+    return kv_heads_read(shard_offset(mesh, q_pl, 2, cfg.n_heads),
+                         shard_offset(mesh, k_pl, 2, cfg.n_kv_heads),
                          cfg.n_heads // cfg.n_kv_heads)
 
 
 def _chunked_attention_dynwin(q, k, v, q_pos, k_pos, causal, window, block):
     """Chunked attention where ``window`` may be a tensor scalar."""
+    m, l, acc = _partials(q, k, v, q_pos, k_pos, causal, window, block)
+    return _heads_last(acc / torch.clamp_min(l[..., None], 1e-30), q)
+
+
+def _partials(q, k, v, q_pos, k_pos, causal, window, block):
+    """``(m, l, acc)``: the running max (B, KV, groups, S), denominator
+    and accumulator (B, KV, groups, S, D) of each query's softmax over
+    the keys, taken ``block`` keys at a time, in float32 (float64 for
+    float64 inputs)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     kvh = k.shape[2]
@@ -343,27 +522,24 @@ def _chunked_attention_dynwin(q, k, v, q_pos, k_pos, causal, window, block):
         ok &= dk >= 0
         return torch.where(ok, 0.0, NEG_INF)
 
-    m = torch.full((b, kvh, groups, s), NEG_INF, dtype=torch.float32,
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    m = torch.full((b, kvh, groups, s), NEG_INF, dtype=acc_t,
                    device=q.device)
-    l = torch.zeros((b, kvh, groups, s), dtype=torch.float32,
-                    device=q.device)
-    acc = torch.zeros((b, kvh, groups, s, d), dtype=torch.float32,
-                      device=q.device)
+    l = torch.zeros((b, kvh, groups, s), dtype=acc_t, device=q.device)
+    acc = torch.zeros((b, kvh, groups, s, d), dtype=acc_t, device=q.device)
     for i in range(nblk):
         sl = slice(i * block, (i + 1) * block)
         kc, vc, pc = k[:, sl], v[:, sl], k_pos[sl]
-        logits = torch.einsum("bskgd,btkd->bkgst", qg, kc).float()
+        logits = torch.einsum("bskgd,btkd->bkgst", qg, kc).to(acc_t)
         logits = logits * scale + bias_fn(pc)
         m_new = torch.maximum(m, logits.amax(-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bkgst,btkd->bkgsd", p.to(q.dtype), vc).float()
+            "bkgst,btkd->bkgsd", p.to(q.dtype), vc).to(acc_t)
         m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
-    return out.to(q.dtype)
+    return m, l, acc
 
 
 def attend_precomputed(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -378,7 +554,8 @@ def attend_precomputed(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
     q = linear(impl, x, _flat(p["wq"], d, h * hd)).reshape(b, s, h, hd)
     q = shard(q, rules, "batch", "seq", "act_heads", None)
-    read = _read(cfg, q, k) if is_placed(q) else None
+    read = (_read(cfg, q.device_mesh, q.placements, k.placements)
+            if is_placed(q) else None)
 
     def attended(q, k, v):
         if read is not None:

@@ -26,7 +26,8 @@ The partitioned route's helpers (``kernels.ops.partitioned``): ``layout``
 (logical axes and a shape to ``local_map`` placements), ``on_shards``
 (a function on the local shards, with the placements of its inputs'
 gradients), ``shard_offset`` and ``kv_heads_read`` (what a rank holds and
-what its query heads read), ``placed_zeros`` and ``place`` (``DTensor``s
+what its query heads read), ``summed`` (``Partial`` placements made
+whole), ``placed_zeros`` and ``place`` (``DTensor``s
 made from local shards, or distributed from whole tensors).
 """
 from __future__ import annotations
@@ -321,6 +322,16 @@ def shard_offset(mesh, pl, dim: int, size: int) -> Tuple[int, int]:
             count //= mesh.size(i)
             first += mesh.get_local_rank(i) * count
     return first, count
+
+
+def summed(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` with its ``Partial`` placements summed (made whole
+    there), as a ``local_map`` region that is not linear in it must read
+    it."""
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p.is_partial() else p for p in t.placements]
+    return t if pl == list(t.placements) else t.redistribute(
+        t.device_mesh, pl)
 
 
 def kv_heads_read(q_heads: Tuple[int, int], kv_heads: Tuple[int, int],

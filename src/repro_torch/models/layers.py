@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .common import (ModelConfig, ParamDef, Rules, is_placed, on_shards,
-                     shard, shard_offset)
+                     shard, shard_offset, summed)
 
 
 def linear(impl, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -251,6 +251,8 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
     rows."""
     if not is_placed(logits):
         return _ce(logits, targets)
+    # with the batch whole, the head's FSDP-split product is Partial
+    logits = summed(logits)
     groups, first = _vocab_split(logits)
     out = _whole_vocab(logits)
 

@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .common import (ModelConfig, ParamDef, Rules, is_placed, on_shards,
-                     shard_offset)
+                     shard_offset, summed)
 from .layers import linear
 from .ssm import _causal_conv, _wait
 
@@ -100,6 +100,10 @@ def apply_rglru(cfg: ModelConfig, p: Dict, u: torch.Tensor,
     h0 = None if state is None else state["h"]
     placed = is_placed(u)
     if placed:
+        # with the batch whole (a cell of one sequence), the FSDP-split
+        # input products come out Partial on data: the conv state and the
+        # gates must see their sums
+        x, gate = summed(x), summed(gate)
         x = _conv_placed(x, p["conv_w"], conv_state)
     else:
         x = _conv(x, p["conv_w"], conv_state, 0, ())

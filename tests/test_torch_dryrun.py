@@ -6,7 +6,7 @@ package's (``repro.launch.dryrun``), on the CPU:
   (qwen3-0.6b, granite-moe-1b: reduced in width and depth, the cell's
   adjustments kept) for ``train_4k``, ``prefill_32k`` and ``decode_32k``
   on both production meshes gives the reference's record keys (less the
-  XLA-only ``xla_*_body_once``, plus a ``"why"`` beside each ``None``),
+  XLA-only ``xla_*_body_once``),
   an ``argument_bytes`` equal to the sum of every input leaf's local
   shard (shape over the product of its mesh axes, reckoned here from the
   specs), the walker's FLOPs and bytes in the roofline, and ``main``
@@ -318,17 +318,29 @@ def test_qwen3_cells_read_the_partitioned_step(partitioned, shape):
 
 
 def test_a_cell_outside_the_slice_keeps_none(partitioned):
-    """recurrentgemma-9b's ``long_500k`` lays its local attention's KV
-    cache on ``cache_seq`` (batch 1 does not split over 16 data ranks):
-    the sequence-sharded cache is ROADMAP Queue 1 item 9.  (mamba2-130m's
-    ``long_500k`` has no KV cache and is read:
-    ``tests/test_torch_dryrun_recurrent.py``.)"""
+    """recurrentgemma-9b's ``long_500k``, once outside the partitioned
+    route, now reads it: batch 1 does not split over 16 data ranks, so
+    its local attention's KV cache lies on ``cache_seq`` = ``data``
+    (32,768 of 524,288 rows a rank, the one KV head whole) and the
+    attention merges its partial softmaxes across ``data``.  The alias
+    is that cache, in closed form: 12 attention layers' K and V (head_dim
+    256, bfloat16) and positions, and 26 RG-LRU layers' states (4,096
+    channels split 16 ways) and conv tails (3 x 4,096, whole), float32.
+    (More such cells: ``tests/test_torch_dryrun_cache.py``.)"""
     rec = partitioned["recurrentgemma"]
-    assert rec["memory"]["temp_bytes"] is None
-    assert rec["roofline"]["t_collective_s"] is None
-    for part in (rec["memory"], rec["roofline"]):
-        assert ("ROADMAP Queue 1 item 9, sequence-sharded and int8 KV "
-                "caches") in part["why"]
+    mem, roof = rec["memory"], rec["roofline"]
+    assert "why" not in mem and "why" not in roof
+    assert isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] > 0
+    cfg = get_config("recurrentgemma-9b")
+    kinds = cfg.layer_kinds()
+    assert (kinds.count("attn"), kinds.count("rglru")) == (12, 26)
+    rows = 524288 // 16
+    assert mem["alias_bytes"] == (
+        12 * (2 * rows * cfg.hd * 2 + 4)
+        + 26 * (cfg.rnn_width // 16 + 3 * cfg.rnn_width) * 4)
+    assert roof["collective_by_kind"]["all-reduce"] > 0
+    assert roof["t_collective_s"] == pytest.approx(
+        roof["collective_bytes_per_device"] / 450e9, rel=1e-12)
 
 
 def test_fsdp_product_collectives_have_the_closed_form(partitioned):
@@ -386,11 +398,16 @@ COLLECTIVE = re.compile(r"(all-reduce|all-gather|reduce-scatter|"
                         r"all-to-all|collective-permute)(-start)?\(")
 
 out = {}
-for name, (b, s) in cells.items():
-    shape = dataclasses.replace(SHAPES[name], global_batch=b, seq=s)
+for name, (b, s, *variant) in cells.items():
+    variant = variant[0] if variant else {}
+    shape = dataclasses.replace(SHAPES[variant.get("shape", name)],
+                                global_batch=b, seq=s)
     cfg = adjust_config(reduced(get_config(arch)), shape).replace(
         dtype=jnp.float32, **kw)
-    rules = with_axis_sizes(cell_rules(shape, False, 2), mesh)
+    if variant.get("int8"):
+        cfg = cfg.replace(cache_dtype=jnp.int8)
+    rules = with_axis_sizes({**cell_rules(shape, False, 2),
+                             **variant.get("rules", {})}, mesh)
     model = Model(cfg)
     params_abs, pspecs = model.abstract(), model.specs(rules)
     params_ns = _tree_ns(mesh, pspecs)
@@ -472,11 +489,16 @@ def counted(module, fn_name, part):
 counted(MOE, "apply_moe", "moe")
 counted(SSM, "apply_ssm", "ssm")
 counted(RG, "apply_rglru", "rglru")
-for name, (b, s) in cells.items():
-    shape = dataclasses.replace(SHAPES[name], global_batch=b, seq=s)
+for name, (b, s, *variant) in cells.items():
+    variant = variant[0] if variant else {}
+    shape = dataclasses.replace(SHAPES[variant.get("shape", name)],
+                                global_batch=b, seq=s)
     cfg = adjust_config(reduced(get_config(arch)), shape).replace(
         dtype=torch.float32, **kw)
-    rules = with_axis_sizes(cell_rules(shape, False, 2), mesh)
+    if variant.get("int8"):
+        cfg = cfg.replace(cache_dtype=torch.int8)
+    rules = with_axis_sizes({**cell_rules(shape, False, 2),
+                             **variant.get("rules", {})}, mesh)
     step, inputs = program.local_program(cfg, shape.kind, b, s, mesh, rules)
     for part in inside.values():
         part.clear()

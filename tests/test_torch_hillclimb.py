@@ -296,3 +296,9 @@ def test_main_over_qwen3_decode_on_the_fake_backend():
     assert set(arg) == {"baseline", "cache2d", "cache2d+int8kv"}
     assert arg["cache2d+int8kv"] < arg["cache2d"] < arg["baseline"]
     assert all(r["status"] == "ok" for r in recs.values())
+    # every variant reads rank 0's program, the two with the cache's
+    # sequence on model too: temp bytes and a collective term
+    for r in recs.values():
+        assert isinstance(r["memory"]["temp_bytes"], int)
+        assert r["memory"]["temp_bytes"] > 0
+        assert r["roofline"]["t_collective_s"] > 0

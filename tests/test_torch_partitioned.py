@@ -91,12 +91,19 @@ def nested(flat):
 
 def layout(kw):
     # a case's mesh (shape and axis names: kw["mesh"], (2, 2) by default;
-    # three axes are ("pod", "data", "model") under the multi-pod rules)
-    # and its config changes
+    # three axes are ("pod", "data", "model") under the multi-pod rules),
+    # its serving layout (CASE_KEYS: "rules", changes to the production
+    # rules, a list naming a tuple of mesh axes; "batch"; "max_len", the
+    # cache's rows; "int8", an int8 cache) and its config changes
     kw = dict(kw)
     shape = tuple(kw.pop("mesh", (2, 2)))
     names = ("pod", "data", "model")[-len(shape):]
-    return shape, names, kw
+    rules = {k: tuple(v) if isinstance(v, list) else v
+             for k, v in kw.pop("rules", {}).items()}
+    extra = {"rules": rules, "batch": kw.pop("batch", BATCH),
+             "max_len": kw.pop("max_len", MAX_LEN),
+             "int8": kw.pop("int8", False)}
+    return shape, names, kw, extra
 
 
 def flat(tree, prefix=""):
@@ -113,8 +120,8 @@ def flat(tree, prefix=""):
 FRONT_ENDS = ("frames", "patches")
 
 
-def max_len(cfg):
-    return MAX_LEN + cfg.n_patches
+def max_len(cfg, extra):
+    return extra["max_len"] + cfg.n_patches
 """ % (BATCH, SEQ, MAX_LEN, DECODE)
 
 # the port: each rank runs both routes and holds one against the other;
@@ -157,9 +164,11 @@ def rel(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def one(name, arch, kw, mesh, rules):
+def one(name, arch, kw, mesh, rules, extra):
     cfg = reduced(get_config(arch)).replace(dtype=torch.float32,
                                             **{"remat": False, **kw})
+    if extra["int8"]:
+        cfg = cfg.replace(cache_dtype=torch.int8)
     data = np.load(f"{DIR}/{name}.npz")
     params = params_from_numpy(nested({k[2:]: data[k] for k in data.files
                                        if k.startswith("p/")}), "cpu")
@@ -175,14 +184,16 @@ def one(name, arch, kw, mesh, rules):
     dtok = place(batch, bsh)
     out, err, keep = {}, {}, {}
     if not cfg.remat:
-        lw, cw = serve.make_prefill_step(plain, None, max_len(cfg))(
+        lw, cw = serve.make_prefill_step(plain, None, max_len(cfg, extra))(
             params, batch)
-        lg, cg = serve.make_prefill_step(model, rules, max_len(cfg))(
+        lg, cg = serve.make_prefill_step(model, rules, max_len(cfg, extra))(
             dparams, dtok)
         err["prefill"] = rel(lg, lw)
         keep["prefill"] = full(lg)
         out["logits_local"] = list(lg.to_local().shape)
         out["logits_pl"] = [str(p) for p in lg.placements]
+        out["cache_k_local"] = [list(leaf.to_local().shape) for key, leaf
+                                in flat(cg).items() if key.endswith("/k")]
         step_w = serve.make_serve_step(plain, None)
         step_g = serve.make_serve_step(model, rules)
         tw = torch.argmax(lw, -1).to(torch.int32)[:, None]
@@ -240,11 +251,12 @@ def one(name, arch, kw, mesh, rules):
 def main(rank, world):
     out = {}
     for name, (arch, kw) in CASES.items():
-        shape, names, kw = layout(kw)
+        shape, names, kw, extra = layout(kw)
         mesh = make_mesh(shape, names, device_type="cpu")
-        rules = with_axis_sizes(multipod(PROD_RULES) if "pod" in names
-                                else PROD_RULES, mesh)
-        out[name] = one(name, arch, kw, mesh, rules)
+        rules = with_axis_sizes({**(multipod(PROD_RULES) if "pod" in names
+                                    else PROD_RULES), **extra["rules"]},
+                                mesh)
+        out[name] = one(name, arch, kw, mesh, rules, extra)
     return out
 """
 
@@ -264,12 +276,14 @@ from repro.optim.optimizers import AdamW, cosine_schedule
 
 DIR = sys.argv[2]
 for name, (arch, kw) in CASES.items():
-    shape, names, kw = layout(kw)
+    shape, names, kw, extra = layout(kw)
     mesh = make_mesh(shape, names)
-    rules = with_axis_sizes(multipod(PROD_RULES) if "pod" in names
-                            else PROD_RULES, mesh)
+    rules = with_axis_sizes({**(multipod(PROD_RULES) if "pod" in names
+                                else PROD_RULES), **extra["rules"]}, mesh)
     cfg = reduced(get_config(arch)).replace(dtype=jnp.float32,
                                             **{"remat": False, **kw})
+    if extra["int8"]:
+        cfg = cfg.replace(cache_dtype=jnp.int8)
     data = np.load(f"{DIR}/{name}.npz")
     params = nested({k[2:]: jnp.asarray(data[k]) for k in data.files
                      if k.startswith("p/")})
@@ -285,14 +299,31 @@ for name, (arch, kw) in CASES.items():
     keep = {}
     with mesh:
         if not cfg.remat:
+            # a case that lays its cache out names it by the reference's
+            # dry run's _cache_pspecs (imported after the mesh: that module
+            # sets XLA_FLAGS)
+            laid = {}
+            if extra["rules"]:
+                from repro.launch.dryrun import _cache_pspecs
+                cache_ns = jax.tree_util.tree_map(
+                    lambda p: NamedSharding(mesh, p), _cache_pspecs(
+                        model, model.make_cache(extra["batch"], max_len(
+                            cfg, extra), abstract=True), rules),
+                    is_leaf=lambda x: isinstance(x, P))
+                laid = {"prefill": {"out_shardings": (None, cache_ns)},
+                        "decode": {"in_shardings": (
+                            sh["params"], batch_ns["tokens"], cache_ns),
+                            "out_shardings": (None, cache_ns)}}
             prefill = jax.jit(serve.make_prefill_step(model, rules,
-                                                      max_len(cfg)),
-                              in_shardings=(sh["params"], batch_ns))
+                                                      max_len(cfg, extra)),
+                              in_shardings=(sh["params"], batch_ns),
+                              **laid.get("prefill", {}))
             logits, cache = prefill(params, batch)
             keep["prefill"] = logits
             tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
             decode = jax.jit(lambda p, t, c: model.decode_step(p, t, c,
-                                                               rules))
+                                                               rules),
+                             **laid.get("decode", {}))
             for i in range(DECODE):
                 lg, cache = decode(params, tok, cache)
                 keep[f"decode{i}"] = lg
@@ -315,9 +346,13 @@ print("JAX done")
 """
 
 
+# a case's keys besides its config changes (``layout``)
+CASE_KEYS = ("mesh", "rules", "batch", "max_len", "int8")
+
+
 def _jcfg(arch, kw):
     import jax.numpy as jnp
-    kw = {k: v for k, v in kw.items() if k != "mesh"}
+    kw = {k: v for k, v in kw.items() if k not in CASE_KEYS}
     return jreduced(jget_config(arch)).replace(dtype=jnp.float32,
                                                **{"remat": False, **kw})
 
@@ -331,11 +366,12 @@ def run_cases(tmp, cases: dict, timeout: float = 240) -> list:
         jcfg = _jcfg(arch, kw)
         params = numpy_params(jcfg)
         rng = np.random.default_rng(1)
-        tokens = rng.integers(0, jcfg.vocab_size, (BATCH, SEQ),
+        batch = kw.get("batch", BATCH)
+        tokens = rng.integers(0, jcfg.vocab_size, (batch, SEQ),
                               dtype=np.int32)
         # whisper's frames and pixtral's patches, as the stub front ends
         # give them (std 0.02)
-        front = {k: (rng.standard_normal((BATCH, n, jcfg.d_model)) * 0.02
+        front = {k: (rng.standard_normal((batch, n, jcfg.d_model)) * 0.02
                      ).astype(np.float32)
                  for k, n in (("frames", jcfg.encoder_seq),
                               ("patches", jcfg.n_patches)) if n}

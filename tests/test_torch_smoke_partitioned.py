@@ -15,10 +15,16 @@ of the prompt).
   leaf by leaf (the logits still laid out on the mesh, every parameter,
   gradient and moment placed), its launches -- counted by wrappers
   around the plain versions -- equal to that route's;
+* (a) from the same placed weights, Qwen3 over an int8 cache on
+  ``model`` and recurrentgemma over a cache on ``data`` with the batch
+  whole (``PART_SPLIT``): the attention's merge over a group of one,
+  held against the unpartitioned route;
 * (b) the collectives rank 0's program issues on the CPU equal to the
   dry run's on the meta device, cell by cell, granite's train and
   prefill cells with their all-to-alls, mamba2's ``long_500k`` beside
-  the three.
+  the three, and the caches split on the sequence: recurrentgemma's and
+  gemma3-27b's (reduced) ``long_500k`` and Qwen3's ``decode_32k`` under
+  ``--optimized``.
 
 In a file of its own so that parallel workers take it apart from the
 other helpers (``tests/test_torch_smoke_helpers.py``).
@@ -46,7 +52,8 @@ SMALL = {"qwen3-0.6b": {"vocab_size": 512},
          "mamba2-130m": {"vocab_size": 512},
          "recurrentgemma-9b": {"vocab_size": 512},
          "whisper-tiny": {"vocab_size": 512},
-         "pixtral-12b": {"vocab_size": 512}}
+         "pixtral-12b": {"vocab_size": 512},
+         "gemma3-27b": {"vocab_size": 512}}
 
 
 def small_config(full):
@@ -114,11 +121,14 @@ cells, arch, kw = (json.loads(a) for a in sys.argv[1:])
 full = configs.get_config
 small = lambda name: configs.reduced(full(name)).replace(**kw)
 configs.get_config = dryrun.get_config = small
-for name, (batch, seq) in cells.items():
-    shapes.SHAPES[name] = dataclasses.replace(shapes.SHAPES[name], seq=seq,
-                                              global_batch=batch)
+out = {}
 with dryrun.fake_world(False):
-    out = {name: dryrun.lower_cell(arch, name, False)[0] for name in cells}
+    for name, (shape, optimized, batch, seq) in cells.items():
+        shapes.SHAPES[shape] = dataclasses.replace(
+            shapes.SHAPES[shape], seq=seq, global_batch=batch)
+        rules, cfg = (dryrun.optimized_overrides(arch, shape)[:2]
+                      if optimized else (None, None))
+        out[name] = dryrun.lower_cell(arch, shape, False, rules, cfg)[0]
 print("RECORDS " + json.dumps(out))
 """
 
@@ -130,9 +140,11 @@ def _small_records() -> dict:
     import subprocess
     import sys
     from test_torch_ranks import ROOT, env
+    def cells(arch):
+        return {n: [*SMOKE.cell_shape(n), *SMALL_CELLS[SMOKE.cell_shape(n)[0]]]
+                for n in SMOKE.part_cells(arch)}
     procs = {arch: subprocess.Popen(
-        [sys.executable, "-c", RECORDS, json.dumps(
-            {n: SMALL_CELLS[n] for n in SMOKE.part_cells(arch)}),
+        [sys.executable, "-c", RECORDS, json.dumps(cells(arch)),
          json.dumps(arch), json.dumps(kw)], cwd=ROOT, env=env(), text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         for arch, kw in SMALL.items()}
@@ -204,11 +216,13 @@ def test_phase_24_launches_are_the_unpartitioned_routes(phase_24):
     assert launches["matmul"] > (1 + SMOKE.PART_DECODE_STEPS) * (7 * n + 1)
     assert launches["bn_forward"] == launches["bn_backward"] == 0
     total = {}
-    for arch in SMOKE.PART_ARCHS:
-        for part in ("one_rank", "fake"):
-            for name, n_ in out[arch][part]["launches"].items():
+    for arch in SMOKE.PART_ARCHS + ("gemma3-27b",):
+        one = out[arch].get("one_rank", {})
+        for part in (one, one.get("split", {}), out[arch]["fake"]):
+            for name, n_ in part.get("launches", {}).items():
                 total[name] = total.get(name, 0) + n_
     assert got["launches"] == total
+    assert set(out) == set(SMOKE.PART_ARCHS) | {"gemma3-27b", "seconds"}
 
 
 def test_phase_24_moe_launches_are_the_unpartitioned_routes(phase_24):
@@ -334,3 +348,47 @@ def test_phase_24_frontend_collectives_equal_the_dry_run(phase_24, arch,
     kinds = fake["card_read"]["collective_by_kind"]
     assert kinds["all-gather"] > 0 and fake["temp_bytes"] > 0
     assert (fake["alias_bytes"] > 0) == (cell == "decode_32k")
+
+
+SPLIT = {"qwen3-0.6b": (torch.int8, 5), "recurrentgemma-9b": (None, 3)}
+
+
+@pytest.mark.parametrize("arch", sorted(SPLIT))
+def test_phase_24_split_caches_hold_against_the_unpartitioned_route(
+        phase_24, arch):
+    """(a)'s split layouts from the weights already placed: Qwen3 with an
+    int8 cache on ``model`` (its attention leaves k, v, their scales and
+    the positions), recurrentgemma with its cache on ``data`` and the
+    batch whole; the prefill's logits and cache bit-equal, the decode
+    steps within the serving gate on the unpartitioned route's tokens,
+    and the launches the unpartitioned route's (held inside the phase)."""
+    _, out = phase_24
+    split = out[arch]["one_rank"]["split"]
+    dtype, attn_leaves = SPLIT[arch]
+    cfg = small_config(get_config)(arch)
+    if arch == "recurrentgemma-9b":
+        cfg = cfg.replace(n_layers=3)
+    cache = Model(cfg.replace(cache_dtype=dtype)).make_cache(
+        1, 1, abstract=True)
+    assert split["prefill_cache_leaves_equal"] == len(list(
+        SMOKE.leaf_items(cache)))
+    assert [len(c) for c in cache.values() if "k" in c] == [attn_leaves]
+    assert split["logits_bit_equal"][0]
+    assert len(split["logits_row_rel"]) == 1 + SMOKE.PART_DECODE_STEPS
+    assert max(split["logits_row_rel"]) <= split["limit"]
+    assert split["launches"]["flash_attention"] > 0
+
+
+@pytest.mark.parametrize("arch,cell", [("gemma3-27b", "long_500k"),
+                                       ("recurrentgemma-9b", "long_500k"),
+                                       ("qwen3-0.6b", "decode_32k.opt")])
+def test_phase_24_split_cells_equal_the_dry_run(phase_24, arch, cell):
+    """(b)'s caches split on the sequence (held equal to the dry run's
+    inside the phase): each decode step merges its attention across the
+    cache's sequence axis by all-reduces and writes its cache in
+    place."""
+    _, out = phase_24
+    fake = out[arch]["fake"][cell]
+    kinds = fake["card_read"]["collective_by_kind"]
+    assert kinds["all-reduce"] > 0 and fake["temp_bytes"] > 0
+    assert fake["alias_bytes"] > 0
