@@ -1,0 +1,7 @@
+"""fused_add_rmsnorm_roofline.prefill_over: the fused add and RMSNorm kernel: least time by the roofline over event-timed device time; read in the
+above-capacity prefill cell's traced runs, moves prefill_tokens_per_s."""
+from portbench.readings import roofline_pct
+
+
+def read(r):
+    return roofline_pct(r, ("fused_add_rmsnorm",)) if r["kind"] == "prefill" else None
